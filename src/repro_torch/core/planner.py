@@ -1,0 +1,230 @@
+"""Query planning — the pure "decide the plan" layer of the engine.
+
+FD-SQ (latency) and FQ-SD (throughput) are two *logical* configurations of
+one physical configuration; choosing between them is a scheduling
+decision. This module is that decision, as a pure function:
+
+    plan(query_shape, dataset_meta, engine_cfg, mode) -> ExecutionPlan
+
+An :class:`ExecutionPlan` is frozen, hashable data naming the executor
+(``repro_torch.core.executors``), the chunking and the padding geometry.
+Executors key their cached callables on plans, so planning the same
+shapes twice hits the same cache entry however many mode switches
+happened in between.
+
+Names, against the JAX package this port mirrors:
+
+    backend "torch"  <->  "xla"     plain tensor ops
+    backend "cuda"   <->  "pallas"  the hand-written fused kernel
+    executor "fdsq-torch"  <->  "fdsq-xla"
+    executor "fqsd-torch"  <->  "fqsd-xla"
+    executor "fdsq-cuda"   <->  "fdsq-pallas"
+
+This slice plans resident single-device f32 search. Streamed,
+quantized (int8) and sharded plans raise ``NotImplementedError`` naming
+the slice of the port that brings them. Block fields stay 0 (the kernel's
+``DEFAULT_BLOCKS``): per-device autotuned blocks come with the tuning
+slice, and no capability verdict ever swaps the kernel for a plain path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Sequence
+
+Backend = Literal["torch", "cuda"]
+ModeHint = Literal["fdsq", "fqsd", "fqsd-streamed"]
+
+#: Executors the planner may select (must match the executor registry).
+PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda")
+
+BACKENDS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePlan:
+    """Resolved logical configuration — logged for observability / tests."""
+
+    mode: str  # "fdsq" | "fqsd"
+    backend: str
+    m: int
+    k: int
+    metric: str
+    chunk_rows: int
+    n_partitions: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPlan(EnginePlan):
+    """EnginePlan + the physical decisions: executor, chunking, padding and
+    the storage tier the scan reads."""
+
+    executor: str = "fdsq-torch"
+    padded_rows: int = 0
+    padded_dim: int = 0
+    n_valid: int = 0
+    sharded: bool = False
+    tier: str = "f32"
+    rescore_factor: int = 4
+    n_shards: int = 1
+    #: kernel tile shapes; 0 means the kernel defaults (DEFAULT_BLOCKS)
+    block_m: int = 0
+    block_n: int = 0
+    block_d: int = 0
+    #: streamed-pipeline knobs; unset (0 / -1.0) for resident plans
+    prefetch_depth: int = 0
+    spec_trigger: float = -1.0
+
+    def cache_key(self) -> tuple:
+        """Everything that determines the cached callable for this plan
+        (query batch m and padding geometry included; log-only fields not)."""
+        return (
+            self.executor, self.m, self.k, self.metric, self.chunk_rows,
+            self.n_partitions, self.padded_rows, self.padded_dim,
+            self.tier, self.rescore_factor,
+            self.block_m, self.block_n, self.block_d,
+            self.prefetch_depth, self.spec_trigger,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetMeta:
+    """Shape facts about the (padded) dataset a plan will run against."""
+
+    padded_rows: int
+    padded_dim: int
+    n_valid: int
+    sharded: bool = False
+    resident: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetStoreMeta(DatasetMeta):
+    """DatasetMeta + what a DatasetStore knows: tier, shard layout and
+    whether shards are files (pure data; the store never reaches the
+    planner)."""
+
+    tier: str = "f32"
+    n_shards: int = 1
+    rows_per_shard: int = 0
+    mmap: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """The engine's constructor knobs as pure data (planner input)."""
+
+    k: int
+    metric: str = "l2"
+    backend: str = "torch"
+    chunk_rows: int = 8192
+    n_partitions: int = 8
+    sharded: bool = False
+    mesh_axes: Sequence[str] = ("data", "model")
+    rescore_factor: int = 4
+    rescore_pinned: bool = False
+    dtype: str = "float32"
+
+
+def largest_divisor_at_most(n: int, cap: int) -> int:
+    """Largest divisor of `n` that is <= `cap` (>= 1 for any n >= 1);
+    an O(sqrt n) divisor walk."""
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    cap = min(cap, n)
+    if cap < 1:
+        return 1
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            if d <= cap:
+                best = max(best, d)
+            co = n // d
+            if co <= cap:
+                best = max(best, co)
+        d += 1
+    return best
+
+
+def plan(
+    query_shape: Sequence[int],
+    dataset_meta: DatasetMeta,
+    engine_cfg: EngineConfig,
+    mode: ModeHint = "fdsq",
+    k: int | None = None,
+    metric: str | None = None,
+    **unknown,
+) -> ExecutionPlan:
+    """Pure planning function: shapes + config in, ExecutionPlan out.
+
+    ``k`` and ``metric`` are per-request overrides of the engine config;
+    they ride ``ExecutionPlan.cache_key()``. Unknown keyword arguments are
+    rejected loudly.
+
+    * backend="cuda"  -> "fdsq-cuda", the fused kernel, for both logical
+      modes and all three metrics (cos through pre-normalised rows);
+    * mode="fqsd"     -> "fqsd-torch", a chunked scan whose chunk size is
+      a real divisor of the padded row count;
+    * mode="fdsq"     -> "fdsq-torch", a partition fan-out whose partition
+      count divides the padded rows.
+    """
+    if unknown:
+        raise TypeError(
+            "plan() got unexpected keyword argument(s): "
+            + ", ".join(repr(key) for key in sorted(unknown))
+        )
+    if mode not in ("fdsq", "fqsd", "fqsd-streamed"):
+        raise ValueError(f"unknown mode hint {mode!r}")
+    if len(query_shape) == 2:
+        m = int(query_shape[0])
+    elif len(query_shape) == 1:
+        m = 1
+    else:
+        raise ValueError(f"query_shape must be (m, d) or (d,), got {query_shape}")
+
+    cfg = engine_cfg
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {cfg.backend!r}")
+    k = int(cfg.k) if k is None else int(k)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    metric = cfg.metric if metric is None else metric
+    rows = int(dataset_meta.padded_rows)
+    chunk = int(cfg.chunk_rows)
+    n_parts = int(cfg.n_partitions)
+    tier = dataset_meta.tier if isinstance(dataset_meta, DatasetStoreMeta) else "f32"
+
+    if mode == "fqsd-streamed" or not dataset_meta.resident:
+        raise NotImplementedError(
+            "out-of-core streamed search is ported in the streaming slice")
+    if cfg.sharded or dataset_meta.sharded:
+        raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
+    if tier == "int8" and mode == "fqsd" and metric == "l2":
+        raise NotImplementedError("the int8 tier is ported in the int8 slice")
+
+    if cfg.backend == "cuda":
+        executor = "fdsq-cuda"
+    elif mode == "fdsq":
+        executor = "fdsq-torch"
+        n_parts = largest_divisor_at_most(rows, max(1, n_parts))
+    else:
+        executor = "fqsd-torch"
+        chunk = largest_divisor_at_most(rows, max(1, chunk))
+
+    return ExecutionPlan(
+        mode=mode,
+        backend=cfg.backend,
+        m=m,
+        k=k,
+        metric=metric,
+        chunk_rows=chunk,
+        n_partitions=n_parts,
+        executor=executor,
+        padded_rows=rows,
+        padded_dim=int(dataset_meta.padded_dim),
+        n_valid=int(dataset_meta.n_valid),
+        sharded=False,
+        tier="f32",
+        rescore_factor=int(cfg.rescore_factor),
+        n_shards=int(getattr(dataset_meta, "n_shards", 1)),
+    )

@@ -1,0 +1,33 @@
+"""Seeded synthetic vector data (numpy), for the tests and the card check.
+
+Real corpora are unavailable offline; these generators reproduce the
+structure a kNN engine cares about — shapes, dtypes, cluster structure
+with many near-ties — deterministically from a seed.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def vector_dataset(
+    n: int, d: int, n_clusters: int = 64, seed: int = 0, dtype=np.float32
+) -> np.ndarray:
+    """Clustered vectors (GIST/MSMARCO-like local structure): kNN results
+    are dominated by intra-cluster neighbours, so the queue sees realistic
+    score distributions (many near-ties)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, d)).astype(dtype) * 2.0
+    assign = rng.integers(0, n_clusters, n)
+    x = centers[assign] + rng.standard_normal((n, d)).astype(dtype) * 0.5
+    return x.astype(dtype)
+
+
+def query_stream(
+    dataset: np.ndarray, n_queries: int, seed: int = 0, noise: float = 0.3
+) -> np.ndarray:
+    """Queries near dataset points (in-distribution, as the paper's use
+    cases query)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, dataset.shape[0], n_queries)
+    q = dataset[idx] + rng.standard_normal((n_queries, dataset.shape[1])) * noise
+    return q.astype(dataset.dtype)

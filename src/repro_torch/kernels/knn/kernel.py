@@ -1,0 +1,267 @@
+"""Fused exact kNN on Hopper: distances folded into top-k queues on chip.
+
+Replaces ``repro/kernels/knn/kernel.py::knn_pallas`` (``_knn_kernel``) and
+the bitonic routines of ``repro/kernels/bitonic.py`` it calls. The CUDA
+sources are ``../csrc/knn.cu`` and ``../csrc/bitonic.cuh``.
+
+What it computes, exactly as the TPU kernel does: for each query, the
+k_eff lexicographically smallest (score, index) pairs over the dataset,
+sorted; l2 scores are ``max(qn - 2·q·x + xn, 0)``, ip scores ``-q·x``,
+rows whose norm is not finite score +inf. The (M, N) score matrix never
+reaches device memory.
+
+Design. The TPU grid runs in order with one queue per m-tile, and only the
+m axis is parallel, so for FD-SQ (m = 1) it would be one block on a card of
+132 SMs. Here the n-tiles are split instead: ``knn_scan`` runs a grid of
+(m / bm, S) blocks, block (i, s) scanning a contiguous range of n-tiles
+into its own sorted queues in shared memory (the tile and the queue both
+live there, so bm shrinks as k_eff grows), with S chosen to fill the card;
+``knn_merge`` then reduces the S sorted queues of each query, 8 at a time,
+in a tree of launches. The result is the exact top-k of the union, so it
+equals the sequential TPU result bit for bit whenever the scores do.
+
+Bound on this card: the scan reads x once (N·d·4 bytes in f32) and does
+2·M·N·d f32 FLOPs on the CUDA cores (no tensor cores, no TF32: f32 stays
+IEEE); at the main path's shapes (M <= 16) the bytes bound it. The design
+reads each x tile once per m-tile, from a slice staged in shared memory by
+coalesced 16-byte loads, and keeps the queues on chip; it does not yet
+overlap loads with compute (``cp.async``/TMA) or use the tensor cores.
+
+Pruning skips a tile when every query's tile minimum is strictly worse
+than its block queue's current worst value. A block's queue has seen only
+its own range, so on the same data the skip count reads lower than the
+TPU's sequential grid (the plain version with S = 1 gives the TPU's count);
+it is a statistic, not a result.
+
+On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises. ``LAUNCHES`` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.topk import topk_smallest, tree_merge_sorted
+
+#: Kernel launches per kernel name, counted where each wrapper launches.
+LAUNCHES = {"knn_scan": 0, "knn_merge": 0}
+
+_METRICS = {"l2": 0, "ip": 1}
+_BLOCK_ROWS = (1, 2, 4, 8, 16)  # bm values the scan kernel is built for
+_THREADS = 256  # threads per block; the scan scores one row per thread
+_DEPTH = 32  # features staged per pass: dim must be a multiple
+_MERGE_GROUP = 8  # queues one merge block reduces
+_SM_SMEM_BYTES = 233_472  # shared memory per SM on Hopper (228 KB)
+_BLOCK_SMEM_MAX = 232_448  # shared memory one block may take (227 KB)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def scan_smem_bytes(bm: int, bn: int, k_eff: int) -> int:
+    """Shared memory of one scan block (``scan_smem_bytes`` in knn.cu)."""
+    return bm * bn * 8 + bm * k_eff * 8 + _THREADS * (_DEPTH + 1) * 4 + bm * _DEPTH * 4
+
+
+def max_block_m(k_eff: int, bn: int) -> int:
+    """Largest bm whose tile and queues fit one block's shared memory."""
+    fit = [b for b in _BLOCK_ROWS if scan_smem_bytes(b, bn, k_eff) <= _BLOCK_SMEM_MAX]
+    if not fit:
+        raise ValueError(f"k_eff={k_eff}, bn={bn}: queue and tile exceed shared memory")
+    return fit[-1]
+
+
+def tiles_per_split(n_tiles: int, splits: int) -> int:
+    return -(-n_tiles // splits)
+
+
+def scan_splits(m_tiles: int, n_tiles: int, bm: int, bn: int, k_eff: int,
+                device) -> int:
+    """S: enough blocks for one full wave of the card, no split empty."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = max(1, min(2048 // _THREADS,
+                        _SM_SMEM_BYTES // (scan_smem_bytes(bm, bn, k_eff) + 1024)))
+    splits = min(n_tiles, 65535, max(1, -(-sms * per_sm // m_tiles)))
+    return -(-n_tiles // tiles_per_split(n_tiles, splits))
+
+
+def _check(q, x, qn, xn, k_eff, metric, bm, bn):
+    if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and x {tuple(x.shape)} must be (M, d), (N, d)")
+    for name, t, rows in (("qn", qn, q.shape[0]), ("xn", xn, x.shape[0])):
+        if t.shape != (rows,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 of shape ({rows},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if q.dtype != x.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q and x must both be f32 or both bf16, got {q.dtype}, {x.dtype}")
+    if metric not in _METRICS:
+        raise ValueError(f"kernel metric must be l2 or ip, got {metric!r}")
+    m, n = q.shape[0], x.shape[0]
+    if bm not in _BLOCK_ROWS or m % bm:
+        raise ValueError(f"bm={bm} must be one of {_BLOCK_ROWS} and divide M={m}")
+    if bn % _THREADS or bn & (bn - 1) or n % bn:
+        raise ValueError(f"bn={bn} must be a power of two >= {_THREADS} dividing N={n}")
+    if k_eff & (k_eff - 1) or not 1 <= k_eff <= bn:
+        raise ValueError(f"k_eff={k_eff} must be a power of two <= bn={bn}")
+
+
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"tensors must share one CUDA device, got {t.device} and {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("tensors must be contiguous and 16-byte aligned")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
+             prune: bool = True, splits: int | None = None):
+    """Per-split sorted queues: (M, S, k_eff) f32 values and i32 indices,
+    and (M / bm, S) i32 skip counts. ``splits=None`` fills the card."""
+    _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    if q.device.type == "cpu":
+        return knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits or 1)
+    _check_cuda(q, x, qn, xn)
+    if q.shape[1] % _DEPTH:
+        raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
+    if scan_smem_bytes(bm, bn, k_eff) > _BLOCK_SMEM_MAX:
+        raise ValueError(f"bm={bm}, bn={bn}, k_eff={k_eff} exceed shared memory")
+    from repro_torch.kernels.build import load_library
+
+    m, n, d = q.shape[0], x.shape[0], q.shape[1]
+    m_tiles, n_tiles = m // bm, n // bn
+    if splits is None:
+        splits = scan_splits(m_tiles, n_tiles, bm, bn, k_eff, q.device)
+    if not 1 <= splits <= min(n_tiles, 65535):
+        raise ValueError(f"splits={splits} must be in [1, min({n_tiles}, 65535)]")
+    tps = tiles_per_split(n_tiles, splits)
+    if -(-n_tiles // tps) != splits:
+        raise ValueError(f"splits={splits} leaves a split of {n_tiles} tiles empty")
+    out_v = torch.empty((m, splits, k_eff), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((m, splits, k_eff), dtype=torch.int32, device=q.device)
+    skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
+    err = load_library().knn_scan(
+        q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), skips.data_ptr(),
+        m, n, d, k_eff, bm, bn, _METRICS[metric], int(prune), splits, tps,
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "knn_scan")
+    LAUNCHES["knn_scan"] += 1
+    return out_v, out_i, skips
+
+
+def knn_merge(v, i):
+    """(M, S, k) sorted queues -> (M, k): the k smallest pairs of each
+    query's S queues, sorted (one launch per tree level, at least one)."""
+    if v.ndim != 3 or v.shape != i.shape or v.dtype != torch.float32 or i.dtype != torch.int32:
+        raise ValueError(f"expected (M, S, k) f32 and i32 queues, got {v.dtype} {i.dtype} "
+                         f"{tuple(v.shape)} {tuple(i.shape)}")
+    k = v.shape[2]
+    if k & (k - 1):
+        raise ValueError(f"queue width k={k} must be a power of two")
+    if v.device.type == "cpu":
+        return knn_merge_plain(v, i)
+    _check_cuda(v, i)
+    from repro_torch.kernels.build import load_library
+
+    lib, stream = load_library(), torch.cuda.current_stream(v.device).cuda_stream
+    m = v.shape[0]
+    while True:
+        splits = v.shape[1]
+        groups = -(-splits // _MERGE_GROUP)
+        out_v = torch.empty((m, groups, k), dtype=torch.float32, device=v.device)
+        out_i = torch.empty((m, groups, k), dtype=torch.int32, device=v.device)
+        _raise_on(lib.knn_merge(v.data_ptr(), i.data_ptr(), out_v.data_ptr(),
+                                out_i.data_ptr(), m, splits, _MERGE_GROUP, k, stream),
+                  "knn_merge")
+        LAUNCHES["knn_merge"] += 1
+        v, i = out_v, out_i
+        if groups == 1:
+            return v[:, 0], i[:, 0]
+
+
+def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
+              bn: int = 512, bd: int = 512, prune: bool = True):
+    """Fused exact kNN with the TPU kernel's contract: M % bm == N % bn ==
+    d % bd == 0, k_eff a power of two <= bn, xn (N,) f32 with +inf on
+    padded rows, q and x of one dtype. Returns (values (M, k_eff), indices
+    (M, k_eff), skips (M / bm, 1)) — skips summed over the splits.
+
+    ``bd`` is checked against d and has no other effect on the card: the
+    scan stages ``kDepth`` (32) features per slice whatever ``bd`` is. It
+    stays in the signature so the plan's blocks match the TPU kernel's."""
+    if q.shape[1] % bd:
+        raise ValueError(f"d={q.shape[1]} not a multiple of bd={bd}")
+    if q.device.type == "cpu":
+        return knn_fused_plain(q, x, xn, k_eff, metric, bm, bn, bd, prune)
+    qn = torch.sum(q.to(torch.float32) ** 2, dim=-1)
+    sv, si, skips = knn_scan(q, x, qn, xn, k_eff, metric, bm, bn, prune)
+    v, i = knn_merge(sv, si)
+    return v, i, skips.sum(dim=1, keepdim=True, dtype=torch.int32)
+
+
+# ------------------------------------------------------------ plain versions
+def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
+                   prune: bool = True, splits: int = 1):
+    """The scan's semantics in torch ops: each split runs the TPU grid's
+    sequential loop over its n-tiles (score tile, strict prune test per
+    m-tile, exact queue update); splits and m-tiles advance together."""
+    _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    m, n = q.shape[0], x.shape[0]
+    m_tiles, n_tiles = m // bm, n // bn
+    tps = tiles_per_split(n_tiles, splits)
+    dev = q.device
+    q32 = q.to(torch.float32)
+    buf_v = torch.full((m, splits, k_eff), torch.inf, dtype=torch.float32, device=dev)
+    buf_i = torch.full((m, splits, k_eff), -1, dtype=torch.int32, device=dev)
+    skips = torch.zeros((m_tiles, splits), dtype=torch.int32, device=dev)
+    lanes = torch.arange(bn, device=dev)
+    for t in range(tps):
+        tile = torch.arange(splits, device=dev) * tps + t  # (S,)
+        live = tile < n_tiles
+        rows = tile.clamp(max=n_tiles - 1)[:, None] * bn + lanes  # (S, bn)
+        cross = torch.matmul(q32, x[rows].to(torch.float32).transpose(1, 2))  # (S, M, bn)
+        cross = cross.permute(1, 0, 2)  # (M, S, bn)
+        xnt = xn[rows][None]  # (1, S, bn)
+        if metric == "l2":
+            s = torch.clamp_min(qn[:, None, None] - 2.0 * cross + xnt, 0.0)
+        else:
+            s = -cross
+        s = torch.where(torch.isfinite(xnt), s, torch.inf)
+        idx = rows.to(torch.int32).expand(m, splits, bn)
+        if prune:
+            prunable = torch.amin(s, dim=-1) > buf_v[:, :, -1]  # (M, S)
+            skip = prunable.reshape(m_tiles, bm, splits).all(dim=1) & live
+        else:
+            skip = torch.zeros((m_tiles, splits), dtype=torch.bool, device=dev)
+        skips += skip.to(torch.int32)
+        new_v, new_i = topk_smallest(torch.cat([buf_v, s], -1),
+                                     torch.cat([buf_i, idx], -1), k_eff)
+        take = (live & ~skip).repeat_interleave(bm, dim=0)[:, :, None]
+        buf_v = torch.where(take, new_v, buf_v)
+        buf_i = torch.where(take, new_i, buf_i)
+    return buf_v, buf_i, skips
+
+
+def knn_merge_plain(v, i):
+    """(M, S, k) sorted queues -> (M, k) via ``tree_merge_sorted``."""
+    out = tree_merge_sorted(v.transpose(0, 1), i.transpose(0, 1))
+    return out.scores, out.indices
+
+
+def knn_fused_plain(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
+                    bn: int = 512, bd: int = 512, prune: bool = True):
+    """The TPU kernel's semantics in torch ops on any device: one sequential
+    queue per m-tile over all n-tiles in order (S = 1), so with the same
+    blocks its skip count is the TPU kernel's."""
+    if q.shape[1] % bd:
+        raise ValueError(f"d={q.shape[1]} not a multiple of bd={bd}")
+    qn = torch.sum(q.to(torch.float32) ** 2, dim=-1)
+    v, i, skips = knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, 1)
+    return v[:, 0], i[:, 0], skips

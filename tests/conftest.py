@@ -21,6 +21,11 @@ def pytest_configure(config):
         "chaos: seeded fault-injection soaks (CI runs them over a seed "
         "matrix via -m chaos; CHAOS_SEED selects the fault plan seed)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (tests/test_torch_cuda.py); "
+        "skips where torch.cuda.is_available() is false",
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,103 @@
+"""The port stands apart from the JAX package and runs where it is asked to.
+
+* No module of ``repro_torch`` and not ``chip_smoke.py`` imports JAX or the
+  JAX package ``repro`` (only the parity tests import both).
+* Entry points run on a CUDA device unless the caller passes
+  ``device="cpu"``; on a host without one they raise instead of quietly
+  running on the CPU.
+* The kernel modules import without ``nvcc``: the CUDA library is built at
+  its first launch, never at import.
+"""
+from __future__ import annotations
+
+import ast
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_port_module_imports_without_jax():
+    """Import the whole package in a fresh interpreter that cannot see JAX."""
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in sorted(PORT.rglob("*.py"))]
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
+        "from repro_torch.kernels import build\n"
+        "assert build._lib is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_engine_without_device_needs_cuda():
+    from repro_torch import ExactKNN
+
+    if torch.cuda.is_available():
+        assert ExactKNN(k=1).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ExactKNN(k=1)
+    assert ExactKNN(k=1, device="cpu").device.type == "cpu"
+
+
+def test_convert_without_device_needs_cuda():
+    """The state carried from the JAX package lands on the CUDA device too,
+    unless the caller asks for the CPU."""
+    import numpy as np
+
+    from repro_torch.convert import padded_from_numpy
+
+    v, n = np.zeros((4, 2), np.float32), np.zeros(4, np.float32)
+    if torch.cuda.is_available():
+        assert padded_from_numpy(v, n, 4).vectors.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            padded_from_numpy(v, n, 4)
+    assert padded_from_numpy(v, n, 4, device="cpu").vectors.device.type == "cpu"
+
+
+def test_kernel_module_imports_without_nvcc():
+    mod = importlib.import_module("repro_torch.kernels.knn.kernel")
+    build = importlib.import_module("repro_torch.kernels.build")
+    assert mod.LAUNCHES.keys() == {"knn_scan", "knn_merge"}
+    assert build.CSRC.is_dir() and (build.CSRC / "knn.cu").is_file()
+    assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
