@@ -2,42 +2,60 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and hold its kernels to
 their plain versions.
 
-    python3 chip_smoke.py        # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py                  # from the root of a checkout, one CUDA card
+    python3 chip_smoke.py --phases exact   # build + the named phases only
 
 Phases, in order (any failure makes the run exit non-zero):
 
 1. build   — nvcc builds the kernel library from src/repro_torch/kernels/csrc
-             into build/repro_torch/ (seconds printed).
-2. exact   — knn_scan, knn_merge and knn_fused against their plain versions
-             on integer-valued data in [-8, 8] with planted duplicate rows,
-             +inf-norm rows and a ragged N, for l2/ip/cos, f32 and bf16,
-             k in {1, 7, 72, 1024}, m in {1, 16}: values, indices and skip
+             into build/repro_torch/, one process per source (seconds printed).
+2. exact   — every kernel against its plain version on integer-valued data,
+             bit for bit: knn_scan, knn_merge and knn_fused (values in [-8, 8]
+             with planted duplicate rows, +inf-norm rows and a ragged N, for
+             l2/ip/cos, f32 and bf16, k in {1, 7, 72, 1024}, m in {1, 16});
+             knn_int8_scan (rows in [-127, 127] whose int8 scale is 1, so only
+             sqrt and the square round, k in {1, 7, 72, 1024}, m in {1, 16},
+             codes never padded to the n-block); l2dist (f32 and bf16,
+             m in {1, 16}, ragged N); topk (k in {1, 72, 1024}, integer scores
+             with ties and -0.0/+0.0, ragged M and N). Values, indices and skip
              counts must be bit-identical (d = 960: every sum is below 2^24).
 3. gist    — GIST shape, FQ-SD: N = 1,000,000, d = 960, m = 16, k = 1024
              through ExactKNN(backend="cuda").fit(x).search(...).
 4. msmarco — MS-MARCO shape, FD-SQ: N = 8,841,823, d = 769, m = 1, k = 72
              and k = 1024, the dataset generated and padded on the card.
+5. int8    — the certified int8 tier, FQ-SD, m = 16, through
+             ExactKNN(...).enable_int8().search(SearchRequest(tier="int8")):
+             MS-MARCO at k = 72 (q_len 1024) on phase 4's resident dataset,
+             then GIST at k = 1024 (q_len 8192). Every returned row must be
+             bit-identical to the port's knn_exact_direct (certified rows come
+             from the rescore, the others from the fallback); the certified
+             share, the scan, merge, rescore and fallback times are printed.
+6. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+             then topk over that (16, 1,000,000) matrix at k = 1024.
 
-Phases 3 and 4 are the main path. The launch counters are set to 0 just
-before each search and read just after; every kernel must have launched.
-Each result is held against the plain version on the same padded operands
-within TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in
-another order), with indices equal wherever the plain scores around them
-are more than twice that apart. Each kernel is timed with CUDA events
-(median of REPEATS after a warm-up) beside its plain version, one PyTorch
-call computing the same function (a yardstick the port never calls), and
-its bound on this card: over the padded operands the kernel reads, and
-for the scan also over the unpadded rows alone. The bounds are stated for
-the H100 SXM (CARD); on any other card the run stops before it measures.
+Phases 3-6 are the main path. The launch counters are set to 0 just before
+each search (phase 6: before l2dist + topk) and read just after; every
+kernel of the path must have launched. Each result is held against the
+plain version on the same padded operands within TOL_REL·(qn + max xn) per
+score (f32 sums over d terms taken in another order), with indices equal
+wherever the plain scores around them are more than twice that apart; topk
+and the merges move values without arithmetic and must be bit-identical.
+Each kernel is timed with CUDA events (median of REPEATS after a warm-up)
+beside its plain version, one PyTorch call computing the same function (a
+yardstick the port never calls; none exists for the int8 scan, whose
+yardstick is the f32 knn_scan at the same shape, printed as f32_scan_ms),
+and its bound on this card. The bounds are stated for the H100 SXM (CARD);
+on any other card the run stops before it measures.
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
-library_ms and bound_ms summed over the main path's searches, one of each
-shape, with the per-shape numbers under "shapes"), and as the last line
+library_ms and bound_ms summed over the main path's runs, one of each shape,
+with the per-shape numbers under "shapes"), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import statistics
@@ -58,12 +76,24 @@ TOL_REL = 1e-5
 #: f32 non-tensor peak (FLOP/s): NVIDIA's data sheet for the H100 SXM, dense
 #: rates at the full 700 W. Any other card stops the run before it measures.
 CARD, PEAK_BW, PEAK_F32 = "NVIDIA H100 80GB HBM3", 3.35e12, 67e12
-SOURCE = "src/repro_torch/kernels/csrc/knn.cu"
-REPLACES = "src/repro/kernels/knn/kernel.py:121"
+_CSRC = "src/repro_torch/kernels/csrc/"
+#: kernel -> (its CUDA source, the TPU kernel it replaces), in line order
+KERNELS = {
+    "knn_scan": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel.py:121"),
+    "knn_merge": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel.py:121"),
+    "knn_int8_scan": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel_int8.py:116"),
+    "l2dist": (_CSRC + "l2dist.cu", "src/repro/kernels/l2dist/kernel.py:58"),
+    "topk": (_CSRC + "topk.cu", "src/repro/kernels/topk/kernel.py:57"),
+}
 #: Shapes of the phases (paper Table 2 via src/repro/configs/knn_paper.py).
-EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16))
+EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1024))
 GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
+INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
+STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024)
+#: f32 operations per (query, row) pair in the int8 epilogue: scale, double,
+#: subtract, add, clamp, sqrt, subtract, clamp, square
+INT8_EPILOGUE_OPS = 9
 
 
 def log(msg: str) -> None:
@@ -77,6 +107,7 @@ class Smoke:
         self.torch, self.K, self.ops, self.dev = torch, K, ops, dev
         self.bw, self.flops = PEAK_BW, PEAK_F32
         self.shapes: list[dict] = []  # one per main-path search
+        self.msmarco_eng = None  # phase 4's engine, quantised by phase 5
 
     # ------------------------------------------------------------ helpers
     def sync(self) -> None:
@@ -160,9 +191,119 @@ class Smoke:
                         if bad:
                             fails += 1
                             log(f"  exact FAIL {metric} {dtype} k={k} m={m}: {bad}")
-        log(f"phase exact: {cases - fails}/{cases} cases bit-identical "
+        log(f"phase exact: knn_scan {cases - fails}/{cases} cases bit-identical "
             f"(values, indices, skip counts)")
-        return fails == 0
+        ok = fails == 0
+        for name, check in (("knn_int8_scan", self._exact_int8), ("l2dist", self._exact_l2dist),
+                            ("topk", self._exact_topk)):
+            cases, bad = check(g)
+            for b in bad:
+                log(f"  exact FAIL {name} {b}")
+            log(f"phase exact: {name} {cases - len(bad)}/{cases} cases bit-identical")
+            ok &= not bad
+        return ok
+
+    def _exact_int8(self, g):
+        """The int8 scan on rows whose scale is exactly 1 (integers in
+        [-127, 127] with one entry at 127) and integer queries in [-8, 8]."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch.core.quantized import quantize_dataset
+
+        n, d = EXACT["n"], EXACT["d"]
+        x = torch.randint(-127, 128, (n, d), generator=g, device=self.dev).to(torch.float32)
+        x[torch.arange(n, device=self.dev),
+          torch.randint(0, d, (n,), generator=g, device=self.dev)] = 127.0
+        x[n // 2] = x[17]
+        x[n - 3] = x[17]
+        q = torch.randint(-8, 9, (max(EXACT["ms"]), d), generator=g,
+                          device=self.dev).to(torch.float32)
+        q[0] = x[17]
+        ds = quantize_dataset(x)
+        ds.norms_sq[torch.tensor([100, n // 4, n - 2], device=self.dev)] = torch.inf
+        cases, bad = 0, []
+        for k in EXACT["ks"]:
+            for m in EXACT["ms"]:
+                cases += 1
+                call = ops.prepare_int8(q[:m], ds, k)
+                bm, bn, _ = call.blocks
+                args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len,
+                        bm, bn)
+                m_tiles, n_tiles = call.q.shape[0] // bm, call.hn.shape[0] // bn
+                problems = []
+                for splits in (K.scan_splits(m_tiles, n_tiles, bm, bn, call.q_len, self.dev), 1):
+                    for prune in (True, False):
+                        got = K.knn_int8_scan(*args, prune, splits)
+                        want = K.knn_int8_scan_plain(*args, prune, splits)
+                        for what, a, b in zip(("bounds", "indices", "skips"), got, want):
+                            if not torch.equal(a, b):
+                                problems.append(f"scan S={splits} prune={prune} {what}")
+                    mv, mi = K.knn_merge(got[0], got[1])
+                    pv, pi = K.knn_merge_plain(got[0], got[1])
+                    if not (torch.equal(mv, pv) and torch.equal(mi, pi)):
+                        problems.append(f"merge S={splits}")
+                v, i, _ = K.knn_int8_fused(*args)
+                pv, pi, _ = K.knn_int8_scan_plain(*args, True, 1)
+                if not (torch.equal(v, pv[:, 0]) and torch.equal(i, pi[:, 0])):
+                    problems.append("fused")
+                self.sync()
+                if problems:
+                    bad.append(f"k={k} m={m} q_len={call.q_len}: {', '.join(problems)}")
+        return cases, bad
+
+    def _exact_l2dist(self, g):
+        torch = self.torch
+        from repro_torch.kernels.l2dist import kernel as L
+
+        n, d = EXACT["n"], EXACT["d"]
+        x = torch.randint(-8, 9, (n, d), generator=g, device=self.dev).to(torch.float32)
+        q = torch.randint(-8, 9, (max(EXACT["ms"]), d), generator=g,
+                          device=self.dev).to(torch.float32)
+        q[0] = x[17]
+        cases, bad = 0, []
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in EXACT["ms"]:
+                cases += 1
+                qd, xd = q[:m].to(dtype), x.to(dtype)
+                qn, xn = torch.sum(q[:m] ** 2, -1), torch.sum(x * x, -1)
+                got = L.l2dist_tiles(qd, xd, qn, xn)
+                if not torch.equal(got, L.l2dist_plain(qd, xd, qn, xn)):
+                    bad.append(f"{dtype} m={m}")
+        self.sync()
+        return cases, bad
+
+    def _exact_topk(self, g):
+        torch, K = self.torch, self.K
+        from repro_torch.kernels.topk import kernel as T
+        from repro_torch.kernels.topk import ops as TO
+        from repro_torch.kernels.topk.ref import topk_ref
+
+        n = EXACT["n"]
+        s = torch.randint(-300, 301, (max(EXACT["ms"]), n), generator=g,
+                          device=self.dev).to(torch.float32)
+        s[s == 0] = torch.where(torch.rand(int((s == 0).sum()), generator=g, device=self.dev)
+                                < 0.5, -0.0, 0.0)
+        cases, bad = 0, []
+        for k in EXACT["topk_ks"]:
+            for m in (5, 16):
+                cases += 1
+                sm = s[:m].contiguous()
+                k_eff = 1 << max(0, (k - 1).bit_length())
+                bn = max(1024, k_eff)
+                bm = T.topk_block_m(k_eff, bn, m)
+                problems = []
+                for splits in (None, 1):
+                    sv, si = T.topk_scan(sm, k_eff, bm, bn, splits)
+                    pv, pi = T.topk_scan_plain(sm, k_eff, bn, sv.shape[1])
+                    if not (torch.equal(sv, pv) and torch.equal(si, pi)):
+                        problems.append(f"scan S={sv.shape[1]}")
+                v, i = TO.topk(sm, k)
+                rv, ri = topk_ref(sm, k)
+                if not (torch.equal(v, rv) and torch.equal(i, ri)):
+                    problems.append("topk vs the full sort")
+                self.sync()
+                if problems:
+                    bad.append(f"k={k} m={m}: {', '.join(problems)}")
+        return cases, bad
 
     def _exact_case(self, call) -> str:
         torch, K = self.torch, self.K
@@ -202,7 +343,8 @@ class Smoke:
         res = eng.search(req)
         self.sync()
         launches = dict(K.LAUNCHES)
-        ok = res.plan.executor == "fdsq-cuda" and all(launches.values())
+        ok = (res.plan.executor == "fdsq-cuda" and launches["knn_scan"] >= 1
+              and launches["knn_merge"] >= 1)
         log(f"{label}: executor={res.plan.executor} mode={res.plan.mode} "
             f"launches={launches} skip_rate={float(res.kernel_stats['prune_skip_rate']):.6f} "
             f"blocks={res.kernel_stats['blocks']}")
@@ -361,26 +503,256 @@ class Smoke:
         ok = True
         for k in MSMARCO["ks"]:
             ok &= self.main_path(f"msmarco_fdsq_m{MSMARCO['m']}_k{k}", eng, q, k, "fdsq")
-        if self.dev.type == "cuda":
-            log(f"msmarco: peak device memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        log(f"msmarco: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        self.msmarco_eng = eng  # the int8 phase quantises this resident dataset
+        return ok
+
+    # ------------------------------------------------------ phase 5: int8
+    def phase_int8(self) -> bool:
+        torch = self.torch
+        ok = True
+        eng = self.msmarco_eng
+        if eng is None:  # phase 4 did not run: make the same dataset
+            x, _ = self._dataset(MSMARCO["n"], MSMARCO["d"], 1, seed=4)
+            eng = self._fit("msmarco", x, INT8["msmarco_k"])
+            del x
+        self.msmarco_eng = None
+        g = torch.Generator(device=self.dev).manual_seed(6)
+        pick = torch.randint(0, eng.n, (INT8["m"],), generator=g, device=self.dev)
+        q = (eng._ds.vectors[pick, : MSMARCO["d"]]
+             + 0.3 * torch.randn(INT8["m"], MSMARCO["d"], generator=g, device=self.dev))
+        ok &= self.main_path_int8(f"msmarco_fqsd_int8_m{INT8['m']}_k{INT8['msmarco_k']}",
+                                  eng, q, INT8["msmarco_k"])
+        del eng
+        torch.cuda.empty_cache()
+        x, q = self._dataset(GIST["n"], GIST["d"], INT8["m"], seed=3)  # phase 3's data
+        eng = self._fit("gist", x, INT8["gist_k"])
+        del x
+        ok &= self.main_path_int8(f"gist_fqsd_int8_m{INT8['m']}_k{INT8['gist_k']}",
+                                  eng, q, INT8["gist_k"])
         del eng
         torch.cuda.empty_cache()
         return ok
 
+    def main_path_int8(self, label: str, eng, q, k: int) -> bool:
+        """One int8-tier search on the main path, held against the port's
+        direct-form oracle and the scan's plain version, timed by phase."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch import SearchRequest
+
+        t0 = time.perf_counter()
+        eng.enable_int8()
+        self.sync()
+        quantize_s = time.perf_counter() - t0
+        req = SearchRequest(queries=q, k=k, tier="int8")
+        self.sync()
+        K.reset_launch_counts()
+        res = eng.search(req)
+        self.sync()
+        launches = dict(K.LAUNCHES)
+        cert = res.certified
+        m = q.shape[0]
+        v, i = res.topk.scores, res.topk.indices
+        ok = (res.plan.executor == "fqsd-int8-cuda" and launches["knn_int8_scan"] >= 1
+              and launches["knn_merge"] >= 1)
+        ok &= tuple(v.shape) == (m, k) and bool(torch.isfinite(v).all())
+        ok &= bool(((i >= 0) & (i < eng.n)).all())
+        share = float(cert.to(torch.float32).mean())
+        log(f"{label}: quantised in {quantize_s:.2f} s; executor={res.plan.executor} "
+            f"launches={launches} skip_rate={float(res.kernel_stats['prune_skip_rate']):.6f} "
+            f"blocks={res.kernel_stats['blocks']} certified {int(cert.sum())}/{m} "
+            f"(share {share:.4f})")
+
+        e2e = []
+        for _ in range(REPEATS):
+            t1 = time.perf_counter()
+            eng.search(req)
+            self.sync()
+            e2e.append((time.perf_counter() - t1) * 1e3)
+
+        # every row against the port's own oracle: certified rows come from
+        # the rescore, the others from the fallback, both in the direct form
+        ds, qv, chunk = eng._ds, eng._pad_queries(q), res.plan.chunk_rows
+        t1 = time.perf_counter()
+        oracle = ops.knn_exact_direct(qv, ds.vectors, ds.norms, k, chunk)
+        self.sync()
+        oracle_s = time.perf_counter() - t1
+        cert_exact = (torch.equal(v[cert], oracle.scores[cert])
+                      and torch.equal(i[cert], oracle.indices[cert]))
+        all_exact = torch.equal(v, oracle.scores) and torch.equal(i, oracle.indices)
+        ok &= cert_exact and all_exact
+
+        # the kernels' operands, exactly as the executor prepares them
+        call = ops.prepare_int8(qv, eng._int8, k, res.plan.rescore_factor)
+        bm, bn, _ = call.blocks
+        args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len, bm, bn)
+        m_tiles, n_tiles = call.q.shape[0] // bm, call.hn.shape[0] // bn
+        splits = K.scan_splits(m_tiles, n_tiles, bm, bn, call.q_len, self.dev)
+        sv, si, sk = K.knn_int8_scan(*args, True, splits)
+        pv, pi, psk = K.knn_int8_scan_plain(*args, True, splits)
+        lb, li = K.knn_merge(sv, si)
+        mpv, mpi = K.knn_merge_plain(sv, si)
+        out, cert2 = ops.rescore_certify(qv, lb[:m], li[:m], ds.vectors, k, call.r)
+        self.sync()
+        hmax = float(call.hn[torch.isfinite(call.hn)].max())
+        ok_scan, err_scan, _ = self._close(sv, si, pv, pi,
+                                           TOL_REL * (call.qn[:, None, None] + hmax))
+        merge_exact = torch.equal(lb, mpv) and torch.equal(li, mpi)
+        rescore_same = torch.equal(cert2, cert) and torch.equal(out.scores[cert], v[cert])
+        ok &= ok_scan and merge_exact and rescore_same
+        log(f"{label}: all rows bit-identical to knn_exact_direct={all_exact} (certified "
+            f"rows {cert_exact}); oracle {oracle_s:.2f} s; scan vs plain max|d|={err_scan:.3e}; "
+            f"merge bit-identical={merge_exact}; rescore repeats the search={rescore_same}; "
+            f"skips kernel={int(sk.sum())} plain={int(psk.sum())} of {m_tiles * n_tiles}; "
+            f"ok={ok}")
+
+        scan_ms = self.ms(lambda: K.knn_int8_scan(*args, True, splits))
+        merge_ms = self.ms(lambda: K.knn_merge(sv, si))
+        rescore_ms = self.ms(lambda: ops.rescore_certify(qv, lb[:m], li[:m], ds.vectors, k,
+                                                         call.r))
+        bad = ~cert
+        fallback_ms = (self.ms(lambda: ops.knn_exact_direct(qv[bad], ds.vectors, ds.norms, k,
+                                                            chunk), repeats=1)
+                       if bool(bad.any()) else 0.0)
+        plain_scan_ms = self.ms(lambda: K.knn_int8_scan_plain(*args, True, splits))
+        plain_merge_ms = self.ms(lambda: K.knn_merge_plain(sv, si))
+        flat = sv.reshape(sv.shape[0], -1)
+        lib_merge_ms = self.ms(lambda: torch.topk(flat, call.q_len, largest=False))
+        # the yardstick of the whole int8 search: the f32 scan at the same shape
+        fcall = ops.prepare(qv, ds.vectors, k, "l2", ds.norms)
+        fbm, fbn, _ = fcall.blocks
+        fqn = torch.sum(fcall.q * fcall.q, dim=-1)
+        f32_scan_ms = self.ms(lambda: K.knn_scan(fcall.q, fcall.x, fqn, fcall.xn, fcall.k_eff,
+                                                 "l2", fbm, fbn, True))
+
+        mp, n, d = call.q.shape[0], call.x8.shape[0], call.x8.shape[1]
+        merged_tiles = m_tiles * n_tiles - int(sk.sum())
+        scan_bytes = (call.x8.numel() + 3 * call.hn.numel() * 4 + call.q.numel() * 4
+                      + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4)
+        scan_ops = (mp * n * (2 * d + INT8_EPILOGUE_OPS)
+                    + merged_tiles * (self.sort_ops(bm, bn) + self.update_ops(bm, call.q_len)))
+        merge_bytes = sv.numel() * 8 + lb.numel() * 8
+        merge_ops = (splits - 1) * self.update_ops(mp, call.q_len)
+        shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
+                 "q_len": call.q_len, "search_ms": statistics.median(e2e),
+                 "certified_share": share, "rescore_ms": rescore_ms,
+                 "fallback_ms": fallback_ms, "f32_scan_ms": f32_scan_ms,
+                 "quantize_s": quantize_s, "kernels": {}}
+        for name, t, tp, tl, lib, (bb, by), err in (
+                ("knn_int8_scan", scan_ms, plain_scan_ms, None, None,
+                 self.bound(scan_bytes, scan_ops), err_scan),
+                ("knn_merge", merge_ms, plain_merge_ms, lib_merge_ms,
+                 "torch.topk(queues.reshape(m, -1))", self.bound(merge_bytes, merge_ops),
+                 0.0 if merge_exact else math.inf)):
+            shape["kernels"][name] = {
+                "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
+                "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
+            log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
+                f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
+        bb_bytes, _ = self.bound(scan_bytes, 0)
+        bb_ops, _ = self.bound(0, scan_ops)
+        log(f"{label}: knn_int8_scan bound by bytes {bb_bytes:.4f} ms, by operations "
+            f"{bb_ops:.4f} ms; f32 knn_scan at this shape {f32_scan_ms:.4f} ms; rescore "
+            f"{rescore_ms:.4f} ms; fallback {fallback_ms:.4f} ms ({int(bad.sum())} rows)")
+        log(f"{label}: search ms median={statistics.median(e2e):.3f} "
+            f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
+        self.shapes.append(shape)
+        return ok
+
+    # --------------------------------------------------- phase 6: kernels
+    def phase_kernels(self) -> bool:
+        """The standalone entry points: l2dist, then topk over its matrix."""
+        torch, K = self.torch, self.K
+        from repro_torch.core.distance import row_norms_sq
+        from repro_torch.kernels.l2dist import kernel as L
+        from repro_torch.kernels.l2dist import ops as LO
+        from repro_torch.kernels.topk import kernel as T
+        from repro_torch.kernels.topk import ops as TO
+        from repro_torch.kernels.topk.ref import topk_ref
+
+        n, d, m, k = (STANDALONE[key] for key in ("n", "d", "m", "k"))
+        x, q = self._dataset(n, d, m, seed=5)
+        self.sync()
+        K.reset_launch_counts()
+        dist = LO.l2dist(q, x)
+        v, i = TO.topk(dist, k)
+        self.sync()
+        launches = dict(K.LAUNCHES)
+        ok = launches["l2dist"] >= 1 and launches["topk"] >= 1 and launches["knn_merge"] >= 1
+        label = f"standalone_m{m}_n{n}_d{d}_k{k}"
+        log(f"{label}: launches={launches}")
+
+        qn, xn = row_norms_sq(q), row_norms_sq(x)
+        plain = L.l2dist_plain(q, x, qn, xn)
+        tol = TOL_REL * (qn[:, None] + float(xn.max()))
+        diff = (dist - plain).abs()
+        err_l2 = float(diff.max())
+        ok_l2 = bool((diff <= tol).all()) and bool(torch.isfinite(dist).all())
+        rv, ri = topk_ref(dist, k)
+        topk_exact = torch.equal(v, rv) and torch.equal(i, ri)
+        k_eff, bn = k, max(1024, k)
+        bm = T.topk_block_m(k_eff, bn, m)
+        m_tiles, n_tiles = -(-m // bm), -(-n // bn)
+        smem = T.topk_smem_bytes(bm, bn, k_eff)
+        splits = K.splits_for(m_tiles, n_tiles, smem, self.dev)
+        sv, si = T.topk_scan(dist, k_eff, bm, bn, splits)
+        pv, pi = T.topk_scan_plain(dist, k_eff, bn, splits)
+        scan_exact = torch.equal(sv, pv) and torch.equal(si, pi)
+        ok &= ok_l2 and topk_exact and scan_exact
+        log(f"{label}: l2dist vs plain max|d|={err_l2:.3e} (tol {float(tol.max()):.3e}); "
+            f"topk bit-identical to the full sort={topk_exact}; topk scan bit-identical to "
+            f"plain={scan_exact}; ok={ok}")
+
+        l2_ms = self.ms(lambda: L.l2dist_tiles(q, x, qn, xn))
+        l2_plain_ms = self.ms(lambda: L.l2dist_plain(q, x, qn, xn))
+        l2_lib_ms = self.ms(lambda: torch.cdist(
+            q, x, compute_mode="donot_use_mm_for_euclid_dist"))
+        tk_ms = self.ms(lambda: T.topk_scan(dist, k_eff, bm, bn, splits))
+        tk_plain_ms = self.ms(lambda: T.topk_scan_plain(dist, k_eff, bn, splits))
+        tk_lib_ms = self.ms(lambda: torch.topk(dist, k, largest=False))
+        merge_ms = self.ms(lambda: K.knn_merge(sv, si))
+        merge_plain_ms = self.ms(lambda: K.knn_merge_plain(sv, si))
+        flat = sv.reshape(m, -1)
+        merge_lib_ms = self.ms(lambda: torch.topk(flat, k_eff, largest=False))
+
+        l2_bytes = (q.numel() + x.numel()) * 4 + (m + n) * 4 + m * n * 4
+        l2_ops = 2 * m * n * d
+        tk_bytes = m * n * 4 + sv.numel() * 8
+        tk_ops = m * n_tiles * (self.sort_ops(1, bn) + self.update_ops(1, k_eff))
+        merge_bytes = sv.numel() * 8 + m * k_eff * 8
+        merge_ops = (splits - 1) * self.update_ops(m, k_eff)
+        shape = {"shape": label, "splits": splits, "blocks": [bm, bn], "kernels": {}}
+        for name, t, tp, tl, lib, (bb, by), err in (
+                ("l2dist", l2_ms, l2_plain_ms, l2_lib_ms,
+                 "torch.cdist(q, x, compute_mode='donot_use_mm_for_euclid_dist') (not squared)",
+                 self.bound(l2_bytes, l2_ops), err_l2),
+                ("topk", tk_ms, tk_plain_ms, tk_lib_ms, "torch.topk(scores, k, largest=False)",
+                 self.bound(tk_bytes, tk_ops), 0.0 if scan_exact else math.inf),
+                ("knn_merge", merge_ms, merge_plain_ms, merge_lib_ms,
+                 "torch.topk(queues.reshape(m, -1))", self.bound(merge_bytes, merge_ops),
+                 0.0 if topk_exact else math.inf)):
+            shape["kernels"][name] = {
+                "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
+                "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
+            log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
+                f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
+        self.shapes.append(shape)
+        return ok
+
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
-        over its searches (one of each shape), per-shape numbers beside."""
+        over its runs (one of each shape), per-shape numbers beside."""
         out = []
-        for name in ("knn_scan", "knn_merge"):
-            per = [s["kernels"][name] | {"shape": s["shape"]} for s in self.shapes]
+        for name, (source, replaces) in KERNELS.items():
+            per = [s["kernels"][name] | {"shape": s["shape"]} for s in self.shapes
+                   if name in s["kernels"]]
             if not per:
                 continue
             total = lambda key: sum(p[key] for p in per)  # noqa: E731
             lib = [p["library_ms"] for p in per]
             bound_ms = total("bound_ms")
             out.append({
-                "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": total("launches"), "max_abs_err": max(p["max_abs_err"] for p in per),
                 "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": bound_ms,
                 "bound_by": ("bytes" if sum(p["bound_ms"] for p in per if p["bound_by"] == "bytes")
@@ -391,7 +763,16 @@ class Smoke:
         return {"kernels": out}
 
 
-def main() -> int:
+PHASES = ("exact", "gist", "msmarco", "int8", "kernels")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {PHASES} (build always runs)")
+    wanted = ap.parse_args(argv).phases.split(",")
+    if not set(wanted) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(wanted) - set(PHASES))}")
     try:
         import torch
     except ImportError:
@@ -431,11 +812,12 @@ def main() -> int:
         traceback.print_exc()
         failed.append("build")
     smoke = Smoke(torch, torch.device("cuda")) if not failed else None
-    phases = (("exact", "phase_exact"), ("gist", "phase_gist"), ("msmarco", "phase_msmarco"))
-    for name, method in phases if smoke else ():
+    for name in PHASES if smoke else ():
+        if name not in wanted:
+            continue
         t1 = time.perf_counter()
         try:
-            if not getattr(smoke, method)():
+            if not getattr(smoke, f"phase_{name}")():
                 failed.append(name)
         except Exception:
             traceback.print_exc()

@@ -1,10 +1,10 @@
 """Carry search state from the JAX package into the port.
 
-Both functions take plain arrays (anything ``np.asarray`` reads, so a JAX
-device array works) and never import JAX or ``repro``: the JAX engine is
+Every function takes plain arrays (anything ``np.asarray`` reads, so a JAX
+device array works) and never imports JAX or ``repro``: the JAX engine is
 duck-typed. The parity tests use them so that both packages search the
 identical padded state — the same vectors, the same +inf norms, the same
-pre-normalised cos rows.
+pre-normalised cos rows, the same int8 codes and side channels.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core.engine import ExactKNN, resolve_device
 from repro_torch.core.partition import PaddedDataset
+from repro_torch.core.quantized import QuantizedDataset
 
 _BACKENDS = {"xla": "torch", "pallas": "cuda"}
 
@@ -36,15 +37,29 @@ def padded_from_numpy(vectors, norms, n_valid: int, base_index: int = 0,
                          int(n_valid), int(base_index))
 
 
+def quantized_from_numpy(q, scales, err, norms_sq, qnorm_sq, device=None) -> QuantizedDataset:
+    """The port's QuantizedDataset over the arrays of a JAX one (codes int8,
+    channels f32), so both packages scan identical codes. ``device`` as in
+    :func:`padded_from_numpy`."""
+    device = resolve_device(device)
+    codes = _tensor(q, device)
+    if codes.dtype != torch.int8:
+        raise ValueError(f"int8 codes expected, got {codes.dtype}")
+    return QuantizedDataset(codes, *(_tensor(a, device).to(torch.float32)
+                                     for a in (scales, err, norms_sq, qnorm_sq)))
+
+
 def engine_state_from_jax(jax_engine, device=None) -> ExactKNN:
     """A port engine over a fitted JAX ``ExactKNN``'s resident arrays.
 
     Reads the JAX engine's configuration (k, metric, backend, chunking,
     dtype) and its resident padded view — vectors (already L2-normalised
     when the JAX engine serves cos through its fused kernel) and norms
-    with +inf on padding — and attaches them unchanged. Filter masks fold
-    onto the same norms channel at search time. ``device`` is taken as
-    :class:`ExactKNN` takes it: ``None`` means CUDA, which must exist.
+    with +inf on padding — and attaches them unchanged, with its int8 view
+    (codes, scales, err, norms_sq, qnorm_sq) when it has enabled one.
+    Filter masks fold onto the same norms channels at search time.
+    ``device`` is taken as :class:`ExactKNN` takes it: ``None`` means CUDA,
+    which must exist.
     """
     device = resolve_device(device)
     ds = jax_engine._ds
@@ -56,7 +71,11 @@ def engine_state_from_jax(jax_engine, device=None) -> ExactKNN:
         backend=_BACKENDS[jax_engine.backend], chunk_rows=jax_engine.chunk_rows,
         n_partitions=jax_engine.n_partitions, dtype=padded.vectors.dtype,
         device=device,
+        rescore_factor=jax_engine.rescore_factor if jax_engine._rescore_pinned else None,
     )
     eng._attach(padded.vectors, padded.norms, padded.n_valid,
                 prenormalized=bool(getattr(jax_engine, "_cos_prenormalized", False)))
+    q8 = getattr(jax_engine, "_int8", None)
+    if q8 is not None:
+        eng._int8 = quantized_from_numpy(*q8, device=device)
     return eng

@@ -53,6 +53,35 @@ def l2_sq(q: torch.Tensor, x: torch.Tensor,
     return torch.clamp_min(d, 0.0)
 
 
+def sum_last_fixed(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in one fixed order: pairwise halving
+    (columns i and i + h added, an odd last column folded into column 0).
+
+    Every step is an elementwise add, so each result depends only on its
+    own row's values, never on the other axes' sizes; ``torch.sum``'s order
+    on a card may change with the outer size. ``t`` may be overwritten.
+    """
+    while t.shape[-1] > 1:
+        n = t.shape[-1]
+        h = n // 2
+        s = t[..., :h] + t[..., h:2 * h]
+        if n % 2:
+            s[..., 0] += t[..., 2 * h]
+        t = s
+    return t[..., 0]
+
+
+def direct_l2_sq(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Squared L2 in the direct form, sum((q - x)²), summed by
+    :func:`sum_last_fixed`: q (M, d) against shared rows (R, d) or per-query
+    rows (M, R, d) -> (M, R) f32. The same (query, row) pair gives the same
+    bits whichever rows surround it — the int8 tier's rescore and its exact
+    oracle both go through here."""
+    rows = rows.to(torch.float32)
+    diff = q.to(torch.float32)[:, None, :] - (rows[None] if rows.ndim == 2 else rows)
+    return sum_last_fixed(diff.mul_(diff))
+
+
 def cosine_distance(q: torch.Tensor, x: torch.Tensor,
                     x_norms: torch.Tensor | None = None) -> torch.Tensor:
     """1 - cos(q, x); zero vectors map to distance 1."""

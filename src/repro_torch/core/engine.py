@@ -4,7 +4,8 @@
         -> store.DatasetStore       the padded resident dataset
         -> planner.plan(...)        PURE: shapes + store meta -> ExecutionPlan
         -> executors.execute(...)   registry: plan -> cached callable
-             fdsq-torch / fqsd-torch / fdsq-cuda
+             fdsq-torch / fqsd-torch / fdsq-cuda       f32 tier
+             fqsd-int8-torch / fqsd-int8-cuda          certified int8 tier
 
 One engine plays the role of the single physical configuration: FD-SQ and
 FQ-SD are logical configurations over the same building blocks, chosen per
@@ -22,13 +23,18 @@ Usage (request-first API — every option is a per-request fact):
     res = eng.search(SearchRequest(queries=Q, mode_hint="fqsd", k=3))
     res.topk, res.plan, res.kernel_stats, res.stats
 
-This slice serves resident single-device data. Out-of-core stores, the
-int8 tier, mutations and meshes raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+    eng.enable_int8()                        # quantise once (l2 engines)
+    res = eng.search(SearchRequest(queries=Q, tier="int8"))
+    res.certified                            # (m,) bool; every row exact
+
+The port serves resident single-device data. Out-of-core stores,
+mutations and meshes raise ``NotImplementedError`` naming the slice of the
+port that brings them.
 """
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -36,14 +42,16 @@ import torch
 from repro_torch.api.types import AUTO_FDSQ_MAX_BATCH, SearchRequest, SearchResult
 from repro_torch.core import partition as part
 from repro_torch.core.distance import Metric, row_norms_sq, validate_metric
-from repro_torch.core.executors import ExecContext, execute
+from repro_torch.core.executors import ExecContext, TieredResident, execute
 from repro_torch.core.planner import (
     Backend,
     DatasetMeta,
+    DatasetStoreMeta,
     EngineConfig,
     ExecutionPlan,
     plan as plan_fn,
 )
+from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK
 
 
@@ -77,10 +85,13 @@ class ExactKNN:
         dtype=torch.float32,
         device=None,
         mesh=None,
+        rescore_factor: int | None = None,
     ):
         validate_metric(metric)
         if k < 1:
             raise ValueError("k must be >= 1")
+        if rescore_factor is not None and rescore_factor < 1:
+            raise ValueError(f"rescore_factor must be >= 1, got {rescore_factor}")
         if mesh is not None:
             raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
         self.device = resolve_device(device)
@@ -90,11 +101,15 @@ class ExactKNN:
         self.chunk_rows = int(chunk_rows)
         self.n_partitions = int(n_partitions)
         self.dtype = dtype
+        #: int8 rescore budget: r = next_pow2(rescore_factor·next_pow2(k))
+        self.rescore_factor = 4 if rescore_factor is None else int(rescore_factor)
+        self._rescore_pinned = rescore_factor is not None
         self._store = None
         # cos + fused backend: the resident view is normalised at fit time,
         # so the kernel skips its own dataset pass per query batch
         self._cos_prenormalized = metric == "cos" and backend == "cuda"
         self._ds: part.PaddedDataset | None = None  # device f32 view
+        self._int8: QuantizedDataset | None = None  # device int8 view
         self._plans: list[ExecutionPlan] = []
         self._last_ctx: ExecContext | None = None
 
@@ -119,6 +134,7 @@ class ExactKNN:
             raise NotImplementedError(
                 "out-of-core (non-resident) stores are ported in the streaming slice")
         self._store = store
+        self._int8 = None
         host = store.resident()
         self._attach(host.vectors, host.norms, host.n_valid,
                      prenormalized=False)
@@ -173,12 +189,30 @@ class ExactKNN:
     def delete(self, ids):
         raise NotImplementedError("store mutations are ported in the store slice")
 
-    def enable_int8(self):
-        raise NotImplementedError("the int8 tier is ported in the int8 slice")
+    # ---------------------------------------------------------- int8 tier
+    def enable_int8(self) -> "ExactKNN":
+        """Materialise the store's int8 tier (the 1 B/element scan tier) and
+        put it on the engine's device beside the f32 view."""
+        self._require_fit()
+        if self._store is None:
+            raise RuntimeError("int8 tier requires a DatasetStore-backed fit")
+        if self.metric != "l2":
+            raise ValueError("int8 tier supports the l2 metric only")
+        self._store.ensure_tier("int8")
+        self._int8 = QuantizedDataset(
+            *(t.to(self.device) for t in self._store.int8_resident()))
+        return self
 
     @property
     def has_int8(self) -> bool:
-        return False
+        """The engine can serve tier="int8" (a device int8 view exists)."""
+        return self._int8 is not None
+
+    @property
+    def last_certificate(self):
+        """Per-query exactness certificate of the most recent int8 plan
+        (None when the last plan read the f32 tier)."""
+        return self._last_ctx.certificate if self._last_ctx else None
 
     @property
     def last_kernel_stats(self) -> dict | None:
@@ -192,6 +226,7 @@ class ExactKNN:
         return EngineConfig(
             k=self.k, metric=self.metric, backend=self.backend,
             chunk_rows=self.chunk_rows, n_partitions=self.n_partitions,
+            rescore_factor=self.rescore_factor, rescore_pinned=self._rescore_pinned,
             dtype=str(self.dtype).removeprefix("torch."),
         )
 
@@ -200,9 +235,10 @@ class ExactKNN:
         self._require_fit()
         if self._store is not None:
             return self._store.meta(device_resident=True, tier=tier)
-        return DatasetMeta(padded_rows=int(self._ds.vectors.shape[0]),
-                           padded_dim=self._padded_dim(),
-                           n_valid=int(self._ds.n_valid))
+        rows = int(self._ds.vectors.shape[0])
+        return DatasetStoreMeta(padded_rows=rows, padded_dim=self._padded_dim(),
+                                n_valid=int(self._ds.n_valid), tier=tier,
+                                rows_per_shard=rows)
 
     def plan_for(self, mode: str, m: int = 1, tier: str = "f32", **kw) -> ExecutionPlan:
         """Plan without executing — what `mode` with an m-row batch would run."""
@@ -240,6 +276,16 @@ class ExactKNN:
         norms = torch.where(keep, ds.norms, torch.inf)
         return part.PaddedDataset(ds.vectors, norms, ds.n_valid, ds.base_index)
 
+    def _masked_int8(self, mask: torch.Tensor | None) -> QuantizedDataset:
+        """Int8 view under the same mask: norms_sq is the int8 executors'
+        validity channel, exactly as the f32 norms are."""
+        q8 = self._int8
+        if mask is None:
+            return q8
+        keep = torch.ones(q8.norms_sq.shape[0], dtype=torch.bool, device=self.device)
+        keep[: self._ds.n_valid] = mask[: self._ds.n_valid]
+        return q8._replace(norms_sq=torch.where(keep, q8.norms_sq, torch.inf))
+
     def search(self, request: SearchRequest) -> SearchResult:
         """Serve one :class:`SearchRequest` — the single entry point.
 
@@ -264,7 +310,14 @@ class ExactKNN:
                 "would score normalised rows — fit a separate engine")
         tier = "f32" if request.tier == "auto" else request.tier
         if tier == "int8":
-            raise NotImplementedError("the int8 tier is ported in the int8 slice")
+            if request.mode_hint == "fdsq":
+                raise ValueError(
+                    "tier='int8' is a throughput (FQ-SD) tier and cannot "
+                    "serve an explicit mode_hint='fdsq' request")
+            if not self.has_int8:
+                raise RuntimeError("int8 tier not enabled; call enable_int8() first")
+            if metric != "l2":
+                raise ValueError("int8 tier supports the l2 metric only")
         return self._search_pinned(request, k, metric, tier)
 
     def _search_pinned(self, request: SearchRequest, k: int, metric: str,
@@ -273,7 +326,9 @@ class ExactKNN:
         qv = self._pad_queries(request.queries)
         m = int(qv.shape[0])
         mode = request.mode_hint
-        if mode == "auto":
+        if tier == "int8":
+            mode = "fqsd"  # the int8 tier is an FQ-SD tier whatever the batch
+        elif mode == "auto":
             mode = "fdsq" if m <= AUTO_FDSQ_MAX_BATCH else "fqsd"
         mask = request.filter_mask
         if mask is not None:
@@ -285,12 +340,16 @@ class ExactKNN:
         t0 = time.perf_counter()
         p = plan_fn((m, self._padded_dim()), self.dataset_meta(tier=tier),
                     self.config(), mode, k=k, metric=metric)
-        out = self._run(p, qv, self._masked_resident(mask))
+        dataset = self._masked_resident(mask)
+        if p.tier == "int8":
+            dataset = TieredResident(dataset, self._masked_int8(mask))
+        out = self._run(p, qv, dataset)
         dispatch_ms = (time.perf_counter() - t0) * 1e3
         ctx = self._last_ctx
         stats = {
             "k": k, "metric": metric, "m": m, "batched": m,
-            "bytes_scanned": p.padded_rows * p.padded_dim * self._ds.vectors.element_size(),
+            "bytes_scanned": p.padded_rows * p.padded_dim * (
+                1 if p.tier == "int8" else self._ds.vectors.element_size()),
             "dispatch_ms": dispatch_ms,
             "health": {"retries": 0, "failed_shards": [], "degraded": [],
                        "slow_shards": [], "shed": False},
@@ -298,9 +357,19 @@ class ExactKNN:
         }
         if request.deadline_ms is not None:
             stats["deadline_ms"] = request.deadline_ms
-        return SearchResult(topk=out, plan=p, tier=p.tier, certified=True,
+        return SearchResult(topk=out, plan=p, tier=p.tier,
+                            certified=True if ctx.certificate is None else ctx.certificate,
                             kernel_stats=ctx.kernel_stats, stats=stats,
                             rid=request.rid)
+
+    def query_batch_int8(self, queries) -> TopK:
+        """Deprecated int8-tier path; delegates to :meth:`search`."""
+        warnings.warn(
+            "ExactKNN.query_batch_int8(Q) is deprecated; use ExactKNN.search("
+            "SearchRequest(queries=Q, tier='int8')) instead",
+            DeprecationWarning, stacklevel=2)
+        return self.search(SearchRequest(queries=queries, tier="int8",
+                                         mode_hint="fqsd")).topk
 
 
 __all__ = ["ExactKNN", "ExecutionPlan", "SearchRequest", "SearchResult",

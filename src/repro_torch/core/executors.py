@@ -3,7 +3,8 @@
 Each executor is a callable ``execute(plan, queries, dataset, ctx) -> TopK``
 registered under the name the planner selects
 (``repro_torch.core.planner``). Executors wrap the entry points of
-``fdsq.py`` / ``fqsd.py`` / ``kernels.knn`` and add no numerics of their own.
+``fdsq.py`` / ``fqsd.py`` / ``quantized.py`` / ``kernels.knn`` and add no
+numerics of their own.
 
 The module also owns the **executable cache**: every executor resolves
 its callable through :func:`_cached`, keyed by ``plan.cache_key()`` plus
@@ -18,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -26,21 +27,33 @@ from repro_torch.core import partition as part
 from repro_torch.core.fdsq import fdsq_search
 from repro_torch.core.fqsd import fqsd_scan
 from repro_torch.core.planner import ExecutionPlan
+from repro_torch.core.quantized import QuantizedDataset, knn_quantized
 from repro_torch.core.topk import TopK
 
 
 @dataclasses.dataclass
 class ExecContext:
     """Runtime state a plan cannot carry (plans are pure data). Executors
-    may write run observability back here."""
+    may write run observability back here (the int8 certificate)."""
 
-    #: set by the fused-kernel executor: {"prune_skip_rate": 0-d tensor,
+    #: set by the int8 executors: (m,) bool, True where the on-chip
+    #: candidates provably held the exact top-k
+    certificate: torch.Tensor | None = None
+    #: set by the fused-kernel executors: {"prune_skip_rate": 0-d tensor,
     #: "blocks": (bm, bn, bd)}. The skip rate stays a device scalar so
     #: publishing stats never forces a host sync; float() it lazily.
     kernel_stats: dict | None = None
     #: the resident dataset rows were L2-normalised at fit time (cos metric
     #: via the fused kernel, which then skips its own dataset pass)
     cos_prenormalized: bool = False
+
+
+class TieredResident(NamedTuple):
+    """Resident dataset carrying both tiers: the exact f32 base and the
+    1 B/element int8 scan tier (what the int8 executors consume)."""
+
+    f32: part.PaddedDataset
+    quant: QuantizedDataset
 
 
 Executor = Callable[[ExecutionPlan, torch.Tensor, object, ExecContext], TopK]
@@ -184,3 +197,66 @@ def _fdsq_cuda(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
                                           m=plan.m),
     }
     return out
+
+
+def _exact_uncertified(plan, queries, dataset: TieredResident, out: TopK,
+                       cert: torch.Tensor) -> TopK:
+    """Recompute the rows the certificate cannot cover with the direct-form
+    exact scan over the f32 tier (the same bits the rescore gives a pair),
+    so every returned row is exact. Only those query rows are rescanned:
+    each row's answer is independent of the others."""
+    from repro_torch.kernels.knn.ops import knn_exact_direct
+
+    bad = ~cert
+    if not bool(bad.any()):
+        return out
+    f32 = dataset.f32
+    key = ("int8-fallback", plan.cache_key(), _arr_key(f32.vectors))
+    fn = _cached(key, lambda: functools.partial(knn_exact_direct, k=plan.k,
+                                                chunk_rows=plan.chunk_rows))
+    exact = fn(queries[bad], f32.vectors, f32.norms)
+    scores, indices = out.scores.clone(), out.indices.clone()
+    scores[bad], indices[bad] = exact.scores, exact.indices
+    return TopK(scores, indices)
+
+
+@register_executor("fqsd-int8-torch")
+def _fqsd_int8_torch(plan, queries, dataset: TieredResident, ctx) -> TopK:
+    """Quantised FQ-SD in plain ops: int8 first pass + exact f32 rescore
+    (``knn_quantized``). The per-query certificate lands on
+    ctx.certificate; uncertified rows are recomputed exactly. The reference's
+    ``fqsd-int8`` recomputes them in the cancellation form (``fqsd_scan``);
+    both int8 executors here use the direct form, so every row carries the
+    bits of ``knn_exact_direct``."""
+    q8 = dataset.quant
+    key = (plan.cache_key(), _arr_key(queries), _arr_key(q8.q))
+    fn = _cached(key, lambda: functools.partial(
+        knn_quantized, k=plan.k, rescore_factor=plan.rescore_factor))
+    out, cert = fn(queries, q8, dataset.f32.vectors)
+    ctx.certificate = cert
+    return _exact_uncertified(plan, queries, dataset, out, cert)
+
+
+@register_executor("fqsd-int8-cuda")
+def _fqsd_int8_cuda(plan, queries, dataset: TieredResident, ctx) -> TopK:
+    """Fused quantised FQ-SD: the int8 scan kernel reads the codes at
+    1 B/element and keeps the widened candidate queue on chip; the exact
+    rescore reads only the candidate rows of the f32 tier. The certificate
+    lands on ctx.certificate (uncertified rows are recomputed exactly), the
+    skip rate and tile shapes on ctx.kernel_stats."""
+    from repro_torch.kernels.knn import ops as knn_ops
+
+    q8 = dataset.quant
+    bm, bn, bd = _plan_blocks(plan)
+    key = (plan.cache_key(), _arr_key(queries), _arr_key(q8.q))
+    fn = _cached(key, lambda: functools.partial(
+        knn_ops.knn_int8, k=plan.k, rescore_factor=plan.rescore_factor, block_m=bm,
+        block_n=bn, block_d=bd, return_stats=True))
+    out, cert, skip_rate = fn(queries, q8, dataset.f32.vectors)
+    ctx.certificate = cert
+    ctx.kernel_stats = {
+        "prune_skip_rate": skip_rate,
+        "blocks": knn_ops.resolved_blocks(plan.k, plan.padded_dim, bm, bn, bd, m=plan.m,
+                                          rescore_factor=plan.rescore_factor),
+    }
+    return _exact_uncertified(plan, queries, dataset, out, cert)

@@ -19,12 +19,15 @@ Names, against the JAX package this port mirrors:
     executor "fdsq-torch"  <->  "fdsq-xla"
     executor "fqsd-torch"  <->  "fqsd-xla"
     executor "fdsq-cuda"   <->  "fdsq-pallas"
+    executor "fqsd-int8-torch"  <->  "fqsd-int8"
+    executor "fqsd-int8-cuda"   <->  "fqsd-int8-pallas"
 
-This slice plans resident single-device f32 search. Streamed,
-quantized (int8) and sharded plans raise ``NotImplementedError`` naming
-the slice of the port that brings them. Block fields stay 0 (the kernel's
-``DEFAULT_BLOCKS``): per-device autotuned blocks come with the tuning
-slice, and no capability verdict ever swaps the kernel for a plain path.
+This port plans resident single-device search over the f32 tier and the
+certified int8 tier. Streamed and sharded plans raise
+``NotImplementedError`` naming the slice of the port that brings them.
+Block fields stay 0 (the kernel's ``DEFAULT_BLOCKS``): per-device autotuned
+blocks come with the tuning slice, and no capability verdict ever swaps the
+kernel for a plain path.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ Backend = Literal["torch", "cuda"]
 ModeHint = Literal["fdsq", "fqsd", "fqsd-streamed"]
 
 #: Executors the planner may select (must match the executor registry).
-PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda")
+PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda", "fqsd-int8-torch",
+                       "fqsd-int8-cuda")
 
 BACKENDS = ("torch", "cuda")
 
@@ -161,6 +165,9 @@ def plan(
     they ride ``ExecutionPlan.cache_key()``. Unknown keyword arguments are
     rejected loudly.
 
+    * tier="int8", mode="fqsd", l2 -> "fqsd-int8-cuda" (backend "cuda",
+      the int8 scan kernel) or "fqsd-int8-torch"; chunk_rows, a divisor of
+      the padded rows, is the geometry of the exact fallback scan;
     * backend="cuda"  -> "fdsq-cuda", the fused kernel, for both logical
       modes and all three metrics (cos through pre-normalised rows);
     * mode="fqsd"     -> "fqsd-torch", a chunked scan whose chunk size is
@@ -199,10 +206,14 @@ def plan(
             "out-of-core streamed search is ported in the streaming slice")
     if cfg.sharded or dataset_meta.sharded:
         raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
-    if tier == "int8" and mode == "fqsd" and metric == "l2":
-        raise NotImplementedError("the int8 tier is ported in the int8 slice")
-
-    if cfg.backend == "cuda":
+    # the int8 tier serves l2 FQ-SD only; every other plan reads f32
+    tier = "int8" if tier == "int8" and mode == "fqsd" and metric == "l2" else "f32"
+    if tier == "int8":
+        executor = "fqsd-int8-cuda" if cfg.backend == "cuda" else "fqsd-int8-torch"
+        mode = "fqsd-int8"
+        # chunking doubles as the f32 fallback geometry for uncertified rows
+        chunk = largest_divisor_at_most(rows, max(1, chunk))
+    elif cfg.backend == "cuda":
         executor = "fdsq-cuda"
     elif mode == "fdsq":
         executor = "fdsq-torch"
@@ -224,7 +235,7 @@ def plan(
         padded_dim=int(dataset_meta.padded_dim),
         n_valid=int(dataset_meta.n_valid),
         sharded=False,
-        tier="f32",
+        tier=tier,
         rescore_factor=int(cfg.rescore_factor),
         n_shards=int(getattr(dataset_meta, "n_shards", 1)),
     )

@@ -1,8 +1,16 @@
 """Hand-written CUDA kernels for Hopper and their plain torch versions.
 
-knn     — fused distance + top-k queue (``knn/kernel.py``, ``csrc/knn.cu``)
-bitonic — the compare-exchange networks the queue uses (``bitonic.py`` is
+knn     — fused distance + top-k queue: ``knn_scan`` (f32/bf16 rows) and
+          ``knn_int8_scan`` (int8 codes, certified lower bounds), reduced by
+          ``knn_merge`` (``knn/kernel.py``, ``csrc/knn.cu``)
+l2dist  — the tiled squared-L2 distance matrix (``l2dist/kernel.py``,
+          ``csrc/l2dist.cu``)
+topk    — streaming top-k over a score matrix, reduced by ``knn_merge``
+          (``topk/kernel.py``, ``csrc/topk.cu``)
+bitonic — the compare-exchange networks the queues use (``bitonic.py`` is
           the plain reference of ``csrc/bitonic.cuh``)
 
-Kernels are built by ``build.py`` at first launch, never at import.
+The scans and ``l2dist`` share the staged loads of ``csrc/tile.cuh``.
+Kernels are built by ``build.py`` at first launch, never at import; every
+wrapper counts its launches in ``knn.kernel.LAUNCHES``.
 """

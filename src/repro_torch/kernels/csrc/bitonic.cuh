@@ -38,7 +38,7 @@ __device__ __forceinline__ int lower_lane(int p, int s) {
 }
 
 // Full ascending sort of each row: log2(L)·(log2(L)+1)/2 stages.
-__device__ void bitonic_sort_rows(float* v, int* ix, int rows, int L, int stride) {
+__device__ inline void bitonic_sort_rows(float* v, int* ix, int rows, int L, int stride) {
   const int half = L >> 1;
   if (half == 0) return;
   const int lg = __ffs(half) - 1;
@@ -56,7 +56,7 @@ __device__ void bitonic_sort_rows(float* v, int* ix, int rows, int L, int stride
 }
 
 // Sort each row, a bitonic sequence, ascending: log2(L) stages.
-__device__ void bitonic_merge_rows(float* v, int* ix, int rows, int L, int stride) {
+__device__ inline void bitonic_merge_rows(float* v, int* ix, int rows, int L, int stride) {
   const int half = L >> 1;
   if (half == 0) return;
   const int lg = __ffs(half) - 1;
@@ -75,7 +75,7 @@ __device__ void bitonic_merge_rows(float* v, int* ix, int rows, int L, int strid
 // of itself and the first K lanes of the matching sorted candidate row. The
 // reversed candidates against the queue, lane-wise minimum, form a bitonic
 // sequence holding exactly those K pairs; one bitonic merge sorts it.
-__device__ void topk_update_rows(float* qv, int* qi, int qstride, const float* cv,
+__device__ inline void topk_update_rows(float* qv, int* qi, int qstride, const float* cv,
                                  const int* ci, int cstride, int rows, int K) {
   const int lg = __ffs(K) - 1;
   for (int p = threadIdx.x; p < rows * K; p += blockDim.x) {
@@ -98,7 +98,7 @@ __device__ void topk_update_rows(float* qv, int* qi, int qstride, const float* c
 // minimum over L tile lanes is strictly greater than the queue row's last
 // (worst) value. Strict: a candidate tying the worst value can still enter
 // through the index tie-break, so a tile touching the threshold is kept.
-__device__ bool tile_prunable(const float* tv, int L, const float* qv, int K, int rows) {
+__device__ inline bool tile_prunable(const float* tv, int L, const float* qv, int K, int rows) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   bool ok = true;

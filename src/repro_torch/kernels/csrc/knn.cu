@@ -1,7 +1,11 @@
-// Fused exact kNN for sm_90a: a scan kernel that scores dataset tiles and
-// folds them into per-block sorted top-k queues in shared memory, and a merge
-// kernel that reduces the per-block queues. The (M, N) score matrix never
-// leaves the block. See repro_torch/kernels/knn/kernel.py for the design note.
+// Fused exact kNN for sm_90a: scan kernels that score dataset tiles and fold
+// them into per-block sorted top-k queues in shared memory, and a merge kernel
+// that reduces the per-block queues. The (M, N) score matrix never leaves the
+// block. One templated scan serves both TPU kernels it replaces: knn_scan
+// (knn_pallas: f32 or bf16 rows, l2 / ip scores) and knn_int8_scan
+// (knn_pallas_int8: int8 codes read at 1 B/element, certified lower bounds
+// into a q_len-wide queue). See repro_torch/kernels/knn/kernel.py for the
+// design note.
 //
 // Plain C interface (loaded with ctypes): every pointer and the stream come
 // in as void*, outputs and scratch are allocated by the caller, and each
@@ -10,60 +14,59 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+#include <stdint.h>
 
 #include "bitonic.cuh"
+#include "tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;         // threads per block
-constexpr int kChunk = kThreads;      // dataset rows scored per pass: one per thread
-constexpr int kDepth = 32;            // features staged in shared memory per pass
-constexpr int kStride = kDepth + 1;   // padded row stride: conflict-free column reads
+using rt::kChunk;
+using rt::kDepth;
+using rt::kStride;
+using rt::kThreads;
 
 // Shared memory of one scan block, in bytes (kernel.py mirrors this formula):
 // tile values + indices, queue values + indices, the staged dataset slice
-// and the staged query slice.
+// (widened to f32, so the int8 scan takes the same) and the staged queries.
 size_t scan_smem_bytes(int bm, int bn, int k) {
   return (size_t)bm * bn * 8 + (size_t)bm * k * 8 + (size_t)kChunk * kStride * 4 +
          (size_t)bm * kDepth * 4;
 }
 
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x;
-  out[1] = v.y;
-  out[2] = v.z;
-  out[3] = v.w;
-}
+// The tile epilogue: kScores for knn_scan (l2 or ip, chosen by `metric`),
+// kInt8Bound for knn_int8_scan (the certified lower bound).
+enum Epilogue { kScores = 0, kInt8Bound = 1 };
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = a.x;
-  out[1] = a.y;
-  out[2] = b.x;
-  out[3] = b.y;
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// Everything a scan launch needs. For kScores, xn is the dataset norms and
+// scales / err are unused; for kInt8Bound, xn is hn (the exact quantised
+// norm, +inf on invalid rows), scales the per-row code scale and err the
+// per-row error bound. The per-row channels cover ceil(n_rows / bn)·bn rows;
+// x covers n_rows (rows past it read as zeros and score +inf through xn).
+struct ScanArgs {
+  const void* q;
+  const void* x;
+  const float* qn;
+  const float* xn;
+  const float* scales;
+  const float* err;
+  float* out_v;
+  int* out_i;
+  int* skips;
+  int n_rows, dim, k, bn, metric, prune, tiles_per_split;
+};
 
 // Grid (m / BM, splits). Block (i, s) owns query rows [i·BM, (i+1)·BM) and
 // the contiguous n-tiles [s·tiles_per_split, (s+1)·tiles_per_split). For each
-// tile, in order: the (BM, bn) cross tile in f32 FMA (bf16 widened on load),
-// the l2 / ip epilogue with +inf on rows whose norm is not finite, the strict
-// prune test against the block's own queues, else a bitonic sort of each tile
-// row and a queue update. Writes the block's sorted queues to
-// out[(row·splits + s)·k + lane] and its skip count to skips[i·splits + s].
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-    knn_scan_kernel(const T* __restrict__ q, const T* __restrict__ x,
-                    const float* __restrict__ qn, const float* __restrict__ xn,
-                    float* __restrict__ out_v, int* __restrict__ out_i,
-                    int* __restrict__ skips, int n_rows, int dim, int k, int bn, int metric,
-                    int prune, int tiles_per_split) {
+// tile, in order: the (BM, bn) cross tile in f32 FMA (bf16 and int8 widened on
+// load), the epilogue with +inf on invalid rows, the strict prune test against
+// the block's own queues, else a bitonic sort of each tile row and a queue
+// update. Writes the block's sorted queues to out[(row·splits + s)·k + lane]
+// and its skip count to skips[i·splits + s].
+template <typename TQ, typename TX, int BM, int EPI>
+__global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
   extern __shared__ float smem[];
+  const int bn = a.bn, k = a.k;
   float* tile_v = smem;
   int* tile_i = reinterpret_cast<int*>(tile_v + BM * bn);
   float* queue_v = reinterpret_cast<float*>(tile_i + BM * bn);
@@ -71,11 +74,14 @@ __global__ void __launch_bounds__(kThreads)
   float* xs = reinterpret_cast<float*>(queue_i + BM * k);
   float* qs = xs + kChunk * kStride;
 
+  const TQ* __restrict__ q = static_cast<const TQ*>(a.q);
+  const TX* __restrict__ x = static_cast<const TX*>(a.x);
   const int tid = threadIdx.x;
   const int m_tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int row0 = m_tile * BM;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_rows / bn, t_begin + tiles_per_split);
+  const int n_tiles = (a.n_rows + bn - 1) / bn;
+  const int t_begin = split * a.tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
 
   for (int e = tid; e < BM * k; e += kThreads) {
     queue_v[e] = CUDART_INF_F;
@@ -90,23 +96,10 @@ __global__ void __launch_bounds__(kThreads)
       float acc[BM];
 #pragma unroll
       for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-      const T* xchunk = x + (size_t)(n0 + c0) * dim;
-      for (int d0 = 0; d0 < dim; d0 += kDepth) {
-        // stage x[chunk rows, d0 : d0 + kDepth]: 8 threads per 128-byte row
-#pragma unroll
-        for (int p = 0; p < kChunk * kDepth / 4 / kThreads; ++p) {
-          const int e = p * kThreads + tid;
-          const int r = e / (kDepth / 4), c = (e % (kDepth / 4)) * 4;
-          float v[4];
-          load4(xchunk + (size_t)r * dim + d0 + c, v);
-          float* dst = xs + r * kStride + c;
-          dst[0] = v[0];
-          dst[1] = v[1];
-          dst[2] = v[2];
-          dst[3] = v[3];
-        }
-        for (int e = tid; e < BM * kDepth; e += kThreads)
-          qs[e] = to_f32(q[(size_t)(row0 + e / kDepth) * dim + d0 + e % kDepth]);
+      for (int d0 = 0; d0 < a.dim; d0 += kDepth) {
+        // only the int8 scan meets a ragged last tile (f32 needs n % bn == 0)
+        rt::stage_rows<TX, EPI == kInt8Bound>(x, a.dim, d0, n0 + c0, a.n_rows, xs);
+        rt::stage_queries<TQ>(q, a.dim, d0, row0, BM, row0 + BM, qs);
         __syncthreads();
         const float* xr = xs + tid * kStride;
 #pragma unroll
@@ -118,20 +111,37 @@ __global__ void __launch_bounds__(kThreads)
         __syncthreads();
       }
       const int col = c0 + tid;
-      const float xnv = xn[n0 + col];
+      const float xnv = a.xn[n0 + col];
       const bool valid = isfinite(xnv);
+      if (EPI == kScores) {
 #pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        // l2: (qn - 2·cross) + xn, clamped at 0, rounded in that order
-        const float s = metric == 0
-                            ? fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
-                            : -acc[r];
-        tile_v[r * bn + col] = valid ? s : CUDART_INF_F;
-        tile_i[r * bn + col] = n0 + col;
+        for (int r = 0; r < BM; ++r) {
+          // l2: (qn - 2·cross) + xn, clamped at 0, rounded in that order
+          const float s =
+              a.metric == 0
+                  ? fmaxf(__fadd_rn(__fsub_rn(a.qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
+                  : -acc[r];
+          tile_v[r * bn + col] = valid ? s : CUDART_INF_F;
+          tile_i[r * bn + col] = n0 + col;
+        }
+      } else {
+        // kernel_int8.py's epilogue, rounded in its order: cross = acc·scale,
+        // d_hat = max((qn - 2·cross) + hn, 0), lower = max(sqrt(d_hat) - err, 0)²
+        const float sc = a.scales[n0 + col], er = a.err[n0 + col];
+        const float hn = valid ? xnv : 0.f;
+#pragma unroll
+        for (int r = 0; r < BM; ++r) {
+          const float cross = __fmul_rn(acc[r], sc);
+          const float d_hat =
+              fmaxf(__fadd_rn(__fsub_rn(a.qn[row0 + r], __fmul_rn(2.f, cross)), hn), 0.f);
+          const float t = fmaxf(__fsub_rn(__fsqrt_rn(d_hat), er), 0.f);
+          tile_v[r * bn + col] = valid ? __fmul_rn(t, t) : CUDART_INF_F;
+          tile_i[r * bn + col] = n0 + col;
+        }
       }
     }
     __syncthreads();
-    if (prune && rt::tile_prunable(tile_v, bn, queue_v, k, BM)) {
+    if (a.prune && rt::tile_prunable(tile_v, bn, queue_v, k, BM)) {
       ++skipped;
       continue;
     }
@@ -142,10 +152,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = tid; e < BM * k; e += kThreads) {
     const int r = e / k, l = e - r * k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + l;
-    out_v[o] = queue_v[e];
-    out_i[o] = queue_i[e];
+    a.out_v[o] = queue_v[e];
+    a.out_i[o] = queue_i[e];
   }
-  if (tid == 0) skips[m_tile * splits + split] = skipped;
+  if (tid == 0) a.skips[m_tile * splits + split] = skipped;
 }
 
 // Grid (m, ceil(splits / group)). Block (row, g) merges the sorted queues
@@ -184,43 +194,33 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int BM>
-cudaError_t launch_scan(const void* q, const void* x, const void* qn, const void* xn,
-                        void* out_v, void* out_i, void* skips, int m, int n, int dim,
-                        int k, int bn, int metric, int prune, int splits,
-                        int tiles_per_split, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(BM, bn, k);
-  auto kernel = knn_scan_kernel<T, BM>;
+template <typename TQ, typename TX, int BM, int EPI>
+cudaError_t launch_scan(const ScanArgs& a, int m, int splits, cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(BM, a.bn, a.k);
+  auto kernel = knn_scan_kernel<TQ, TX, BM, EPI>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(m / BM, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x), static_cast<const float*>(qn),
-      static_cast<const float*>(xn), static_cast<float*>(out_v), static_cast<int*>(out_i),
-      static_cast<int*>(skips), n, dim, k, bn, metric, prune, tiles_per_split);
+  kernel<<<dim3(m / BM, splits), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_scan(int bm, const void* q, const void* x, const void* qn,
-                          const void* xn, void* out_v, void* out_i, void* skips, int m,
-                          int n, int dim, int k, int bn, int metric, int prune, int splits,
-                          int tiles_per_split, cudaStream_t stream) {
-#define REPRO_SCAN_CASE(B)                                                                  \
-  case B:                                                                                  \
-    return launch_scan<T, B>(q, x, qn, xn, out_v, out_i, skips, m, n, dim, k, bn, metric, \
-                             prune, splits, tiles_per_split, stream);
+template <typename TQ, typename TX, int EPI>
+cudaError_t dispatch_scan(int bm, const ScanArgs& a, int m, int splits, cudaStream_t stream) {
   switch (bm) {
-    REPRO_SCAN_CASE(1)
-    REPRO_SCAN_CASE(2)
-    REPRO_SCAN_CASE(4)
-    REPRO_SCAN_CASE(8)
-    REPRO_SCAN_CASE(16)
+    case 1:
+      return launch_scan<TQ, TX, 1, EPI>(a, m, splits, stream);
+    case 2:
+      return launch_scan<TQ, TX, 2, EPI>(a, m, splits, stream);
+    case 4:
+      return launch_scan<TQ, TX, 4, EPI>(a, m, splits, stream);
+    case 8:
+      return launch_scan<TQ, TX, 8, EPI>(a, m, splits, stream);
+    case 16:
+      return launch_scan<TQ, TX, 16, EPI>(a, m, splits, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef REPRO_SCAN_CASE
 }
 
 }  // namespace
@@ -235,13 +235,32 @@ int knn_scan(const void* q, const void* x, const void* qn, const void* xn, void*
              void* out_i, void* skips, int m, int n, int dim, int k, int bm, int bn,
              int metric, int prune, int splits, int tiles_per_split, int bf16,
              void* stream) {
+  const ScanArgs a{q, x, static_cast<const float*>(qn), static_cast<const float*>(xn),
+                   nullptr, nullptr, static_cast<float*>(out_v), static_cast<int*>(out_i),
+                   static_cast<int*>(skips), n, dim, k, bn, metric, prune, tiles_per_split};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch_scan<__nv_bfloat16>(bm, q, x, qn, xn, out_v, out_i, skips, m, n, dim, k,
-                                          bn, metric, prune, splits, tiles_per_split, st)
-           : dispatch_scan<float>(bm, q, x, qn, xn, out_v, out_i, skips, m, n, dim, k, bn,
-                                  metric, prune, splits, tiles_per_split, st);
+      bf16 ? dispatch_scan<__nv_bfloat16, __nv_bfloat16, kScores>(bm, a, m, splits, st)
+           : dispatch_scan<float, float, kScores>(bm, a, m, splits, st);
   return static_cast<int>(err);
+}
+
+// The int8 candidate scan (kernel_int8.py): q (m, dim) f32, x8 (n, dim) int8
+// codes; qn (m,); scales, err, hn (ceil(n / bn)·bn,) f32, hn +inf on invalid
+// rows (padding included); out_v / out_i (m, splits, q_len) sorted lower
+// bounds and indices; skips (m / bm, splits). Requires m % bm == 0,
+// dim % 32 == 0, bn % 256 == 0, q_len a power of two <= bn, bm in
+// {1, 2, 4, 8, 16}. n need not be a multiple of bn.
+int knn_int8_scan(const void* q, const void* x8, const void* qn, const void* scales,
+                  const void* err, const void* hn, void* out_v, void* out_i, void* skips,
+                  int m, int n, int dim, int q_len, int bm, int bn, int prune, int splits,
+                  int tiles_per_split, void* stream) {
+  const ScanArgs a{q, x8, static_cast<const float*>(qn), static_cast<const float*>(hn),
+                   static_cast<const float*>(scales), static_cast<const float*>(err),
+                   static_cast<float*>(out_v), static_cast<int*>(out_i),
+                   static_cast<int*>(skips), n, dim, q_len, bn, 0, prune, tiles_per_split};
+  return static_cast<int>(dispatch_scan<float, int8_t, kInt8Bound>(
+      bm, a, m, splits, static_cast<cudaStream_t>(stream)));
 }
 
 // in_v / in_i (m, splits, k) sorted queues -> out_v / out_i

@@ -1,31 +1,43 @@
 """Fused exact kNN on Hopper: distances folded into top-k queues on chip.
 
-Replaces ``repro/kernels/knn/kernel.py::knn_pallas`` (``_knn_kernel``) and
-the bitonic routines of ``repro/kernels/bitonic.py`` it calls. The CUDA
-sources are ``../csrc/knn.cu`` and ``../csrc/bitonic.cuh``.
+Replaces ``repro/kernels/knn/kernel.py::knn_pallas`` (``_knn_kernel``),
+``repro/kernels/knn/kernel_int8.py::knn_pallas_int8``
+(``_knn_int8_kernel``) and the bitonic routines of
+``repro/kernels/bitonic.py`` they call. The CUDA sources are
+``../csrc/knn.cu`` (``knn_scan``, ``knn_int8_scan``, ``knn_merge``),
+``../csrc/tile.cuh`` and ``../csrc/bitonic.cuh``.
 
-What it computes, exactly as the TPU kernel does: for each query, the
-k_eff lexicographically smallest (score, index) pairs over the dataset,
+What ``knn_scan`` computes, exactly as the TPU kernel does: for each query,
+the k_eff lexicographically smallest (score, index) pairs over the dataset,
 sorted; l2 scores are ``max(qn - 2·q·x + xn, 0)``, ip scores ``-q·x``,
 rows whose norm is not finite score +inf. The (M, N) score matrix never
-reaches device memory.
+reaches device memory. ``knn_int8_scan`` is the same scan over int8 codes
+read at 1 B/element, whose epilogue turns the widened dot product into the
+certified lower bound of ``repro_torch.core.quantized``
+(``max(sqrt(max((qn - 2·acc·scale) + hn, 0)) - err, 0)²``, +inf on rows
+whose quantised norm is not finite) and keeps a q_len = 2r wide queue.
 
 Design. The TPU grid runs in order with one queue per m-tile, and only the
 m axis is parallel, so for FD-SQ (m = 1) it would be one block on a card of
-132 SMs. Here the n-tiles are split instead: ``knn_scan`` runs a grid of
+132 SMs. Here the n-tiles are split instead: the scan runs a grid of
 (m / bm, S) blocks, block (i, s) scanning a contiguous range of n-tiles
 into its own sorted queues in shared memory (the tile and the queue both
-live there, so bm shrinks as k_eff grows), with S chosen to fill the card;
-``knn_merge`` then reduces the S sorted queues of each query, 8 at a time,
-in a tree of launches. The result is the exact top-k of the union, so it
-equals the sequential TPU result bit for bit whenever the scores do.
+live there, so bm shrinks as the queue grows), with S chosen to fill the
+card; ``knn_merge`` then reduces the S sorted queues of each query, 8 at a
+time, in a tree of launches. The result is the exact top-k of the union, so
+it equals the sequential TPU result bit for bit whenever the scores do. For
+the int8 queue, the union's q_len smallest pairs are the sequential queue's
+q_len smallest pairs, so the certificate's entry r is unchanged.
 
-Bound on this card: the scan reads x once (N·d·4 bytes in f32) and does
+Bound on this card. The f32 scan reads x once (N·d·4 bytes) and does
 2·M·N·d f32 FLOPs on the CUDA cores (no tensor cores, no TF32: f32 stays
-IEEE); at the main path's shapes (M <= 16) the bytes bound it. The design
+IEEE); at the main path's shapes (M <= 16) the bytes bound it. The int8 scan
+reads a quarter of those bytes but does the same f32 FMAs (the codes are
+widened: int8 tensor cores would need quantised queries, which changes the
+bound), so at M = 16 the operations bound it, not the bytes. The design
 reads each x tile once per m-tile, from a slice staged in shared memory by
-coalesced 16-byte loads, and keeps the queues on chip; it does not yet
-overlap loads with compute (``cp.async``/TMA) or use the tensor cores.
+coalesced 16-byte loads (16 codes per load in int8), and keeps the queues on
+chip; it does not yet overlap loads with compute (``cp.async``/TMA).
 
 Pruning skips a tile when every query's tile minimum is strictly worse
 than its block queue's current worst value. A block's queue has seen only
@@ -34,19 +46,22 @@ TPU's sequential grid (the plain version with S = 1 gives the TPU's count);
 it is a statistic, not a result.
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. ``LAUNCHES`` counts kernel launches only.
+launches its kernel or raises. ``LAUNCHES`` counts kernel launches only,
+for these kernels and for ``topk`` and ``l2dist`` (``kernels/topk``,
+``kernels/l2dist``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quantized import sqrt_rn
 from repro_torch.core.topk import topk_smallest, tree_merge_sorted
 
 #: Kernel launches per kernel name, counted where each wrapper launches.
-LAUNCHES = {"knn_scan": 0, "knn_merge": 0}
+LAUNCHES = {"knn_scan": 0, "knn_merge": 0, "knn_int8_scan": 0, "topk": 0, "l2dist": 0}
 
 _METRICS = {"l2": 0, "ip": 1}
-_BLOCK_ROWS = (1, 2, 4, 8, 16)  # bm values the scan kernel is built for
+_BLOCK_ROWS = (1, 2, 4, 8, 16)  # bm values every kernel is built for
 _THREADS = 256  # threads per block; the scan scores one row per thread
 _DEPTH = 32  # features staged per pass: dim must be a multiple
 _MERGE_GROUP = 8  # queues one merge block reduces
@@ -76,14 +91,20 @@ def tiles_per_split(n_tiles: int, splits: int) -> int:
     return -(-n_tiles // splits)
 
 
+def splits_for(m_tiles: int, n_tiles: int, smem: int, device) -> int:
+    """S for a grid of (m_tiles, S) blocks of `smem` bytes each: as many
+    blocks as one wave of the card holds and no more (a second, partial
+    wave would double the time), no split empty."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = max(1, min(2048 // _THREADS, _SM_SMEM_BYTES // (smem + 1024)))
+    splits = min(n_tiles, 65535, max(1, sms * per_sm // m_tiles))
+    return -(-n_tiles // tiles_per_split(n_tiles, splits))
+
+
 def scan_splits(m_tiles: int, n_tiles: int, bm: int, bn: int, k_eff: int,
                 device) -> int:
-    """S: enough blocks for one full wave of the card, no split empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(2048 // _THREADS,
-                        _SM_SMEM_BYTES // (scan_smem_bytes(bm, bn, k_eff) + 1024)))
-    splits = min(n_tiles, 65535, max(1, -(-sms * per_sm // m_tiles)))
-    return -(-n_tiles // tiles_per_split(n_tiles, splits))
+    """S for the scan (f32 or int8; ``k_eff`` is the queue width)."""
+    return splits_for(m_tiles, n_tiles, scan_smem_bytes(bm, bn, k_eff), device)
 
 
 def _check(q, x, qn, xn, k_eff, metric, bm, bn):
@@ -120,6 +141,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _resolve_splits(splits, m_tiles: int, n_tiles: int, smem: int, device):
+    """(S, tiles per split): ``None`` fills the card; a given S must leave
+    no split empty."""
+    if splits is None:
+        splits = splits_for(m_tiles, n_tiles, smem, device)
+    if not 1 <= splits <= min(n_tiles, 65535):
+        raise ValueError(f"splits={splits} must be in [1, min({n_tiles}, 65535)]")
+    tps = tiles_per_split(n_tiles, splits)
+    if -(-n_tiles // tps) != splits:
+        raise ValueError(f"splits={splits} leaves a split of {n_tiles} tiles empty")
+    return splits, tps
+
+
 def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
              prune: bool = True, splits: int | None = None):
     """Per-split sorted queues: (M, S, k_eff) f32 values and i32 indices,
@@ -136,13 +170,8 @@ def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
 
     m, n, d = q.shape[0], x.shape[0], q.shape[1]
     m_tiles, n_tiles = m // bm, n // bn
-    if splits is None:
-        splits = scan_splits(m_tiles, n_tiles, bm, bn, k_eff, q.device)
-    if not 1 <= splits <= min(n_tiles, 65535):
-        raise ValueError(f"splits={splits} must be in [1, min({n_tiles}, 65535)]")
-    tps = tiles_per_split(n_tiles, splits)
-    if -(-n_tiles // tps) != splits:
-        raise ValueError(f"splits={splits} leaves a split of {n_tiles} tiles empty")
+    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, scan_smem_bytes(bm, bn, k_eff),
+                                  q.device)
     out_v = torch.empty((m, splits, k_eff), dtype=torch.float32, device=q.device)
     out_i = torch.empty((m, splits, k_eff), dtype=torch.int32, device=q.device)
     skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
@@ -186,6 +215,64 @@ def knn_merge(v, i):
             return v[:, 0], i[:, 0]
 
 
+def _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn):
+    if q.ndim != 2 or x8.ndim != 2 or q.shape[1] != x8.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} and x8 {tuple(x8.shape)} must be (M, d), (N, d)")
+    if q.dtype != torch.float32 or x8.dtype != torch.int8:
+        raise ValueError(f"q must be f32 and x8 int8, got {q.dtype}, {x8.dtype}")
+    m, n = q.shape[0], x8.shape[0]
+    if bm not in _BLOCK_ROWS or m % bm:
+        raise ValueError(f"bm={bm} must be one of {_BLOCK_ROWS} and divide M={m}")
+    if bn % _THREADS or bn & (bn - 1):
+        raise ValueError(f"bn={bn} must be a power of two >= {_THREADS}")
+    if q_len & (q_len - 1) or not 1 <= q_len <= bn:
+        raise ValueError(f"q_len={q_len} must be a power of two <= bn={bn}")
+    rows = -(-n // bn) * bn
+    for name, t, want in (("qn", qn, m), ("scales", scales, rows), ("err", err, rows),
+                          ("hn", hn, rows)):
+        if t.shape != (want,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 of shape ({want},), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def knn_int8_scan(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
+                  prune: bool = True, splits: int | None = None):
+    """Per-split sorted queues of certified lower bounds: (M, S, q_len) f32
+    bounds and i32 indices, and (M / bm, S) i32 skip counts.
+
+    q (M, d) f32, x8 (N, d) int8 codes; qn (M,) f32; scales, err and hn
+    cover ceil(N / bn)·bn rows (padded with 1, 0 and +inf: hn is the exact
+    quantised norm with +inf on invalid rows). N need not be a multiple of
+    bn: the codes are never copied to pad them. ``splits=None`` fills the
+    card."""
+    _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn)
+    if q.device.type == "cpu":
+        return knn_int8_scan_plain(q, x8, qn, scales, err, hn, q_len, bm, bn, prune,
+                                   splits or 1)
+    _check_cuda(q, x8, qn, scales, err, hn)
+    if q.shape[1] % _DEPTH:
+        raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
+    if scan_smem_bytes(bm, bn, q_len) > _BLOCK_SMEM_MAX:
+        raise ValueError(f"bm={bm}, bn={bn}, q_len={q_len} exceed shared memory")
+    from repro_torch.kernels.build import load_library
+
+    m, n, d = q.shape[0], x8.shape[0], q.shape[1]
+    m_tiles, n_tiles = m // bm, -(-n // bn)
+    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, scan_smem_bytes(bm, bn, q_len),
+                                  q.device)
+    out_v = torch.empty((m, splits, q_len), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((m, splits, q_len), dtype=torch.int32, device=q.device)
+    skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
+    rc = load_library().knn_int8_scan(
+        q.data_ptr(), x8.data_ptr(), qn.data_ptr(), scales.data_ptr(), err.data_ptr(),
+        hn.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), skips.data_ptr(),
+        m, n, d, q_len, bm, bn, int(prune), splits, tps,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "knn_int8_scan")
+    LAUNCHES["knn_int8_scan"] += 1
+    return out_v, out_i, skips
+
+
 def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
               bn: int = 512, bd: int = 512, prune: bool = True):
     """Fused exact kNN with the TPU kernel's contract: M % bm == N % bn ==
@@ -206,26 +293,61 @@ def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
     return v, i, skips.sum(dim=1, keepdim=True, dtype=torch.int32)
 
 
+def knn_int8_fused(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
+                   prune: bool = True):
+    """The int8 candidate scan with the TPU kernel's contract: (M, q_len)
+    sorted lower bounds and indices, and (M / bm, 1) skips summed over the
+    splits. On a CPU tensor the plain version runs with S = 1, so its skip
+    count is the TPU kernel's."""
+    if q.device.type == "cpu":
+        v, i, skips = knn_int8_scan_plain(q, x8, qn, scales, err, hn, q_len, bm, bn, prune, 1)
+        return v[:, 0], i[:, 0], skips
+    sv, si, skips = knn_int8_scan(q, x8, qn, scales, err, hn, q_len, bm, bn, prune)
+    v, i = knn_merge(sv, si)
+    return v, i, skips.sum(dim=1, keepdim=True, dtype=torch.int32)
+
+
 # ------------------------------------------------------------ plain versions
-def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
-                   prune: bool = True, splits: int = 1):
-    """The scan's semantics in torch ops: each split runs the TPU grid's
-    sequential loop over its n-tiles (score tile, strict prune test per
-    m-tile, exact queue update); splits and m-tiles advance together."""
-    _check(q, x, qn, xn, k_eff, metric, bm, bn)
-    m, n = q.shape[0], x.shape[0]
-    m_tiles, n_tiles = m // bm, n // bn
+def plain_queues(tile_scores, m: int, n_tiles: int, k: int, bm: int, bn: int,
+                  prune: bool, splits: int, device):
+    """The scan's queue semantics in torch ops: each split runs the TPU
+    grid's sequential loop over its n-tiles (score tile, strict prune test
+    per m-tile, exact queue update); splits and m-tiles advance together.
+    ``tile_scores(rows)`` gives the (M, S, bn) scores of the dataset rows
+    ``rows`` (S, bn)."""
+    m_tiles = m // bm
     tps = tiles_per_split(n_tiles, splits)
-    dev = q.device
-    q32 = q.to(torch.float32)
-    buf_v = torch.full((m, splits, k_eff), torch.inf, dtype=torch.float32, device=dev)
-    buf_i = torch.full((m, splits, k_eff), -1, dtype=torch.int32, device=dev)
-    skips = torch.zeros((m_tiles, splits), dtype=torch.int32, device=dev)
-    lanes = torch.arange(bn, device=dev)
+    buf_v = torch.full((m, splits, k), torch.inf, dtype=torch.float32, device=device)
+    buf_i = torch.full((m, splits, k), -1, dtype=torch.int32, device=device)
+    skips = torch.zeros((m_tiles, splits), dtype=torch.int32, device=device)
+    lanes = torch.arange(bn, device=device)
     for t in range(tps):
-        tile = torch.arange(splits, device=dev) * tps + t  # (S,)
+        tile = torch.arange(splits, device=device) * tps + t  # (S,)
         live = tile < n_tiles
         rows = tile.clamp(max=n_tiles - 1)[:, None] * bn + lanes  # (S, bn)
+        s = tile_scores(rows)
+        idx = rows.to(torch.int32).expand(m, splits, bn)
+        if prune:
+            prunable = torch.amin(s, dim=-1) > buf_v[:, :, -1]  # (M, S)
+            skip = prunable.reshape(m_tiles, bm, splits).all(dim=1) & live
+        else:
+            skip = torch.zeros((m_tiles, splits), dtype=torch.bool, device=device)
+        skips += skip.to(torch.int32)
+        new_v, new_i = topk_smallest(torch.cat([buf_v, s], -1),
+                                     torch.cat([buf_i, idx], -1), k)
+        take = (live & ~skip).repeat_interleave(bm, dim=0)[:, :, None]
+        buf_v = torch.where(take, new_v, buf_v)
+        buf_i = torch.where(take, new_i, buf_i)
+    return buf_v, buf_i, skips
+
+
+def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
+                   prune: bool = True, splits: int = 1):
+    """``knn_scan`` in torch ops (see :func:`plain_queues`)."""
+    _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    q32 = q.to(torch.float32)
+
+    def scores(rows):
         cross = torch.matmul(q32, x[rows].to(torch.float32).transpose(1, 2))  # (S, M, bn)
         cross = cross.permute(1, 0, 2)  # (M, S, bn)
         xnt = xn[rows][None]  # (1, S, bn)
@@ -233,20 +355,32 @@ def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
             s = torch.clamp_min(qn[:, None, None] - 2.0 * cross + xnt, 0.0)
         else:
             s = -cross
-        s = torch.where(torch.isfinite(xnt), s, torch.inf)
-        idx = rows.to(torch.int32).expand(m, splits, bn)
-        if prune:
-            prunable = torch.amin(s, dim=-1) > buf_v[:, :, -1]  # (M, S)
-            skip = prunable.reshape(m_tiles, bm, splits).all(dim=1) & live
-        else:
-            skip = torch.zeros((m_tiles, splits), dtype=torch.bool, device=dev)
-        skips += skip.to(torch.int32)
-        new_v, new_i = topk_smallest(torch.cat([buf_v, s], -1),
-                                     torch.cat([buf_i, idx], -1), k_eff)
-        take = (live & ~skip).repeat_interleave(bm, dim=0)[:, :, None]
-        buf_v = torch.where(take, new_v, buf_v)
-        buf_i = torch.where(take, new_i, buf_i)
-    return buf_v, buf_i, skips
+        return torch.where(torch.isfinite(xnt), s, torch.inf)
+
+    return plain_queues(scores, q.shape[0], x.shape[0] // bn, k_eff, bm, bn, prune,
+                         splits, q.device)
+
+
+def knn_int8_scan_plain(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
+                        prune: bool = True, splits: int = 1):
+    """``knn_int8_scan`` in torch ops: the epilogue of kernel_int8.py in its
+    rounding order over the widened codes (see :func:`plain_queues`)."""
+    _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn)
+    n = x8.shape[0]
+
+    def bounds(rows):
+        codes = x8[rows.clamp(max=n - 1)].to(torch.float32)  # (S, bn, d)
+        cross = torch.matmul(q, codes.transpose(1, 2)).permute(1, 0, 2)  # (M, S, bn)
+        cross = cross * scales[rows][None]
+        h = hn[rows][None]
+        valid = torch.isfinite(h)
+        d_hat = torch.clamp_min(qn[:, None, None] - 2.0 * cross + torch.where(valid, h, 0.0),
+                                0.0)
+        t = torch.clamp_min(sqrt_rn(d_hat) - err[rows][None], 0.0)
+        return torch.where(valid, t * t, torch.inf)
+
+    return plain_queues(bounds, q.shape[0], -(-n // bn), q_len, bm, bn, prune, splits,
+                         q.device)
 
 
 def knn_merge_plain(v, i):

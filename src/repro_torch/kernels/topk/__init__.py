@@ -1,0 +1,3 @@
+"""Streaming top-k over a score matrix: the CUDA kernel wrapper
+(``kernel``), its public padding wrapper (``ops``) and its plain oracle
+(``ref``)."""

@@ -6,11 +6,22 @@ channel every executor honours. The shard lives on the device of the array
 it was built from, so a dataset generated on the card is padded there with
 no host copy.
 
-Mutations (upsert / delete with the write-ahead journal), mmap shards,
-compaction and the int8 tier are ported in the store and int8 slices;
-``upsert`` and ``delete`` raise ``NotImplementedError`` until then.
+Tiers:
+
+* ``f32``  — the exact base tier, always present;
+* ``int8`` — the 1 B/element scan tier (``repro_torch.core.quantized``):
+             per-row int8 codes + scales + a certified per-row error bound
+             + the exact quantised norm, built by :meth:`ensure_tier` from
+             the padded f32 rows on their own device, a chunk of rows at a
+             time. Its padded rows carry +inf norms.
+
+Mutations (upsert / delete with the write-ahead journal), mmap shards and
+compaction are ported in the store slice; ``upsert`` and ``delete`` raise
+``NotImplementedError`` until then.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,6 +30,17 @@ from repro_torch.core.partition import LANE, PaddedDataset, make_padded
 from repro_torch.core.planner import DatasetStoreMeta
 
 F32_TIER = "f32"
+INT8_TIER = "int8"
+
+
+class Int8Shard(NamedTuple):
+    """The int8 tier of one shard (see repro_torch.core.quantized)."""
+
+    q: torch.Tensor  # (padded_rows, padded_dim) int8
+    scales: torch.Tensor  # (padded_rows,) f32
+    err: torch.Tensor  # (padded_rows,) f32 — certified ||e_x|| upper bound
+    norms_sq: torch.Tensor  # (padded_rows,) f32 — exact norms; +inf on invalid
+    qnorm_sq: torch.Tensor  # (padded_rows,) f32 — EXACT ||x_hat||^2
 
 
 class DatasetStore:
@@ -28,6 +50,7 @@ class DatasetStore:
         self._vectors = vectors
         self._norms = norms
         self._n_valid = int(n_valid)
+        self._int8: Int8Shard | None = None
 
     @classmethod
     def from_array(cls, vectors, row_mult: int = LANE,
@@ -81,7 +104,34 @@ class DatasetStore:
         return 0
 
     def has_tier(self, tier: str) -> bool:
-        return tier == F32_TIER
+        return tier == F32_TIER or (tier == INT8_TIER and self._int8 is not None)
+
+    def ensure_tier(self, tier: str) -> None:
+        """Materialise `tier` (idempotent). The int8 tier is quantised from
+        the padded f32 rows on their own device; padded rows get +inf norms
+        so the masked quantised scan can never admit them."""
+        if tier == F32_TIER:
+            return
+        if tier != INT8_TIER:
+            raise ValueError(f"unknown tier {tier!r}; known: {F32_TIER}, {INT8_TIER}")
+        if self._int8 is not None:
+            return
+        from repro_torch.core.quantized import quantize_dataset
+
+        qd = quantize_dataset(self._vectors)
+        qd.norms_sq[self._n_valid:] = torch.inf
+        self._int8 = Int8Shard(*qd)
+
+    def int8_resident(self) -> Int8Shard:
+        """The shard's int8 tier (the store's own tensors)."""
+        if self._int8 is None:
+            raise RuntimeError("int8 tier not materialized; call ensure_tier('int8')")
+        return self._int8
+
+    def int8_resident_norms(self) -> torch.Tensor:
+        """norms_sq of :meth:`int8_resident` alone — the only int8 channel
+        mutations will touch."""
+        return self.int8_resident().norms_sq
 
     def nbytes(self, tier: str = F32_TIER) -> int:
         """Scan bytes of one full pass over the main shard at `tier`."""

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, against their plain versions.
+"""The CUDA kernels on the card, against their plain versions: knn_scan,
+knn_merge, knn_int8_scan, l2dist and topk.
 
 These tests need an NVIDIA card with ``nvcc`` (the library is built on
 first launch); elsewhere they skip. They import neither JAX nor the JAX
@@ -65,7 +66,92 @@ def test_engine_searches_through_the_kernel(dev):
         K.reset_launch_counts()
         got = fused.search(SearchRequest(queries=q, mode_hint=mode))
         torch.cuda.synchronize()
-        assert got.plan.executor == "fdsq-cuda" and all(K.LAUNCHES.values())
+        assert got.plan.executor == "fdsq-cuda"
+        assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] >= 1
         want = plain.search(SearchRequest(queries=q, mode_hint=mode))
         assert torch.equal(got.topk.scores, want.topk.scores)
         assert torch.equal(got.topk.indices, want.topk.indices)
+
+
+def _unit_scale_rows(n, d, g, dev):
+    """Integer rows in [-127, 127] with one entry at 127: every row's int8
+    scale is 1, so the int8 scan's arithmetic is exact but for sqrt and
+    the final square, single IEEE operations on both sides."""
+    x = torch.randint(-127, 128, (n, d), generator=g, device=dev).to(torch.float32)
+    x[torch.arange(n, device=dev), torch.randint(0, d, (n,), generator=g, device=dev)] = 127.0
+    return x
+
+
+@pytest.mark.parametrize("k,m", [(1, 1), (7, 16), (72, 3), (1024, 2)])
+def test_int8_scan_bit_identical_to_plain(dev, k, m):
+    from repro_torch.core.quantized import quantize_dataset
+
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    x = _unit_scale_rows(5000, 256, g, dev)
+    x[4000] = x[9]
+    q = torch.randint(-40, 41, (m, 256), generator=g, device=dev).to(torch.float32)
+    q[0] = x[9]
+    ds = quantize_dataset(x)
+    ds.norms_sq[[100, 4999]] = torch.inf
+    call = ops.prepare_int8(q, ds, k)
+    bm, bn, _ = call.blocks
+    args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len, bm, bn)
+    K.reset_launch_counts()
+    got = K.knn_int8_scan(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_int8_scan"] == 1
+    splits = got[0].shape[1]
+    want = K.knn_int8_scan_plain(*args, True, splits)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    v, i = K.knn_merge(got[0], got[1])
+    v1, i1, _ = K.knn_int8_scan_plain(*args, True, 1)
+    assert torch.equal(v, v1[:, 0]) and torch.equal(i, i1[:, 0])
+
+
+def test_int8_engine_matches_its_oracle(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(30_000, 200, generator=g, device=dev)
+    q = x[:16] + 0.1 * torch.randn(16, 200, generator=g, device=dev)
+    eng = ExactKNN(k=20, backend="cuda").fit(x).enable_int8()
+    K.reset_launch_counts()
+    res = eng.search(SearchRequest(queries=q, tier="int8"))
+    torch.cuda.synchronize()
+    assert res.plan.executor == "fqsd-int8-cuda" and K.LAUNCHES["knn_int8_scan"] == 1
+    ds = eng._ds
+    want = ops.knn_exact_direct(eng._pad_queries(q), ds.vectors, ds.norms, 20,
+                                res.plan.chunk_rows)
+    assert torch.equal(res.topk.scores, want.scores)
+    assert torch.equal(res.topk.indices, want.indices)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,d", [(1, 1000, 64), (16, 5003, 96), (37, 300, 32)])
+def test_l2dist_bit_identical_to_plain(dev, dtype, m, n, d):
+    from repro_torch.kernels.l2dist import kernel as L
+
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    q = _ints((m, d), g, dev).to(dtype)
+    x = _ints((n, d), g, dev).to(dtype)
+    qn = torch.sum(q.float() ** 2, -1)
+    xn = torch.sum(x.float() ** 2, -1)
+    K.reset_launch_counts()
+    got = L.l2dist_tiles(q, x, qn, xn)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["l2dist"] == 1
+    assert torch.equal(got, L.l2dist_plain(q, x, qn, xn))
+
+
+@pytest.mark.parametrize("k,m,n", [(1, 1, 300), (72, 16, 100_000), (1024, 5, 70_001)])
+def test_topk_bit_identical_to_plain(dev, k, m, n):
+    from repro_torch.kernels.topk import ops as T
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    s = torch.randint(-500, 500, (m, n), generator=g, device=dev).to(torch.float32)
+    K.reset_launch_counts()
+    v, i = T.topk(s, k)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["topk"] == 1 and K.LAUNCHES["knn_merge"] >= 1
+    rv, ri = topk_ref(s, k)
+    assert torch.equal(v, rv) and torch.equal(i, ri)

@@ -173,7 +173,7 @@ def test_executable_cache_does_not_grow_on_repeats_or_mode_switches(data):
 def test_engine_refuses_what_this_slice_lacks(data):
     x, q, _ = data
     eng = ExactKNN(k=3, device="cpu").fit(x)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(RuntimeError, match="enable_int8"):
         eng.search(SearchRequest(queries=q, tier="int8"))
     with pytest.raises(NotImplementedError, match="store"):
         eng.upsert(x[:2])

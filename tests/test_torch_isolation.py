@@ -98,6 +98,27 @@ def test_convert_without_device_needs_cuda():
 def test_kernel_module_imports_without_nvcc():
     mod = importlib.import_module("repro_torch.kernels.knn.kernel")
     build = importlib.import_module("repro_torch.kernels.build")
-    assert mod.LAUNCHES.keys() == {"knn_scan", "knn_merge"}
-    assert build.CSRC.is_dir() and (build.CSRC / "knn.cu").is_file()
+    assert mod.LAUNCHES.keys() == {"knn_scan", "knn_merge", "knn_int8_scan", "topk", "l2dist"}
+    assert build.CSRC.is_dir()
+    for src in ("knn.cu", "topk.cu", "l2dist.cu", "tile.cuh", "bitonic.cuh"):
+        assert (build.CSRC / src).is_file()
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
+
+
+def test_int8_state_without_device_needs_cuda():
+    """The int8 codes carried from the JAX package land on the CUDA device
+    too, unless the caller asks for the CPU."""
+    import numpy as np
+
+    from repro_torch.convert import quantized_from_numpy
+
+    arrays = (np.zeros((4, 2), np.int8),) + (np.ones(4, np.float32),) * 4
+    if torch.cuda.is_available():
+        assert quantized_from_numpy(*arrays).q.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            quantized_from_numpy(*arrays)
+    got = quantized_from_numpy(*arrays, device="cpu")
+    assert got.q.dtype == torch.int8 and got.scales.device.type == "cpu"
+    with pytest.raises(ValueError, match="int8"):
+        quantized_from_numpy(np.zeros((4, 2), np.float32), *arrays[1:], device="cpu")

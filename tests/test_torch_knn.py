@@ -209,7 +209,8 @@ def test_cpu_tensors_take_the_plain_version_and_never_build():
     K.reset_launch_counts()
     rng = np.random.default_rng(16)
     tops.knn(torch.from_numpy(_ints(rng, (2, 16))), torch.from_numpy(_ints(rng, (50, 16))), 3)
-    assert K.LAUNCHES == {"knn_scan": 0, "knn_merge": 0}
+    assert K.LAUNCHES == dict.fromkeys(("knn_scan", "knn_merge", "knn_int8_scan", "topk",
+                                        "l2dist"), 0)
     assert build._lib is None
 
 
