@@ -44,8 +44,13 @@ Each kernel is timed with CUDA events (median of REPEATS after a warm-up)
 beside its plain version, one PyTorch call computing the same function (a
 yardstick the port never calls; none exists for the int8 scan, whose
 yardstick is the f32 knn_scan at the same shape, printed as f32_scan_ms),
-and its bound on this card. The bounds are stated for the H100 SXM (CARD);
-on any other card the run stops before it measures.
+and its bound on this card. bound_ms is the function's own work: its
+unpadded inputs read once, its result written once, and its arithmetic
+(2·d + the epilogue per pair for the scans, one comparison per element for
+the selections), whichever takes longer; the scans and topk also print
+design_bound_ms, the same over the padded operands, the per-block queues
+and the sorts this design does. The bounds are stated for the H100 SXM
+(CARD); on any other card the run stops before it measures.
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
@@ -91,9 +96,10 @@ GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
 STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024)
-#: f32 operations per (query, row) pair in the int8 epilogue: scale, double,
-#: subtract, add, clamp, sqrt, subtract, clamp, square
-INT8_EPILOGUE_OPS = 9
+#: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
+#: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
+#: sqrt, subtract, clamp, square
+L2_EPILOGUE_OPS, INT8_EPILOGUE_OPS = 4, 9
 
 
 def log(msg: str) -> None:
@@ -397,15 +403,21 @@ class Smoke:
         flat = sv.reshape(sv.shape[0], -1)
         lib_merge_ms = self.ms(lambda: torch.topk(flat, call.k_eff, largest=False))
 
+        # the bound of the function: its data read once (no padding), the
+        # (m, k) result written once, 2·d + the epilogue's operations per pair
+        n_valid, d = ds.n_valid, q.shape[1]
+        scan_bytes = ((n_valid + m) * d * cx.element_size() + (n_valid + m) * 4
+                      + m * k * 8)
+        scan_ops = m * n_valid * (2 * d + L2_EPILOGUE_OPS)
+        # the design's own work: padded operands, the S per-block queues and
+        # skip counts, and a full bitonic sort + queue update per merged tile
         merged_tiles = m_tiles * n_tiles - int(sk.sum())
-        scan_bytes = (cx.numel() * cx.element_size() + cq.numel() * cq.element_size()
-                      + (cxn.numel() + qn.numel()) * 4 + sv.numel() * 8 + sk.numel() * 4)
-        scan_ops = (2 * cq.shape[0] * cx.shape[0] * cx.shape[1]
-                    + merged_tiles * (self.sort_ops(bm, bn) + self.update_ops(bm, call.k_eff)))
-        # the same bound without the zero columns and rows of the padding
-        data_bound_ms = ds.n_valid * q.shape[1] * cx.element_size() / self.bw * 1e3
+        design_bytes = (cx.numel() * cx.element_size() + cq.numel() * cq.element_size()
+                        + (cxn.numel() + qn.numel()) * 4 + sv.numel() * 8 + sk.numel() * 4)
+        design_ops = (2 * cq.shape[0] * cx.shape[0] * cx.shape[1] + merged_tiles
+                      * (self.sort_ops(bm, bn) + self.update_ops(bm, call.k_eff)))
         merge_bytes = sv.numel() * 8 + mv.numel() * 8
-        merge_ops = (splits - 1) * self.update_ops(cq.shape[0], call.k_eff)
+        merge_ops = sv.numel()  # one comparison per queued pair
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "search_ms": statistics.median(e2e), "kernels": {}}
         library = {"knn_scan": f"torch.topk(torch.cdist(q, x, compute_mode={lib_form!r})**2)",
@@ -420,9 +432,10 @@ class Smoke:
                 "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": library[name]}
             log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
                 f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
-        shape["kernels"]["knn_scan"]["data_bound_ms"] = data_bound_ms
-        log(f"{label}: knn_scan data-only bound_ms={data_bound_ms:.4f} "
-            f"({ds.n_valid} rows x d={q.shape[1]}, padding excluded)")
+        design_ms, _ = self.bound(design_bytes, design_ops)
+        shape["kernels"]["knn_scan"]["design_bound_ms"] = design_ms
+        log(f"{label}: knn_scan bound over the padded operands, queues and sorts "
+            f"design_bound_ms={design_ms:.4f}")
         log(f"{label}: search ms median={statistics.median(e2e):.3f} "
             f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
         self.shapes.append(shape)
@@ -625,14 +638,20 @@ class Smoke:
         f32_scan_ms = self.ms(lambda: K.knn_scan(fcall.q, fcall.x, fqn, fcall.xn, fcall.k_eff,
                                                  "l2", fbm, fbn, True))
 
-        mp, n, d = call.q.shape[0], call.x8.shape[0], call.x8.shape[1]
+        # the bound of the function: codes (1 B), scales, err and hn of the
+        # valid rows, the unpadded queries, the (m, q_len) queue written once
+        n_valid, d = eng.n, q.shape[1]
+        scan_bytes = n_valid * d + 3 * n_valid * 4 + m * (d + 1) * 4 + m * call.q_len * 8
+        scan_ops = m * n_valid * (2 * d + INT8_EPILOGUE_OPS)
+        # the design's own work: padded operands, S queues, sorts per tile
+        mp, n, dp = call.q.shape[0], call.x8.shape[0], call.x8.shape[1]
         merged_tiles = m_tiles * n_tiles - int(sk.sum())
-        scan_bytes = (call.x8.numel() + 3 * call.hn.numel() * 4 + call.q.numel() * 4
-                      + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4)
-        scan_ops = (mp * n * (2 * d + INT8_EPILOGUE_OPS)
-                    + merged_tiles * (self.sort_ops(bm, bn) + self.update_ops(bm, call.q_len)))
+        design_bytes = (call.x8.numel() + 3 * call.hn.numel() * 4 + call.q.numel() * 4
+                        + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4)
+        design_ops = (mp * n * (2 * dp + INT8_EPILOGUE_OPS) + merged_tiles
+                      * (self.sort_ops(bm, bn) + self.update_ops(bm, call.q_len)))
         merge_bytes = sv.numel() * 8 + lb.numel() * 8
-        merge_ops = (splits - 1) * self.update_ops(mp, call.q_len)
+        merge_ops = sv.numel()  # one comparison per queued pair
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "q_len": call.q_len, "search_ms": statistics.median(e2e),
                  "certified_share": share, "rescore_ms": rescore_ms,
@@ -651,8 +670,11 @@ class Smoke:
                 f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
         bb_bytes, _ = self.bound(scan_bytes, 0)
         bb_ops, _ = self.bound(0, scan_ops)
+        design_ms, _ = self.bound(design_bytes, design_ops)
+        shape["kernels"]["knn_int8_scan"]["design_bound_ms"] = design_ms
         log(f"{label}: knn_int8_scan bound by bytes {bb_bytes:.4f} ms, by operations "
-            f"{bb_ops:.4f} ms; f32 knn_scan at this shape {f32_scan_ms:.4f} ms; rescore "
+            f"{bb_ops:.4f} ms (padded operands, queues and sorts: {design_ms:.4f} ms); "
+            f"f32 knn_scan at this shape {f32_scan_ms:.4f} ms; rescore "
             f"{rescore_ms:.4f} ms; fallback {fallback_ms:.4f} ms ({int(bad.sum())} rows)")
         log(f"{label}: search ms median={statistics.median(e2e):.3f} "
             f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
@@ -717,10 +739,15 @@ class Smoke:
 
         l2_bytes = (q.numel() + x.numel()) * 4 + (m + n) * 4 + m * n * 4
         l2_ops = 2 * m * n * d
-        tk_bytes = m * n * 4 + sv.numel() * 8
-        tk_ops = m * n_tiles * (self.sort_ops(1, bn) + self.update_ops(1, k_eff))
+        # topk's function reads the scores once and writes the (m, k) result;
+        # the design also writes S queues and sorts every tile
+        tk_bytes = m * n * 4 + m * k * 8
+        tk_ops = m * n  # one comparison per score
+        design_ms, _ = self.bound(
+            m * n * 4 + sv.numel() * 8,
+            m * n_tiles * (self.sort_ops(1, bn) + self.update_ops(1, k_eff)))
         merge_bytes = sv.numel() * 8 + m * k_eff * 8
-        merge_ops = (splits - 1) * self.update_ops(m, k_eff)
+        merge_ops = sv.numel()  # one comparison per queued pair
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn], "kernels": {}}
         for name, t, tp, tl, lib, (bb, by), err in (
                 ("l2dist", l2_ms, l2_plain_ms, l2_lib_ms,
@@ -736,6 +763,9 @@ class Smoke:
                 "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
             log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
                 f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
+        shape["kernels"]["topk"]["design_bound_ms"] = design_ms
+        log(f"{label}: topk bound over its S queues and tile sorts design_bound_ms="
+            f"{design_ms:.4f}")
         self.shapes.append(shape)
         return ok
 

@@ -71,7 +71,7 @@ def engine_state_from_jax(jax_engine, device=None) -> ExactKNN:
         backend=_BACKENDS[jax_engine.backend], chunk_rows=jax_engine.chunk_rows,
         n_partitions=jax_engine.n_partitions, dtype=padded.vectors.dtype,
         device=device,
-        rescore_factor=jax_engine.rescore_factor if jax_engine._rescore_pinned else None,
+        rescore_factor=jax_engine.rescore_factor,
     )
     eng._attach(padded.vectors, padded.norms, padded.n_valid,
                 prenormalized=bool(getattr(jax_engine, "_cos_prenormalized", False)))

@@ -103,7 +103,6 @@ class ExactKNN:
         self.dtype = dtype
         #: int8 rescore budget: r = next_pow2(rescore_factor·next_pow2(k))
         self.rescore_factor = 4 if rescore_factor is None else int(rescore_factor)
-        self._rescore_pinned = rescore_factor is not None
         self._store = None
         # cos + fused backend: the resident view is normalised at fit time,
         # so the kernel skips its own dataset pass per query batch
@@ -226,7 +225,7 @@ class ExactKNN:
         return EngineConfig(
             k=self.k, metric=self.metric, backend=self.backend,
             chunk_rows=self.chunk_rows, n_partitions=self.n_partitions,
-            rescore_factor=self.rescore_factor, rescore_pinned=self._rescore_pinned,
+            rescore_factor=self.rescore_factor,
             dtype=str(self.dtype).removeprefix("torch."),
         )
 

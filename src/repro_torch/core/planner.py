@@ -125,7 +125,6 @@ class EngineConfig:
     sharded: bool = False
     mesh_axes: Sequence[str] = ("data", "model")
     rescore_factor: int = 4
-    rescore_pinned: bool = False
     dtype: str = "float32"
 
 

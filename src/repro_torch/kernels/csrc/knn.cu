@@ -38,24 +38,6 @@ size_t scan_smem_bytes(int bm, int bn, int k) {
 // kInt8Bound for knn_int8_scan (the certified lower bound).
 enum Epilogue { kScores = 0, kInt8Bound = 1 };
 
-// Everything a scan launch needs. For kScores, xn is the dataset norms and
-// scales / err are unused; for kInt8Bound, xn is hn (the exact quantised
-// norm, +inf on invalid rows), scales the per-row code scale and err the
-// per-row error bound. The per-row channels cover ceil(n_rows / bn)·bn rows;
-// x covers n_rows (rows past it read as zeros and score +inf through xn).
-struct ScanArgs {
-  const void* q;
-  const void* x;
-  const float* qn;
-  const float* xn;
-  const float* scales;
-  const float* err;
-  float* out_v;
-  int* out_i;
-  int* skips;
-  int n_rows, dim, k, bn, metric, prune, tiles_per_split;
-};
-
 // Grid (m / BM, splits). Block (i, s) owns query rows [i·BM, (i+1)·BM) and
 // the contiguous n-tiles [s·tiles_per_split, (s+1)·tiles_per_split). For each
 // tile, in order: the (BM, bn) cross tile in f32 FMA (bf16 and int8 widened on
@@ -63,10 +45,24 @@ struct ScanArgs {
 // the block's own queues, else a bitonic sort of each tile row and a queue
 // update. Writes the block's sorted queues to out[(row·splits + s)·k + lane]
 // and its skip count to skips[i·splits + s].
+//
+// kScores: xn is the dataset norms; scales and err are unused; n_rows % bn == 0.
+// kInt8Bound: xn is hn (the exact quantised norm, +inf on invalid rows),
+// scales the per-row code scale and err the per-row error bound, all three
+// over ceil(n_rows / bn)·bn rows; x covers n_rows, and rows past it read as
+// zeros. Everything the int8 scan adds is resolved at compile time, so the
+// f32 and bf16 instantiations are the plain f32 scan.
 template <typename TQ, typename TX, int BM, int EPI>
-__global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
+__global__ void __launch_bounds__(kThreads)
+    knn_scan_kernel(const TQ* __restrict__ q, const TX* __restrict__ x,
+                    const float* __restrict__ qn, const float* __restrict__ xn,
+                    const float* __restrict__ scales, const float* __restrict__ err,
+                    float* __restrict__ out_v, int* __restrict__ out_i,
+                    int* __restrict__ skips, int n_rows, int dim, int k, int bn, int metric,
+                    int prune, int tiles_per_split) {
+  constexpr bool kRagged = EPI == kInt8Bound;
+  constexpr int kN = rt::Vec<TX>::kN, kPer = kDepth / kN;
   extern __shared__ float smem[];
-  const int bn = a.bn, k = a.k;
   float* tile_v = smem;
   int* tile_i = reinterpret_cast<int*>(tile_v + BM * bn);
   float* queue_v = reinterpret_cast<float*>(tile_i + BM * bn);
@@ -74,14 +70,12 @@ __global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
   float* xs = reinterpret_cast<float*>(queue_i + BM * k);
   float* qs = xs + kChunk * kStride;
 
-  const TQ* __restrict__ q = static_cast<const TQ*>(a.q);
-  const TX* __restrict__ x = static_cast<const TX*>(a.x);
   const int tid = threadIdx.x;
   const int m_tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int row0 = m_tile * BM;
-  const int n_tiles = (a.n_rows + bn - 1) / bn;
-  const int t_begin = split * a.tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + a.tiles_per_split);
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(kRagged ? (n_rows + bn - 1) / bn : n_rows / bn,
+                        t_begin + tiles_per_split);
 
   for (int e = tid; e < BM * k; e += kThreads) {
     queue_v[e] = CUDART_INF_F;
@@ -96,10 +90,26 @@ __global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
       float acc[BM];
 #pragma unroll
       for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-      for (int d0 = 0; d0 < a.dim; d0 += kDepth) {
-        // only the int8 scan meets a ragged last tile (f32 needs n % bn == 0)
-        rt::stage_rows<TX, EPI == kInt8Bound>(x, a.dim, d0, n0 + c0, a.n_rows, xs);
-        rt::stage_queries<TQ>(q, a.dim, d0, row0, BM, row0 + BM, qs);
+      const TX* xchunk = x + (size_t)(n0 + c0) * dim;
+      for (int d0 = 0; d0 < dim; d0 += kDepth) {
+        // stage x[chunk rows, d0 : d0 + kDepth]: kPer threads per row slice
+#pragma unroll
+        for (int p = 0; p < kChunk * kPer / kThreads; ++p) {
+          const int e = p * kThreads + tid;
+          const int r = e / kPer, c = (e % kPer) * kN;
+          float v[kN];
+          if (!kRagged || n0 + c0 + r < n_rows) {
+            rt::Vec<TX>::load(xchunk + (size_t)r * dim + d0 + c, v);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kN; ++j) v[j] = 0.f;
+          }
+          float* dst = xs + r * kStride + c;
+#pragma unroll
+          for (int j = 0; j < kN; ++j) dst[j] = v[j];
+        }
+        for (int e = tid; e < BM * kDepth; e += kThreads)
+          qs[e] = rt::to_f32(q[(size_t)(row0 + e / kDepth) * dim + d0 + e % kDepth]);
         __syncthreads();
         const float* xr = xs + tid * kStride;
 #pragma unroll
@@ -111,29 +121,28 @@ __global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
         __syncthreads();
       }
       const int col = c0 + tid;
-      const float xnv = a.xn[n0 + col];
+      const float xnv = xn[n0 + col];
       const bool valid = isfinite(xnv);
-      if (EPI == kScores) {
+      if constexpr (EPI == kScores) {
 #pragma unroll
         for (int r = 0; r < BM; ++r) {
           // l2: (qn - 2·cross) + xn, clamped at 0, rounded in that order
-          const float s =
-              a.metric == 0
-                  ? fmaxf(__fadd_rn(__fsub_rn(a.qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
-                  : -acc[r];
+          const float s = metric == 0
+                              ? fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
+                              : -acc[r];
           tile_v[r * bn + col] = valid ? s : CUDART_INF_F;
           tile_i[r * bn + col] = n0 + col;
         }
       } else {
         // kernel_int8.py's epilogue, rounded in its order: cross = acc·scale,
         // d_hat = max((qn - 2·cross) + hn, 0), lower = max(sqrt(d_hat) - err, 0)²
-        const float sc = a.scales[n0 + col], er = a.err[n0 + col];
+        const float sc = scales[n0 + col], er = err[n0 + col];
         const float hn = valid ? xnv : 0.f;
 #pragma unroll
         for (int r = 0; r < BM; ++r) {
           const float cross = __fmul_rn(acc[r], sc);
           const float d_hat =
-              fmaxf(__fadd_rn(__fsub_rn(a.qn[row0 + r], __fmul_rn(2.f, cross)), hn), 0.f);
+              fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, cross)), hn), 0.f);
           const float t = fmaxf(__fsub_rn(__fsqrt_rn(d_hat), er), 0.f);
           tile_v[r * bn + col] = valid ? __fmul_rn(t, t) : CUDART_INF_F;
           tile_i[r * bn + col] = n0 + col;
@@ -141,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
       }
     }
     __syncthreads();
-    if (a.prune && rt::tile_prunable(tile_v, bn, queue_v, k, BM)) {
+    if (prune && rt::tile_prunable(tile_v, bn, queue_v, k, BM)) {
       ++skipped;
       continue;
     }
@@ -152,10 +161,10 @@ __global__ void __launch_bounds__(kThreads) knn_scan_kernel(const ScanArgs a) {
   for (int e = tid; e < BM * k; e += kThreads) {
     const int r = e / k, l = e - r * k;
     const size_t o = ((size_t)(row0 + r) * splits + split) * k + l;
-    a.out_v[o] = queue_v[e];
-    a.out_i[o] = queue_i[e];
+    out_v[o] = queue_v[e];
+    out_i[o] = queue_i[e];
   }
-  if (tid == 0) a.skips[m_tile * splits + split] = skipped;
+  if (tid == 0) skips[m_tile * splits + split] = skipped;
 }
 
 // Grid (m, ceil(splits / group)). Block (row, g) merges the sorted queues
@@ -194,6 +203,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Everything a scan launch passes to the kernel, in its parameter order.
+struct ScanArgs {
+  const void *q, *x, *qn, *xn, *scales, *err;
+  void *out_v, *out_i, *skips;
+  int n_rows, dim, k, bn, metric, prune, tiles_per_split;
+};
+
 template <typename TQ, typename TX, int BM, int EPI>
 cudaError_t launch_scan(const ScanArgs& a, int m, int splits, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(BM, a.bn, a.k);
@@ -201,7 +217,12 @@ cudaError_t launch_scan(const ScanArgs& a, int m, int splits, cudaStream_t strea
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(m / BM, splits), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(m / BM, splits), kThreads, smem, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TX*>(a.x),
+      static_cast<const float*>(a.qn), static_cast<const float*>(a.xn),
+      static_cast<const float*>(a.scales), static_cast<const float*>(a.err),
+      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), static_cast<int*>(a.skips),
+      a.n_rows, a.dim, a.k, a.bn, a.metric, a.prune, a.tiles_per_split);
   return cudaGetLastError();
 }
 
@@ -235,9 +256,8 @@ int knn_scan(const void* q, const void* x, const void* qn, const void* xn, void*
              void* out_i, void* skips, int m, int n, int dim, int k, int bm, int bn,
              int metric, int prune, int splits, int tiles_per_split, int bf16,
              void* stream) {
-  const ScanArgs a{q, x, static_cast<const float*>(qn), static_cast<const float*>(xn),
-                   nullptr, nullptr, static_cast<float*>(out_v), static_cast<int*>(out_i),
-                   static_cast<int*>(skips), n, dim, k, bn, metric, prune, tiles_per_split};
+  const ScanArgs a{q, x, qn, xn, nullptr, nullptr, out_v, out_i, skips,
+                   n, dim, k, bn, metric, prune, tiles_per_split};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bf16 ? dispatch_scan<__nv_bfloat16, __nv_bfloat16, kScores>(bm, a, m, splits, st)
@@ -255,10 +275,8 @@ int knn_int8_scan(const void* q, const void* x8, const void* qn, const void* sca
                   const void* err, const void* hn, void* out_v, void* out_i, void* skips,
                   int m, int n, int dim, int q_len, int bm, int bn, int prune, int splits,
                   int tiles_per_split, void* stream) {
-  const ScanArgs a{q, x8, static_cast<const float*>(qn), static_cast<const float*>(hn),
-                   static_cast<const float*>(scales), static_cast<const float*>(err),
-                   static_cast<float*>(out_v), static_cast<int*>(out_i),
-                   static_cast<int*>(skips), n, dim, q_len, bn, 0, prune, tiles_per_split};
+  const ScanArgs a{q, x8, qn, hn, scales, err, out_v, out_i, skips,
+                   n, dim, q_len, bn, 0, prune, tiles_per_split};
   return static_cast<int>(dispatch_scan<float, int8_t, kInt8Bound>(
       bm, a, m, splits, static_cast<cudaStream_t>(stream)));
 }

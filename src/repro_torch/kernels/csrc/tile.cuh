@@ -1,7 +1,8 @@
-// Block geometry and staged loads shared by the scan kernels (knn.cu) and the
+// Block geometry and row loads shared by the scan kernels (knn.cu) and the
 // distance-matrix kernel (l2dist.cu): 256 threads score 256 dataset rows, one
 // row per thread, over 32-feature slices staged in shared memory by
 // coalesced 16-byte (bf16: 8-byte) loads and widened to f32 on the way in.
+// The staging helpers below serve l2dist; the scans stage in their own body.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -66,9 +67,8 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // Stage x[row0 : row0 + kChunk, d0 : d0 + kDepth] as f32 into xs (row stride
-// kStride); with kRagged, rows at or past n_rows read as zeros. Called by all
-// threads.
-template <typename T, bool kRagged = true>
+// kStride); rows at or past n_rows read as zeros. Called by all threads.
+template <typename T>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ x, int dim, int d0, int row0,
                                            int n_rows, float* xs) {
   constexpr int kN = Vec<T>::kN, kPer = kDepth / kN;
@@ -77,7 +77,7 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ x, int dim, int
     const int e = p * kThreads + threadIdx.x;
     const int r = e / kPer, c = (e % kPer) * kN;
     float v[kN];
-    if (!kRagged || row0 + r < n_rows) {
+    if (row0 + r < n_rows) {
       Vec<T>::load(x + (size_t)(row0 + r) * dim + d0 + c, v);
     } else {
 #pragma unroll

@@ -21,26 +21,19 @@ compaction are ported in the store slice; ``upsert`` and ``delete`` raise
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
 from repro_torch.core.partition import LANE, PaddedDataset, make_padded
 from repro_torch.core.planner import DatasetStoreMeta
+from repro_torch.core.quantized import QuantizedDataset, quantize_dataset
 
 F32_TIER = "f32"
 INT8_TIER = "int8"
 
 
-class Int8Shard(NamedTuple):
-    """The int8 tier of one shard (see repro_torch.core.quantized)."""
-
-    q: torch.Tensor  # (padded_rows, padded_dim) int8
-    scales: torch.Tensor  # (padded_rows,) f32
-    err: torch.Tensor  # (padded_rows,) f32 — certified ||e_x|| upper bound
-    norms_sq: torch.Tensor  # (padded_rows,) f32 — exact norms; +inf on invalid
-    qnorm_sq: torch.Tensor  # (padded_rows,) f32 — EXACT ||x_hat||^2
+#: The int8 tier of one shard: a QuantizedDataset over its padded rows.
+Int8Shard = QuantizedDataset
 
 
 class DatasetStore:
@@ -116,11 +109,9 @@ class DatasetStore:
             raise ValueError(f"unknown tier {tier!r}; known: {F32_TIER}, {INT8_TIER}")
         if self._int8 is not None:
             return
-        from repro_torch.core.quantized import quantize_dataset
-
         qd = quantize_dataset(self._vectors)
         qd.norms_sq[self._n_valid:] = torch.inf
-        self._int8 = Int8Shard(*qd)
+        self._int8 = qd
 
     def int8_resident(self) -> Int8Shard:
         """The shard's int8 tier (the store's own tensors)."""
