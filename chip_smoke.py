@@ -14,11 +14,16 @@ Phases, in order (any failure makes the run exit non-zero):
              with planted duplicate rows, +inf-norm rows and a ragged N, for
              l2/ip/cos, f32 and bf16, k in {1, 7, 72, 1024}, m in {1, 16});
              knn_int8_scan (rows in [-127, 127] whose int8 scale is 1, so only
-             sqrt and the square round, k in {1, 7, 72, 1024}, m in {1, 16},
-             codes never padded to the n-block); l2dist (f32 and bf16,
-             m in {1, 16}, ragged N); topk (k in {1, 72, 1024}, integer scores
-             with ties and -0.0/+0.0, ragged M and N). Values, indices and skip
-             counts must be bit-identical (d = 960: every sum is below 2^24).
+             sqrt and the square round, k in {1, 7, 72, 1024}: q_len 8 to
+             8192, m in {1, 16}, codes never padded to the n-block; rows in
+             random order, farthest from query 0 first so that every lane
+             survives the filter and its buffer overflows, and all equal so
+             that only index ties decide; at the card's S and at S = 1);
+             l2dist (f32 and bf16, m in {1, 16}, ragged N); topk (k in
+             {1, 72, 1024}, ragged M and N: integer scores with ties and
+             -0.0/+0.0, scores descending along N, all equal, +inf lanes).
+             Values, indices and skip counts must be bit-identical (d = 960:
+             every sum is below 2^24).
 3. gist    — GIST shape, FQ-SD: N = 1,000,000, d = 960, m = 16, k = 1024
              through ExactKNN(backend="cuda").fit(x).search(...).
 4. msmarco — MS-MARCO shape, FD-SQ: N = 8,841,823, d = 769, m = 1, k = 72
@@ -48,9 +53,15 @@ and its bound on this card. bound_ms is the function's own work: its
 unpadded inputs read once, its result written once, and its arithmetic
 (2·d + the epilogue per pair for the scans, one comparison per element for
 the selections), whichever takes longer; the scans and topk also print
-design_bound_ms, the same over the padded operands, the per-block queues
-and the sorts this design does. The bounds are stated for the H100 SXM
-(CARD); on any other card the run stops before it measures.
+design_bound_ms, the same over the work each design does: for knn_scan the
+padded operands, the per-block queues and a full sort of every merged
+tile; for knn_int8_scan and topk the padded operands (codes once per
+m-tile), the per-block queues, and the survivor filter's sorts, rank
+searches and merges as the kernel counts them (select.cuh's counters, with
+the survivors and the share of lanes that survived printed beside). topk
+is also timed with its merges (topk_with_merges_ms) beside torch.topk. The
+bounds are stated for the H100 SXM (CARD); on any other card the run stops
+before it measures.
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
@@ -86,7 +97,7 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "knn_scan": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel.py:121"),
     "knn_merge": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel.py:121"),
-    "knn_int8_scan": (_CSRC + "knn.cu", "src/repro/kernels/knn/kernel_int8.py:116"),
+    "knn_int8_scan": (_CSRC + "knn_int8.cu", "src/repro/kernels/knn/kernel_int8.py:116"),
     "l2dist": (_CSRC + "l2dist.cu", "src/repro/kernels/l2dist/kernel.py:58"),
     "topk": (_CSRC + "topk.cu", "src/repro/kernels/topk/kernel.py:57"),
 }
@@ -150,6 +161,18 @@ class Smoke:
         """Lane minima plus the bitonic merge of one queue update."""
         return rows * (k + (k // 2) * int(math.log2(k)))
 
+    @staticmethod
+    def select_work(stats, k: int, lanes: int) -> dict:
+        """The survivor filter's work from a kernel's counters (select.cuh):
+        survivors, passes, comparisons of the survivor sorts and queue pairs
+        moved by the merges, summed over the blocks; its operations add a
+        log2(k)-probe rank search per survivor. `lanes` is the number
+        of (query, row) lanes the filter saw."""
+        survivors, passes, comps, moved = (int(v) for v in stats.sum(dim=(0, 1)).tolist())
+        return {"survivors": survivors, "survivor_fraction": survivors / lanes,
+                "passes": passes, "sort_comparisons": comps, "pairs_moved": moved,
+                "ops": comps + moved + survivors * max(1, int(math.log2(k)))}
+
     # ------------------------------------------------------ phase 2: exact
     def _pow2_rows(self, n, d, g):
         """Integer rows in [-8, 8] whose norms are powers of two, so their
@@ -211,7 +234,12 @@ class Smoke:
 
     def _exact_int8(self, g):
         """The int8 scan on rows whose scale is exactly 1 (integers in
-        [-127, 127] with one entry at 127) and integer queries in [-8, 8]."""
+        [-127, 127] with one entry at 127) and integer queries in [-8, 8],
+        in three row orders: random; farthest from query 0 first, so every
+        lane of every tile beats query 0's queue and the survivor buffer
+        overflows (the multi-pass path); and every row equal, so only the
+        index ties decide. q_len runs from 8 to 8192 (k = 1024: the
+        widest queue)."""
         torch, K, ops = self.torch, self.K, self.ops
         from repro_torch.core.quantized import quantize_dataset
 
@@ -224,36 +252,41 @@ class Smoke:
         q = torch.randint(-8, 9, (max(EXACT["ms"]), d), generator=g,
                           device=self.dev).to(torch.float32)
         q[0] = x[17]
-        ds = quantize_dataset(x)
-        ds.norms_sq[torch.tensor([100, n // 4, n - 2], device=self.dev)] = torch.inf
+        far = torch.argsort(torch.sum((x - q[0]) ** 2, dim=-1), descending=True, stable=True)
+        orders = {"random": x, "farthest_first": x[far], "equal": x[17].expand(n, d)}
         cases, bad = 0, []
-        for k in EXACT["ks"]:
-            for m in EXACT["ms"]:
-                cases += 1
-                call = ops.prepare_int8(q[:m], ds, k)
-                bm, bn, _ = call.blocks
-                args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len,
-                        bm, bn)
-                m_tiles, n_tiles = call.q.shape[0] // bm, call.hn.shape[0] // bn
-                problems = []
-                for splits in (K.scan_splits(m_tiles, n_tiles, bm, bn, call.q_len, self.dev), 1):
-                    for prune in (True, False):
-                        got = K.knn_int8_scan(*args, prune, splits)
-                        want = K.knn_int8_scan_plain(*args, prune, splits)
-                        for what, a, b in zip(("bounds", "indices", "skips"), got, want):
-                            if not torch.equal(a, b):
-                                problems.append(f"scan S={splits} prune={prune} {what}")
-                    mv, mi = K.knn_merge(got[0], got[1])
-                    pv, pi = K.knn_merge_plain(got[0], got[1])
-                    if not (torch.equal(mv, pv) and torch.equal(mi, pi)):
-                        problems.append(f"merge S={splits}")
-                v, i, _ = K.knn_int8_fused(*args)
-                pv, pi, _ = K.knn_int8_scan_plain(*args, True, 1)
-                if not (torch.equal(v, pv[:, 0]) and torch.equal(i, pi[:, 0])):
-                    problems.append("fused")
-                self.sync()
-                if problems:
-                    bad.append(f"k={k} m={m} q_len={call.q_len}: {', '.join(problems)}")
+        for order, rows in orders.items():
+            ds = quantize_dataset(rows.contiguous())
+            ds.norms_sq[torch.tensor([100, n // 4, n - 2], device=self.dev)] = torch.inf
+            for k in EXACT["ks"]:
+                for m in EXACT["ms"]:
+                    cases += 1
+                    call = ops.prepare_int8(q[:m], ds, k)
+                    bm, bn, _ = call.blocks
+                    args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn,
+                            call.q_len, bm, bn)
+                    m_tiles, n_tiles = call.q.shape[0] // bm, call.hn.shape[0] // bn
+                    problems = []
+                    card_s = K.int8_scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+                    for splits in (card_s, 1):
+                        for prune in (True, False):
+                            got = K.knn_int8_scan(*args, prune, splits)
+                            want = K.knn_int8_scan_plain(*args, prune, splits)
+                            for what, a, b in zip(("bounds", "indices", "skips"), got, want):
+                                if not torch.equal(a, b):
+                                    problems.append(f"scan S={splits} prune={prune} {what}")
+                        mv, mi = K.knn_merge(got[0], got[1])
+                        pv, pi = K.knn_merge_plain(got[0], got[1])
+                        if not (torch.equal(mv, pv) and torch.equal(mi, pi)):
+                            problems.append(f"merge S={splits}")
+                    v, i, _ = K.knn_int8_fused(*args)
+                    pv, pi, _ = K.knn_int8_scan_plain(*args, True, 1)
+                    if not (torch.equal(v, pv[:, 0]) and torch.equal(i, pi[:, 0])):
+                        problems.append("fused")
+                    self.sync()
+                    if problems:
+                        bad.append(f"{order} k={k} m={m} q_len={call.q_len}: "
+                                   f"{', '.join(problems)}")
         return cases, bad
 
     def _exact_l2dist(self, g):
@@ -278,37 +311,51 @@ class Smoke:
         return cases, bad
 
     def _exact_topk(self, g):
-        torch, K = self.torch, self.K
+        """topk on a ragged (M, N): integer scores with ties and a mix of
+        -0.0 and +0.0; scores descending along N (every lane of every batch
+        beats the queue, so the survivor buffer overflows); all scores
+        equal (only the index ties decide); and +inf lanes."""
+        torch = self.torch
         from repro_torch.kernels.topk import kernel as T
         from repro_torch.kernels.topk import ops as TO
         from repro_torch.kernels.topk.ref import topk_ref
 
-        n = EXACT["n"]
-        s = torch.randint(-300, 301, (max(EXACT["ms"]), n), generator=g,
-                          device=self.dev).to(torch.float32)
-        s[s == 0] = torch.where(torch.rand(int((s == 0).sum()), generator=g, device=self.dev)
-                                < 0.5, -0.0, 0.0)
+        n, rows = EXACT["n"], max(EXACT["ms"])
+        ints = torch.randint(-300, 301, (rows, n), generator=g,
+                             device=self.dev).to(torch.float32)
+        zero = ints == 0
+        ints[zero] = torch.where(torch.rand(int(zero.sum()), generator=g, device=self.dev)
+                                 < 0.5, -0.0, 0.0)
+        infs = ints.clone()
+        infs[torch.rand(rows, n, generator=g, device=self.dev) < 0.3] = torch.inf
+        data = {
+            "ints": ints,
+            "descending": torch.arange(n, 0, -1, device=self.dev, dtype=torch.float32)
+            .expand(rows, n).contiguous(),
+            "equal": torch.full((rows, n), 3.0, device=self.dev),
+            "inf_lanes": infs,
+        }
         cases, bad = 0, []
-        for k in EXACT["topk_ks"]:
-            for m in (5, 16):
-                cases += 1
-                sm = s[:m].contiguous()
-                k_eff = 1 << max(0, (k - 1).bit_length())
-                bn = max(1024, k_eff)
-                bm = T.topk_block_m(k_eff, bn, m)
-                problems = []
-                for splits in (None, 1):
-                    sv, si = T.topk_scan(sm, k_eff, bm, bn, splits)
-                    pv, pi = T.topk_scan_plain(sm, k_eff, bn, sv.shape[1])
-                    if not (torch.equal(sv, pv) and torch.equal(si, pi)):
-                        problems.append(f"scan S={sv.shape[1]}")
-                v, i = TO.topk(sm, k)
-                rv, ri = topk_ref(sm, k)
-                if not (torch.equal(v, rv) and torch.equal(i, ri)):
-                    problems.append("topk vs the full sort")
-                self.sync()
-                if problems:
-                    bad.append(f"k={k} m={m}: {', '.join(problems)}")
+        for name, s in data.items():
+            for k in EXACT["topk_ks"]:
+                for m in (5, 16):
+                    cases += 1
+                    sm = s[:m].contiguous()
+                    k_eff = 1 << max(0, (k - 1).bit_length())
+                    bn = max(1024, k_eff)
+                    problems = []
+                    for splits in (None, 1):
+                        sv, si = T.topk_scan(sm, k_eff, bn, splits)
+                        pv, pi = T.topk_scan_plain(sm, k_eff, bn, sv.shape[1])
+                        if not (torch.equal(sv, pv) and torch.equal(si, pi)):
+                            problems.append(f"scan S={sv.shape[1]}")
+                    v, i = TO.topk(sm, k)
+                    rv, ri = topk_ref(sm, k)
+                    if not (torch.equal(v, rv) and torch.equal(i, ri)):
+                        problems.append("topk vs the full sort")
+                    self.sync()
+                    if problems:
+                        bad.append(f"{name} k={k} m={m}: {', '.join(problems)}")
         return cases, bad
 
     def _exact_case(self, call) -> str:
@@ -600,8 +647,8 @@ class Smoke:
         bm, bn, _ = call.blocks
         args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len, bm, bn)
         m_tiles, n_tiles = call.q.shape[0] // bm, call.hn.shape[0] // bn
-        splits = K.scan_splits(m_tiles, n_tiles, bm, bn, call.q_len, self.dev)
-        sv, si, sk = K.knn_int8_scan(*args, True, splits)
+        splits = K.int8_scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        sv, si, sk, st = K.knn_int8_scan(*args, True, splits, return_stats=True)
         pv, pi, psk = K.knn_int8_scan_plain(*args, True, splits)
         lb, li = K.knn_merge(sv, si)
         mpv, mpi = K.knn_merge_plain(sv, si)
@@ -643,20 +690,24 @@ class Smoke:
         n_valid, d = eng.n, q.shape[1]
         scan_bytes = n_valid * d + 3 * n_valid * 4 + m * (d + 1) * 4 + m * call.q_len * 8
         scan_ops = m * n_valid * (2 * d + INT8_EPILOGUE_OPS)
-        # the design's own work: padded operands, S queues, sorts per tile
-        mp, n, dp = call.q.shape[0], call.x8.shape[0], call.x8.shape[1]
-        merged_tiles = m_tiles * n_tiles - int(sk.sum())
-        design_bytes = (call.x8.numel() + 3 * call.hn.numel() * 4 + call.q.numel() * 4
-                        + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4)
-        design_ops = (mp * n * (2 * dp + INT8_EPILOGUE_OPS) + merged_tiles
-                      * (self.sort_ops(bm, bn) + self.update_ops(bm, call.q_len)))
+        # the design's own work: the codes and channels once per m-tile, the
+        # padded rows' FMAs and epilogues, the S queues written, and the
+        # survivor filter's sorts, rank searches and merges, whose queues
+        # live in device memory (each moved pair read and written)
+        mp, dp = call.q.shape[0], call.x8.shape[1]
+        rows = n_tiles * bn
+        sel = self.select_work(st, call.q_len, mp * rows)
+        design_bytes = (m_tiles * (call.x8.numel() + 3 * rows * 4) + call.q.numel() * 4
+                        + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4
+                        + sel["pairs_moved"] * 16 + sel["survivors"] * 8)
+        design_ops = mp * rows * (2 * dp + INT8_EPILOGUE_OPS) + sel["ops"]
         merge_bytes = sv.numel() * 8 + lb.numel() * 8
         merge_ops = sv.numel()  # one comparison per queued pair
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "q_len": call.q_len, "search_ms": statistics.median(e2e),
                  "certified_share": share, "rescore_ms": rescore_ms,
                  "fallback_ms": fallback_ms, "f32_scan_ms": f32_scan_ms,
-                 "quantize_s": quantize_s, "kernels": {}}
+                 "quantize_s": quantize_s, "select": sel, "kernels": {}}
         for name, t, tp, tl, lib, (bb, by), err in (
                 ("knn_int8_scan", scan_ms, plain_scan_ms, None, None,
                  self.bound(scan_bytes, scan_ops), err_scan),
@@ -672,8 +723,9 @@ class Smoke:
         bb_ops, _ = self.bound(0, scan_ops)
         design_ms, _ = self.bound(design_bytes, design_ops)
         shape["kernels"]["knn_int8_scan"]["design_bound_ms"] = design_ms
+        log(f"{label}: knn_int8_scan survivor filter {sel}")
         log(f"{label}: knn_int8_scan bound by bytes {bb_bytes:.4f} ms, by operations "
-            f"{bb_ops:.4f} ms (padded operands, queues and sorts: {design_ms:.4f} ms); "
+            f"{bb_ops:.4f} ms (padded operands, queues and survivor work: {design_ms:.4f} ms); "
             f"f32 knn_scan at this shape {f32_scan_ms:.4f} ms; rescore "
             f"{rescore_ms:.4f} ms; fallback {fallback_ms:.4f} ms ({int(bad.sum())} rows)")
         log(f"{label}: search ms median={statistics.median(e2e):.3f} "
@@ -713,11 +765,9 @@ class Smoke:
         rv, ri = topk_ref(dist, k)
         topk_exact = torch.equal(v, rv) and torch.equal(i, ri)
         k_eff, bn = k, max(1024, k)
-        bm = T.topk_block_m(k_eff, bn, m)
-        m_tiles, n_tiles = -(-m // bm), -(-n // bn)
-        smem = T.topk_smem_bytes(bm, bn, k_eff)
-        splits = K.splits_for(m_tiles, n_tiles, smem, self.dev)
-        sv, si = T.topk_scan(dist, k_eff, bm, bn, splits)
+        n_tiles = -(-n // bn)
+        splits = T.topk_splits(m, n_tiles, self.dev)
+        sv, si, st = T.topk_scan(dist, k_eff, bn, splits, return_stats=True)
         pv, pi = T.topk_scan_plain(dist, k_eff, bn, splits)
         scan_exact = torch.equal(sv, pv) and torch.equal(si, pi)
         ok &= ok_l2 and topk_exact and scan_exact
@@ -729,7 +779,8 @@ class Smoke:
         l2_plain_ms = self.ms(lambda: L.l2dist_plain(q, x, qn, xn))
         l2_lib_ms = self.ms(lambda: torch.cdist(
             q, x, compute_mode="donot_use_mm_for_euclid_dist"))
-        tk_ms = self.ms(lambda: T.topk_scan(dist, k_eff, bm, bn, splits))
+        tk_ms = self.ms(lambda: T.topk_scan(dist, k_eff, bn, splits))
+        tk_fused_ms = self.ms(lambda: T.topk_fused(dist, k_eff, bn))
         tk_plain_ms = self.ms(lambda: T.topk_scan_plain(dist, k_eff, bn, splits))
         tk_lib_ms = self.ms(lambda: torch.topk(dist, k, largest=False))
         merge_ms = self.ms(lambda: K.knn_merge(sv, si))
@@ -740,15 +791,17 @@ class Smoke:
         l2_bytes = (q.numel() + x.numel()) * 4 + (m + n) * 4 + m * n * 4
         l2_ops = 2 * m * n * d
         # topk's function reads the scores once and writes the (m, k) result;
-        # the design also writes S queues and sorts every tile
+        # the design also writes S queues, and its survivor filter compares
+        # every score once and sorts, searches and merges the survivors (the
+        # queues are in shared memory: no device bytes)
         tk_bytes = m * n * 4 + m * k * 8
         tk_ops = m * n  # one comparison per score
-        design_ms, _ = self.bound(
-            m * n * 4 + sv.numel() * 8,
-            m * n_tiles * (self.sort_ops(1, bn) + self.update_ops(1, k_eff)))
+        sel = self.select_work(st, k_eff, m * n)
+        design_ms, _ = self.bound(m * n * 4 + sv.numel() * 8, m * n + sel["ops"])
         merge_bytes = sv.numel() * 8 + m * k_eff * 8
         merge_ops = sv.numel()  # one comparison per queued pair
-        shape = {"shape": label, "splits": splits, "blocks": [bm, bn], "kernels": {}}
+        shape = {"shape": label, "splits": splits, "blocks": [1, bn], "select": sel,
+                 "topk_with_merges_ms": tk_fused_ms, "kernels": {}}
         for name, t, tp, tl, lib, (bb, by), err in (
                 ("l2dist", l2_ms, l2_plain_ms, l2_lib_ms,
                  "torch.cdist(q, x, compute_mode='donot_use_mm_for_euclid_dist') (not squared)",
@@ -764,8 +817,9 @@ class Smoke:
             log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
                 f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
         shape["kernels"]["topk"]["design_bound_ms"] = design_ms
-        log(f"{label}: topk bound over its S queues and tile sorts design_bound_ms="
-            f"{design_ms:.4f}")
+        log(f"{label}: topk S={splits} survivor filter {sel}")
+        log(f"{label}: topk scan + merges ms={tk_fused_ms:.4f} (torch.topk {tk_lib_ms:.4f}); "
+            f"bound over its S queues and survivor work design_bound_ms={design_ms:.4f}")
         self.shapes.append(shape)
         return ok
 

@@ -100,9 +100,9 @@ def load_library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.knn_scan.argtypes = [ptr] * 7 + [i32] * 11 + [ptr]
-            lib.knn_int8_scan.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+            lib.knn_int8_scan.argtypes = [ptr] * 12 + [i32] * 10 + [ptr]
             lib.knn_merge.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-            lib.topk_scan.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+            lib.topk_scan.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
             lib.l2dist.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
             for fn in (lib.knn_scan, lib.knn_int8_scan, lib.knn_merge, lib.topk_scan,
                        lib.l2dist):

@@ -1,10 +1,9 @@
-// Fused exact kNN for sm_90a: scan kernels that score dataset tiles and fold
-// them into per-block sorted top-k queues in shared memory, and a merge kernel
-// that reduces the per-block queues. The (M, N) score matrix never leaves the
-// block. One templated scan serves both TPU kernels it replaces: knn_scan
-// (knn_pallas: f32 or bf16 rows, l2 / ip scores) and knn_int8_scan
-// (knn_pallas_int8: int8 codes read at 1 B/element, certified lower bounds
-// into a q_len-wide queue). See repro_torch/kernels/knn/kernel.py for the
+// Fused exact kNN for sm_90a: a scan kernel that scores dataset tiles and
+// folds them into per-block sorted top-k queues in shared memory (knn_scan,
+// the counterpart of knn_pallas: f32 or bf16 rows, l2 / ip scores), and a
+// merge kernel that reduces per-block queues (knn_merge, also for the int8
+// scan of knn_int8.cu and topk_scan of topk.cu). The (M, N) score matrix
+// never leaves the block. See repro_torch/kernels/knn/kernel.py for the
 // design note.
 //
 // Plain C interface (loaded with ctypes): every pointer and the stream come
@@ -14,7 +13,6 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
-#include <stdint.h>
 
 #include "bitonic.cuh"
 #include "tile.cuh"
@@ -28,39 +26,27 @@ using rt::kThreads;
 
 // Shared memory of one scan block, in bytes (kernel.py mirrors this formula):
 // tile values + indices, queue values + indices, the staged dataset slice
-// (widened to f32, so the int8 scan takes the same) and the staged queries.
+// (widened to f32) and the staged queries.
 size_t scan_smem_bytes(int bm, int bn, int k) {
   return (size_t)bm * bn * 8 + (size_t)bm * k * 8 + (size_t)kChunk * kStride * 4 +
          (size_t)bm * kDepth * 4;
 }
 
-// The tile epilogue: kScores for knn_scan (l2 or ip, chosen by `metric`),
-// kInt8Bound for knn_int8_scan (the certified lower bound).
-enum Epilogue { kScores = 0, kInt8Bound = 1 };
-
 // Grid (m / BM, splits). Block (i, s) owns query rows [i·BM, (i+1)·BM) and
 // the contiguous n-tiles [s·tiles_per_split, (s+1)·tiles_per_split). For each
-// tile, in order: the (BM, bn) cross tile in f32 FMA (bf16 and int8 widened on
-// load), the epilogue with +inf on invalid rows, the strict prune test against
-// the block's own queues, else a bitonic sort of each tile row and a queue
-// update. Writes the block's sorted queues to out[(row·splits + s)·k + lane]
-// and its skip count to skips[i·splits + s].
-//
-// kScores: xn is the dataset norms; scales and err are unused; n_rows % bn == 0.
-// kInt8Bound: xn is hn (the exact quantised norm, +inf on invalid rows),
-// scales the per-row code scale and err the per-row error bound, all three
-// over ceil(n_rows / bn)·bn rows; x covers n_rows, and rows past it read as
-// zeros. Everything the int8 scan adds is resolved at compile time, so the
-// f32 and bf16 instantiations are the plain f32 scan.
-template <typename TQ, typename TX, int BM, int EPI>
+// tile, in order: the (BM, bn) cross tile in f32 FMA (bf16 widened on load),
+// the l2 / ip epilogue with +inf on rows whose norm is not finite, the strict
+// prune test against the block's own queues, else a bitonic sort of each tile
+// row and a queue update. Writes the block's sorted queues to
+// out[(row·splits + s)·k + lane] and its skip count to skips[i·splits + s].
+// Requires n_rows % bn == 0.
+template <typename TQ, typename TX, int BM>
 __global__ void __launch_bounds__(kThreads)
     knn_scan_kernel(const TQ* __restrict__ q, const TX* __restrict__ x,
                     const float* __restrict__ qn, const float* __restrict__ xn,
-                    const float* __restrict__ scales, const float* __restrict__ err,
                     float* __restrict__ out_v, int* __restrict__ out_i,
                     int* __restrict__ skips, int n_rows, int dim, int k, int bn, int metric,
                     int prune, int tiles_per_split) {
-  constexpr bool kRagged = EPI == kInt8Bound;
   constexpr int kN = rt::Vec<TX>::kN, kPer = kDepth / kN;
   extern __shared__ float smem[];
   float* tile_v = smem;
@@ -74,8 +60,7 @@ __global__ void __launch_bounds__(kThreads)
   const int m_tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
   const int row0 = m_tile * BM;
   const int t_begin = split * tiles_per_split;
-  const int t_end = min(kRagged ? (n_rows + bn - 1) / bn : n_rows / bn,
-                        t_begin + tiles_per_split);
+  const int t_end = min(n_rows / bn, t_begin + tiles_per_split);
 
   for (int e = tid; e < BM * k; e += kThreads) {
     queue_v[e] = CUDART_INF_F;
@@ -98,12 +83,7 @@ __global__ void __launch_bounds__(kThreads)
           const int e = p * kThreads + tid;
           const int r = e / kPer, c = (e % kPer) * kN;
           float v[kN];
-          if (!kRagged || n0 + c0 + r < n_rows) {
-            rt::Vec<TX>::load(xchunk + (size_t)r * dim + d0 + c, v);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kN; ++j) v[j] = 0.f;
-          }
+          rt::Vec<TX>::load(xchunk + (size_t)r * dim + d0 + c, v);
           float* dst = xs + r * kStride + c;
 #pragma unroll
           for (int j = 0; j < kN; ++j) dst[j] = v[j];
@@ -123,30 +103,14 @@ __global__ void __launch_bounds__(kThreads)
       const int col = c0 + tid;
       const float xnv = xn[n0 + col];
       const bool valid = isfinite(xnv);
-      if constexpr (EPI == kScores) {
 #pragma unroll
-        for (int r = 0; r < BM; ++r) {
-          // l2: (qn - 2·cross) + xn, clamped at 0, rounded in that order
-          const float s = metric == 0
-                              ? fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
-                              : -acc[r];
-          tile_v[r * bn + col] = valid ? s : CUDART_INF_F;
-          tile_i[r * bn + col] = n0 + col;
-        }
-      } else {
-        // kernel_int8.py's epilogue, rounded in its order: cross = acc·scale,
-        // d_hat = max((qn - 2·cross) + hn, 0), lower = max(sqrt(d_hat) - err, 0)²
-        const float sc = scales[n0 + col], er = err[n0 + col];
-        const float hn = valid ? xnv : 0.f;
-#pragma unroll
-        for (int r = 0; r < BM; ++r) {
-          const float cross = __fmul_rn(acc[r], sc);
-          const float d_hat =
-              fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, cross)), hn), 0.f);
-          const float t = fmaxf(__fsub_rn(__fsqrt_rn(d_hat), er), 0.f);
-          tile_v[r * bn + col] = valid ? __fmul_rn(t, t) : CUDART_INF_F;
-          tile_i[r * bn + col] = n0 + col;
-        }
+      for (int r = 0; r < BM; ++r) {
+        // l2: (qn - 2·cross) + xn, clamped at 0, rounded in that order
+        const float s = metric == 0
+                            ? fmaxf(__fadd_rn(__fsub_rn(qn[row0 + r], __fmul_rn(2.f, acc[r])), xnv), 0.f)
+                            : -acc[r];
+        tile_v[r * bn + col] = valid ? s : CUDART_INF_F;
+        tile_i[r * bn + col] = n0 + col;
       }
     }
     __syncthreads();
@@ -203,45 +167,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Everything a scan launch passes to the kernel, in its parameter order.
-struct ScanArgs {
-  const void *q, *x, *qn, *xn, *scales, *err;
-  void *out_v, *out_i, *skips;
-  int n_rows, dim, k, bn, metric, prune, tiles_per_split;
-};
-
-template <typename TQ, typename TX, int BM, int EPI>
-cudaError_t launch_scan(const ScanArgs& a, int m, int splits, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(BM, a.bn, a.k);
-  auto kernel = knn_scan_kernel<TQ, TX, BM, EPI>;
+template <typename TQ, typename TX, int BM>
+cudaError_t launch_scan(const void* q, const void* x, const void* qn, const void* xn,
+                        void* out_v, void* out_i, void* skips, int m, int n_rows, int dim,
+                        int k, int bn, int metric, int prune, int splits, int tiles_per_split,
+                        cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(BM, bn, k);
+  auto kernel = knn_scan_kernel<TQ, TX, BM>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(m / BM, splits), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TX*>(a.x),
-      static_cast<const float*>(a.qn), static_cast<const float*>(a.xn),
-      static_cast<const float*>(a.scales), static_cast<const float*>(a.err),
-      static_cast<float*>(a.out_v), static_cast<int*>(a.out_i), static_cast<int*>(a.skips),
-      a.n_rows, a.dim, a.k, a.bn, a.metric, a.prune, a.tiles_per_split);
+      static_cast<const TQ*>(q), static_cast<const TX*>(x), static_cast<const float*>(qn),
+      static_cast<const float*>(xn), static_cast<float*>(out_v), static_cast<int*>(out_i),
+      static_cast<int*>(skips), n_rows, dim, k, bn, metric, prune, tiles_per_split);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TX, int EPI>
-cudaError_t dispatch_scan(int bm, const ScanArgs& a, int m, int splits, cudaStream_t stream) {
+template <typename T>
+cudaError_t dispatch_scan(int bm, const void* q, const void* x, const void* qn, const void* xn,
+                          void* out_v, void* out_i, void* skips, int m, int n_rows, int dim,
+                          int k, int bn, int metric, int prune, int splits,
+                          int tiles_per_split, cudaStream_t stream) {
+#define REPRO_SCAN_LAUNCH(BM)                                                                  \
+  launch_scan<T, T, BM>(q, x, qn, xn, out_v, out_i, skips, m, n_rows, dim, k, bn, metric,     \
+                        prune, splits, tiles_per_split, stream)
+  cudaError_t err;
   switch (bm) {
     case 1:
-      return launch_scan<TQ, TX, 1, EPI>(a, m, splits, stream);
+      err = REPRO_SCAN_LAUNCH(1);
+      break;
     case 2:
-      return launch_scan<TQ, TX, 2, EPI>(a, m, splits, stream);
+      err = REPRO_SCAN_LAUNCH(2);
+      break;
     case 4:
-      return launch_scan<TQ, TX, 4, EPI>(a, m, splits, stream);
+      err = REPRO_SCAN_LAUNCH(4);
+      break;
     case 8:
-      return launch_scan<TQ, TX, 8, EPI>(a, m, splits, stream);
+      err = REPRO_SCAN_LAUNCH(8);
+      break;
     case 16:
-      return launch_scan<TQ, TX, 16, EPI>(a, m, splits, stream);
+      err = REPRO_SCAN_LAUNCH(16);
+      break;
     default:
-      return cudaErrorInvalidValue;
+      err = cudaErrorInvalidValue;
   }
+#undef REPRO_SCAN_LAUNCH
+  return err;
 }
 
 }  // namespace
@@ -256,29 +228,13 @@ int knn_scan(const void* q, const void* x, const void* qn, const void* xn, void*
              void* out_i, void* skips, int m, int n, int dim, int k, int bm, int bn,
              int metric, int prune, int splits, int tiles_per_split, int bf16,
              void* stream) {
-  const ScanArgs a{q, x, qn, xn, nullptr, nullptr, out_v, out_i, skips,
-                   n, dim, k, bn, metric, prune, tiles_per_split};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? dispatch_scan<__nv_bfloat16, __nv_bfloat16, kScores>(bm, a, m, splits, st)
-           : dispatch_scan<float, float, kScores>(bm, a, m, splits, st);
+      bf16 ? dispatch_scan<__nv_bfloat16>(bm, q, x, qn, xn, out_v, out_i, skips, m, n, dim, k,
+                                          bn, metric, prune, splits, tiles_per_split, st)
+           : dispatch_scan<float>(bm, q, x, qn, xn, out_v, out_i, skips, m, n, dim, k, bn,
+                                  metric, prune, splits, tiles_per_split, st);
   return static_cast<int>(err);
-}
-
-// The int8 candidate scan (kernel_int8.py): q (m, dim) f32, x8 (n, dim) int8
-// codes; qn (m,); scales, err, hn (ceil(n / bn)·bn,) f32, hn +inf on invalid
-// rows (padding included); out_v / out_i (m, splits, q_len) sorted lower
-// bounds and indices; skips (m / bm, splits). Requires m % bm == 0,
-// dim % 32 == 0, bn % 256 == 0, q_len a power of two <= bn, bm in
-// {1, 2, 4, 8, 16}. n need not be a multiple of bn.
-int knn_int8_scan(const void* q, const void* x8, const void* qn, const void* scales,
-                  const void* err, const void* hn, void* out_v, void* out_i, void* skips,
-                  int m, int n, int dim, int q_len, int bm, int bn, int prune, int splits,
-                  int tiles_per_split, void* stream) {
-  const ScanArgs a{q, x8, qn, hn, scales, err, out_v, out_i, skips,
-                   n, dim, q_len, bn, 0, prune, tiles_per_split};
-  return static_cast<int>(dispatch_scan<float, int8_t, kInt8Bound>(
-      bm, a, m, splits, static_cast<cudaStream_t>(stream)));
 }
 
 // in_v / in_i (m, splits, k) sorted queues -> out_v / out_i

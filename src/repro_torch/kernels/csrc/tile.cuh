@@ -8,7 +8,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-#include <stdint.h>
 
 namespace rt {
 
@@ -44,22 +43,6 @@ struct Vec<__nv_bfloat16> {
     out[1] = a.y;
     out[2] = b.x;
     out[3] = b.y;
-  }
-};
-
-// int8 codes: 16 per 16-byte load, so the dataset is read at 1 B/element.
-template <>
-struct Vec<int8_t> {
-  static constexpr int kN = 16;
-  __device__ __forceinline__ static void load(const int8_t* p, float* out) {
-    const int4 raw = __ldg(reinterpret_cast<const int4*>(p));
-    const int words[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        out[w * 4 + b] = static_cast<float>(static_cast<int8_t>((words[w] >> (8 * b)) & 0xff));
-    }
   }
 };
 

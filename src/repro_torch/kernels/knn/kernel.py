@@ -4,46 +4,66 @@ Replaces ``repro/kernels/knn/kernel.py::knn_pallas`` (``_knn_kernel``),
 ``repro/kernels/knn/kernel_int8.py::knn_pallas_int8``
 (``_knn_int8_kernel``) and the bitonic routines of
 ``repro/kernels/bitonic.py`` they call. The CUDA sources are
-``../csrc/knn.cu`` (``knn_scan``, ``knn_int8_scan``, ``knn_merge``),
+``../csrc/knn.cu`` (``knn_scan``, ``knn_merge``), ``../csrc/knn_int8.cu``
+(``knn_int8_scan``), ``../csrc/select.cuh`` (the survivor filter),
 ``../csrc/tile.cuh`` and ``../csrc/bitonic.cuh``.
 
 What ``knn_scan`` computes, exactly as the TPU kernel does: for each query,
 the k_eff lexicographically smallest (score, index) pairs over the dataset,
 sorted; l2 scores are ``max(qn - 2·q·x + xn, 0)``, ip scores ``-q·x``,
 rows whose norm is not finite score +inf. The (M, N) score matrix never
-reaches device memory. ``knn_int8_scan`` is the same scan over int8 codes
+reaches device memory. ``knn_int8_scan`` computes the same over int8 codes
 read at 1 B/element, whose epilogue turns the widened dot product into the
 certified lower bound of ``repro_torch.core.quantized``
 (``max(sqrt(max((qn - 2·acc·scale) + hn, 0)) - err, 0)²``, +inf on rows
 whose quantised norm is not finite) and keeps a q_len = 2r wide queue.
 
-Design. The TPU grid runs in order with one queue per m-tile, and only the
-m axis is parallel, so for FD-SQ (m = 1) it would be one block on a card of
-132 SMs. Here the n-tiles are split instead: the scan runs a grid of
-(m / bm, S) blocks, block (i, s) scanning a contiguous range of n-tiles
-into its own sorted queues in shared memory (the tile and the queue both
-live there, so bm shrinks as the queue grows), with S chosen to fill the
-card; ``knn_merge`` then reduces the S sorted queues of each query, 8 at a
-time, in a tree of launches. The result is the exact top-k of the union, so
-it equals the sequential TPU result bit for bit whenever the scores do. For
-the int8 queue, the union's q_len smallest pairs are the sequential queue's
-q_len smallest pairs, so the certificate's entry r is unchanged.
+Design of ``knn_scan``. The TPU grid runs in order with one queue per
+m-tile, and only the m axis is parallel, so for FD-SQ (m = 1) it would be
+one block on a card of 132 SMs. Here the n-tiles are split instead: the
+scan runs a grid of (m / bm, S) blocks, block (i, s) scanning a contiguous
+range of n-tiles into its own sorted queues in shared memory (the tile and
+the queue both live there, so bm shrinks as the queue grows), with S chosen
+to fill the card; ``knn_merge`` then reduces the S sorted queues of each
+query, 8 at a time, in a tree of launches. The result is the exact top-k of
+the union, so it equals the sequential TPU result bit for bit whenever the
+scores do. It reads x once (N·d·4 bytes) and does 2·M·N·d f32 FLOPs on the
+CUDA cores (no tensor cores, no TF32: f32 stays IEEE); at the main path's
+shapes (M <= 16) the bytes bound it. Each thread scores one row from a
+32-feature slice staged in shared memory, with one shared-memory query load
+per FMA and no load overlap yet.
 
-Bound on this card. The f32 scan reads x once (N·d·4 bytes) and does
-2·M·N·d f32 FLOPs on the CUDA cores (no tensor cores, no TF32: f32 stays
-IEEE); at the main path's shapes (M <= 16) the bytes bound it. The int8 scan
-reads a quarter of those bytes but does the same f32 FMAs (the codes are
-widened: int8 tensor cores would need quantised queries, which changes the
-bound), so at M = 16 the operations bound it, not the bytes. The design
-reads each x tile once per m-tile, from a slice staged in shared memory by
-coalesced 16-byte loads (16 codes per load in int8), and keeps the queues on
-chip; it does not yet overlap loads with compute (``cp.async``/TMA).
+Design of ``knn_int8_scan`` (its own kernel). At M = 16 the widened codes'
+f32 FMAs, not the 1 B/element reads, bound it, so the design is about issue
+rate. A block scores all bm (up to 16) queries of its m-tile, so the codes
+are read once per m-tile: once at M = 16. Each thread owns a 16 × 4
+micro-tile (queries × rows) in registers: each code is widened once (a byte
+permute and a float subtraction, exact, full rate) and used for all bm
+queries, each query value is a 16-byte shared-memory broadcast used 16
+times. Slices of 32 features of 1024 rows (and the query slices) come
+through a two-stage ``cp.async`` ring, the next slice loading under the
+current one's FMAs. The bounds never reach shared memory as a tile: after
+each 1024-row chunk they go from registers through ``select.cuh``, which
+keeps only the lanes below each queue's worst pair, sorts those (counting
+ranks when a few, ``bitonic_sort_rows`` otherwise) and merges them into
+the queue along merge paths, each thread writing a run of 8 places. The bm
+queues (q_len pairs each) live in device memory (the output, and a scratch
+buffer as the second of two), so shared memory holds only the ring and a
+survivor buffer of 128 to 1024 lanes a row (as many as the grid's blocks
+per SM leave room for), and q_len no longer limits bm. The per-tile
+semantics stay the TPU kernel's: after each bn-row tile every queue holds
+the q_len smallest pairs of (queue ∪ tile), and a tile whose every row's
+minimum is strictly above its queue's tile-start worst value counts as a
+skip, so the result and the skip count are the plain version's at the same
+(bm, bn, S). S fills the card with two blocks per SM.
 
-Pruning skips a tile when every query's tile minimum is strictly worse
-than its block queue's current worst value. A block's queue has seen only
-its own range, so on the same data the skip count reads lower than the
-TPU's sequential grid (the plain version with S = 1 gives the TPU's count);
-it is a statistic, not a result.
+The union's q_len smallest pairs are the sequential queue's q_len smallest
+pairs, so the certificate's entry r is the TPU kernel's. Pruning skips a
+tile when every query's tile minimum is strictly worse than its block
+queue's current worst value. A block's queue has seen only its own range,
+so on the same data the skip count reads lower than the TPU's sequential
+grid (the plain version with S = 1 gives the TPU's count); it is a
+statistic, not a result.
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. ``LAUNCHES`` counts kernel launches only,
@@ -67,6 +87,11 @@ _DEPTH = 32  # features staged per pass: dim must be a multiple
 _MERGE_GROUP = 8  # queues one merge block reduces
 _SM_SMEM_BYTES = 233_472  # shared memory per SM on Hopper (228 KB)
 _BLOCK_SMEM_MAX = 232_448  # shared memory one block may take (227 KB)
+_SM_BLOCK_RESERVED = 1024  # shared memory the SM keeps back per resident block
+_SELECT_BOOK = 1024  # bookkeeping bytes of csrc/select.cuh (kSelectBookBytes)
+_INT8_CHUNK = 1024  # dataset rows an int8 block scores per pass: 256 threads × 4
+_INT8_DEPTH = 32  # features per stage of the int8 scan's two-stage ring
+_INT8_CAP_MIN, _INT8_CAP_MAX = 128, 1024  # survivor lanes per query row
 
 
 def reset_launch_counts() -> None:
@@ -85,6 +110,36 @@ def max_block_m(k_eff: int, bn: int) -> int:
     if not fit:
         raise ValueError(f"k_eff={k_eff}, bn={bn}: queue and tile exceed shared memory")
     return fit[-1]
+
+
+def int8_scan_smem_bytes(bm: int, cap: int) -> int:
+    """Shared memory of one int8 scan block (``int8_smem_bytes`` in
+    knn_int8.cu): selection bookkeeping, two ring stages of codes and query
+    slices, a survivor buffer of ``cap`` (value, index) lanes per
+    query row, and the rows' qn and tile-start worst values. The queues live
+    in device memory, so q_len does not enter."""
+    return (_SELECT_BOOK + 2 * (_INT8_CHUNK * _INT8_DEPTH + bm * _INT8_DEPTH * 4)
+            + bm * cap * 8 + 128)
+
+
+def int8_max_block_m() -> int:
+    """Largest bm for which two int8 blocks share an SM: the scoring's 16,
+    whatever q_len is."""
+    fit = [b for b in _BLOCK_ROWS if 2 * (int8_scan_smem_bytes(b, _INT8_CAP_MIN)
+                                          + _SM_BLOCK_RESERVED) <= _SM_SMEM_BYTES]
+    return fit[-1]
+
+
+def int8_survivor_cap(bm: int, blocks: int, sms: int) -> int:
+    """Survivor lanes per query row: the largest power of two (128 to 1024)
+    whose block still fits the grid's blocks per SM (two when the grid
+    has more blocks than the card has SMs, else one), so the first
+    batches, where every lane survives, sort in as few passes as fit."""
+    room = (_SM_SMEM_BYTES // 2 - _SM_BLOCK_RESERVED if blocks > sms else _BLOCK_SMEM_MAX)
+    cap = _INT8_CAP_MIN
+    while cap < _INT8_CAP_MAX and int8_scan_smem_bytes(bm, 2 * cap) <= room:
+        cap *= 2
+    return cap
 
 
 def tiles_per_split(n_tiles: int, splits: int) -> int:
@@ -215,6 +270,19 @@ def knn_merge(v, i):
             return v[:, 0], i[:, 0]
 
 
+def int8_scan_config(m_tiles: int, n_tiles: int, bm: int, device,
+                     splits: int | None = None) -> tuple[int, int, int]:
+    """(S, tiles per split, survivor cap) of an int8 scan: ``None`` fills
+    the card with two blocks per SM (one wave), a given S must leave no
+    split empty."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if splits is None:
+        splits = min(n_tiles, 65535, max(1, 2 * sms // m_tiles))
+        splits = -(-n_tiles // tiles_per_split(n_tiles, splits))
+    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, 0, device)
+    return splits, tps, int8_survivor_cap(bm, m_tiles * splits, sms)
+
+
 def _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn):
     if q.ndim != 2 or x8.ndim != 2 or q.shape[1] != x8.shape[1]:
         raise ValueError(f"q {tuple(q.shape)} and x8 {tuple(x8.shape)} must be (M, d), (N, d)")
@@ -236,7 +304,7 @@ def _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn):
 
 
 def knn_int8_scan(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
-                  prune: bool = True, splits: int | None = None):
+                  prune: bool = True, splits: int | None = None, return_stats: bool = False):
     """Per-split sorted queues of certified lower bounds: (M, S, q_len) f32
     bounds and i32 indices, and (M / bm, S) i32 skip counts.
 
@@ -244,33 +312,40 @@ def knn_int8_scan(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
     cover ceil(N / bn)·bn rows (padded with 1, 0 and +inf: hn is the exact
     quantised norm with +inf on invalid rows). N need not be a multiple of
     bn: the codes are never copied to pad them. ``splits=None`` fills the
-    card."""
+    card. ``return_stats=True`` (CUDA tensors only) adds the kernel's
+    selection counters, (M / bm, S, 4) i32: survivors, passes,
+    comparisons of the survivor sorts, queue pairs moved."""
     _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn)
     if q.device.type == "cpu":
+        if return_stats:
+            raise ValueError("selection counters come from the kernel: CUDA tensors only")
         return knn_int8_scan_plain(q, x8, qn, scales, err, hn, q_len, bm, bn, prune,
                                    splits or 1)
     _check_cuda(q, x8, qn, scales, err, hn)
     if q.shape[1] % _DEPTH:
         raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
-    if scan_smem_bytes(bm, bn, q_len) > _BLOCK_SMEM_MAX:
-        raise ValueError(f"bm={bm}, bn={bn}, q_len={q_len} exceed shared memory")
     from repro_torch.kernels.build import load_library
 
     m, n, d = q.shape[0], x8.shape[0], q.shape[1]
     m_tiles, n_tiles = m // bm, -(-n // bn)
-    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, scan_smem_bytes(bm, bn, q_len),
-                                  q.device)
-    out_v = torch.empty((m, splits, q_len), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((m, splits, q_len), dtype=torch.int32, device=q.device)
+    splits, tps, cap = int8_scan_config(m_tiles, n_tiles, bm, q.device, splits)
+    shape = (m, splits, q_len)
+    out_v, scratch_v = (torch.empty(shape, dtype=torch.float32, device=q.device)
+                        for _ in range(2))
+    out_i, scratch_i = (torch.empty(shape, dtype=torch.int32, device=q.device)
+                        for _ in range(2))
     skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
+    stats = (torch.zeros((m_tiles, splits, 4), dtype=torch.int32, device=q.device)
+             if return_stats else None)
     rc = load_library().knn_int8_scan(
         q.data_ptr(), x8.data_ptr(), qn.data_ptr(), scales.data_ptr(), err.data_ptr(),
-        hn.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), skips.data_ptr(),
-        m, n, d, q_len, bm, bn, int(prune), splits, tps,
+        hn.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), scratch_v.data_ptr(),
+        scratch_i.data_ptr(), skips.data_ptr(), None if stats is None else stats.data_ptr(),
+        m, n, d, q_len, bm, bn, int(prune), splits, tps, cap,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "knn_int8_scan")
     LAUNCHES["knn_int8_scan"] += 1
-    return out_v, out_i, skips
+    return (out_v, out_i, skips, stats) if return_stats else (out_v, out_i, skips)
 
 
 def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,

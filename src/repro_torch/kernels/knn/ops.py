@@ -28,7 +28,12 @@ from repro_torch.core.distance import direct_l2_sq, row_norms_sq
 from repro_torch.core.partition import LANE, next_pow2, round_up
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK, sort_pairs, topk_smallest
-from repro_torch.kernels.knn.kernel import knn_fused, knn_int8_fused, max_block_m
+from repro_torch.kernels.knn.kernel import (
+    int8_max_block_m,
+    knn_fused,
+    knn_int8_fused,
+    max_block_m,
+)
 
 #: (bm, bn, bd) before the legality clamps of :func:`resolved_blocks`.
 DEFAULT_BLOCKS = (128, 512, 512)
@@ -51,16 +56,17 @@ def resolved_blocks(
     queue. bd is the largest multiple of LANE that divides the padded dim
     and is <= block_d, so an aligned dataset is never copied to pad its
     dim. bm shrinks to the batch (``next_pow2(m)`` when m is given) and to
-    what one block's shared memory holds beside a (bm, bn) tile and a
-    (bm, queue) queue; on the card a row of padding queries is work thrown
-    away.
+    the kernel's limit: for the f32 kernel, what one block's shared memory
+    holds beside a (bm, bn) tile and a (bm, queue) queue; for the int8
+    kernel, whose queues live in device memory, its scoring's 16 whatever
+    the queue. On the card a row of padding queries is work thrown away.
     """
     k_eff = next_pow2(k)
     queue = k_eff if rescore_factor is None else int8_queue(k, rescore_factor)[1]
     bn = max(block_n, queue)
     dp = round_up(max(d, 1), LANE)
     bd = max(b for b in range(LANE, max(block_d, LANE) + 1, LANE) if dp % b == 0)
-    bm = min(block_m, max_block_m(queue, bn))
+    bm = min(block_m, max_block_m(queue, bn) if rescore_factor is None else int8_max_block_m())
     if m is not None:
         bm = min(bm, next_pow2(m))
     bm = 1 << (bm.bit_length() - 1)  # the kernel's row blocks are powers of 2

@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.partition import next_pow2
-from repro_torch.kernels.topk.kernel import topk_block_m, topk_fused
+from repro_torch.kernels.topk.kernel import topk_fused
 
 
 def topk(scores: torch.Tensor, k: int,
@@ -16,10 +16,9 @@ def topk(scores: torch.Tensor, k: int,
     back; when k > N the missing slots are (+inf, -1). As in the TPU kernel,
     a +inf score never enters a queue, so it too reads as (+inf, -1).
     """
-    m, n = scores.shape
+    n = scores.shape[1]
     k_eff = next_pow2(k)
     bn = max(block_n, k_eff)
-    v, i = topk_fused(scores.to(torch.float32).contiguous(), k_eff,
-                      topk_block_m(k_eff, bn, m), bn)
+    v, i = topk_fused(scores.to(torch.float32).contiguous(), k_eff, bn)
     v, i = v[:, :k], i[:, :k]
     return v, torch.where(i < n, i, -1)

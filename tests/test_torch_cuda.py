@@ -155,3 +155,71 @@ def test_topk_bit_identical_to_plain(dev, k, m, n):
     assert K.LAUNCHES["topk"] == 1 and K.LAUNCHES["knn_merge"] >= 1
     rv, ri = topk_ref(s, k)
     assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def _topk_scores(kind, m, n, g, dev):
+    """Score matrices where the survivor filter is at its worst or its
+    subtlest: integer scores with ties and a mix of -0.0 and +0.0; scores
+    descending along N (every lane beats the queue: the survivor buffer
+    overflows); all equal (only index ties decide); +inf lanes."""
+    if kind == "descending":
+        return torch.arange(n, 0, -1, device=dev, dtype=torch.float32).expand(m, n).contiguous()
+    if kind == "equal":
+        return torch.full((m, n), 3.0, device=dev)
+    s = torch.randint(-300, 301, (m, n), generator=g, device=dev).to(torch.float32)
+    zero = s == 0
+    s[zero] = torch.where(torch.rand(int(zero.sum()), generator=g, device=dev) < 0.5, -0.0, 0.0)
+    if kind == "inf_lanes":
+        s[torch.rand(m, n, generator=g, device=dev) < 0.3] = torch.inf
+    return s
+
+
+@pytest.mark.parametrize("kind", ["ints", "descending", "equal", "inf_lanes"])
+@pytest.mark.parametrize("k,m,n", [(72, 5, 12_345), (1024, 16, 70_001)])
+def test_topk_filter_edge_cases_bit_identical(dev, kind, k, m, n):
+    from repro_torch.kernels.topk import kernel as T
+    from repro_torch.kernels.topk import ops as TO
+    from repro_torch.kernels.topk.ref import topk_ref
+
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    s = _topk_scores(kind, m, n, g, dev)
+    k_eff = 1 << (k - 1).bit_length()
+    bn = max(1024, k_eff)
+    for splits in (None, 1):
+        sv, si = T.topk_scan(s, k_eff, bn, splits)
+        pv, pi = T.topk_scan_plain(s, k_eff, bn, sv.shape[1])
+        assert torch.equal(sv, pv) and torch.equal(si, pi)
+    v, i = TO.topk(s, k)
+    rv, ri = topk_ref(s, k)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("order", ["random", "farthest_first", "equal"])
+@pytest.mark.parametrize("k", [72, 1024])  # q_len 1024 and 8192
+def test_int8_scan_filter_edge_cases_bit_identical(dev, order, k):
+    """Rows farthest from query 0 first (every lane of every tile survives
+    for it: the multi-pass path) and all rows equal (index ties), at the
+    card's S and at S = 1; bounds, indices and skip counts."""
+    from repro_torch.core.quantized import quantize_dataset
+
+    g = torch.Generator(device=dev).manual_seed(k)
+    x = _unit_scale_rows(12_345, 256, g, dev)
+    q = torch.randint(-40, 41, (16, 256), generator=g, device=dev).to(torch.float32)
+    q[0] = x[9]
+    if order == "farthest_first":
+        x = x[torch.argsort(torch.sum((x - q[0]) ** 2, -1), descending=True, stable=True)]
+    elif order == "equal":
+        x = x[9].expand_as(x).contiguous()
+    ds = quantize_dataset(x)
+    ds.norms_sq[[100, 12_344]] = torch.inf
+    call = ops.prepare_int8(q, ds, k)
+    bm, bn, _ = call.blocks
+    assert bm == 16
+    args = (call.q, call.x8, call.qn, call.scales, call.err, call.hn, call.q_len, bm, bn)
+    m_tiles, n_tiles = 1, call.hn.shape[0] // bn
+    for splits in (K.int8_scan_config(m_tiles, n_tiles, bm, dev)[0], 1):
+        for prune in (True, False):
+            got = K.knn_int8_scan(*args, prune, splits)
+            want = K.knn_int8_scan_plain(*args, prune, splits)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)

@@ -117,14 +117,14 @@ def test_store_int8_tier():
 
 
 # ------------------------------------------------------------ int8 scan
-def _scan_inputs(rng, n, n_rows, d, m, near_first=False):
+def _scan_inputs(rng, n, n_rows, d, m, near_first=False, q0_row=5):
     x = _unit_scale_rows(rng, n, d)
     x[n // 2] = x[5]  # exact ties
     q = _ints(rng, (m, d), -40, 41)
     if near_first:  # queries close together, rows nearest to them first: tiles prune
         q = x[5] + _ints(rng, (m, d), -2, 3)
         x = x[np.argsort(((x - x[5]) ** 2).sum(-1), kind="stable")]
-    q[0] = x[5]
+    q[0] = x[q0_row]  # near_first, q0_row 0: the old x[5] (row 1 is its duplicate)
     jq = jquantize(jnp.asarray(x))
     hn = np.where(np.isfinite(_np(jq.norms_sq)), _np(jq.qnorm_sq), np.inf).astype(np.float32)
     hn[[3, n - 1]] = np.inf  # invalid rows
@@ -134,13 +134,22 @@ def _scan_inputs(rng, n, n_rows, d, m, near_first=False):
     return q, _np(jq.q), (q.astype(np.float32) ** 2).sum(-1).astype(np.float32), chan
 
 
-def test_int8_scan_plain_matches_pallas_bitwise():
+@pytest.mark.parametrize("n,m,bm,bn,q_len,q0_row", [
+    (1900, 8, 4, 512, 64, 5),
+    # the blocks the card's int8 kernel takes at m = 16 (bm = 16 whatever
+    # q_len), with every query near the first rows, so that all 16 prune
+    (1900, 16, 16, 512, 64, 0),  # small k
+    (3000, 16, 16, 1024, 1024, 0),  # MS-MARCO: k = 72
+    (20_000, 16, 16, 8192, 8192, 0),  # GIST: k = 1024, the widest queue
+])
+def test_int8_scan_plain_matches_pallas_bitwise(n, m, bm, bn, q_len, q0_row):
     """Integer queries, int8 codes: the plain scan (S = 1) is the TPU
     kernel bit for bit — bounds, indices and skip counts — also over codes
     whose row count is not a multiple of bn (the port never pads them)."""
     rng = np.random.default_rng(13)
-    n, n_rows, d, m, bm, bn, q_len = 1900, 2048, 64, 8, 4, 512, 64
-    q, x8, qn, (sc, er, hn) = _scan_inputs(rng, n, n_rows, d, m, near_first=True)
+    n_rows, d = -(-n // bn) * bn, 64
+    q, x8, qn, (sc, er, hn) = _scan_inputs(rng, n, n_rows, d, m, near_first=True,
+                                           q0_row=q0_row)
     x8p = np.pad(x8, ((0, n_rows - n), (0, 0)))
     jv, ji, jsk = knn_pallas_int8(
         jnp.asarray(q), jnp.asarray(x8p), jnp.asarray(qn)[:, None], jnp.asarray(sc)[None],
@@ -155,6 +164,25 @@ def test_int8_scan_plain_matches_pallas_bitwise():
     sv, si, _ = K.knn_int8_scan_plain(*t, q_len, bm, bn, True, 3)
     mv, mi = K.knn_merge(sv, si)
     assert torch.equal(mv, v[:, 0]) and torch.equal(mi, i[:, 0])
+
+
+def test_int8_block_rule_follows_the_scoring_not_the_queue():
+    """The card's int8 kernel keeps its queues in device memory, so bm is
+    its scoring's 16 at every q_len (GIST: q_len 8192; MS-MARCO: 1024),
+    where the f32 kernel's shared-memory queue still limits its own."""
+    assert K.int8_max_block_m() == 16
+    assert tops.resolved_blocks(1024, 960, m=16, rescore_factor=4) == (16, 8192, 512)
+    assert tops.resolved_blocks(72, 769, m=16, rescore_factor=4) == (16, 1024, 128)
+    assert tops.resolved_blocks(10, 64, m=3, rescore_factor=4) == (4, 512, 128)
+    assert tops.resolved_blocks(1024, 960, m=16) == (8, 1024, 512)
+    # two blocks of bm = 16 share an SM with 256 survivor lanes a row; a
+    # grid of at most one block per SM takes the largest buffer, 1024
+    assert 2 * (K.int8_scan_smem_bytes(16, 256) + 1024) <= 233_472
+    assert 2 * (K.int8_scan_smem_bytes(16, 512) + 1024) > 233_472
+    assert K.int8_survivor_cap(16, 264, 132) == 256
+    assert K.int8_survivor_cap(16, 123, 132) == 1024
+    assert K.int8_scan_smem_bytes(16, 1024) <= 232_448
+    assert K.int8_survivor_cap(1, 10, 132) == 1024
 
 
 def test_int8_scan_wrapper_checks():

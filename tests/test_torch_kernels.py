@@ -14,6 +14,9 @@ included (no subnormal scores: ROADMAP C).
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from repro_torch.kernels.knn import kernel as K
 from repro_torch.kernels.l2dist.kernel import l2dist_plain
 from repro_torch.kernels.l2dist.ops import l2dist
 from repro_torch.kernels.l2dist.ref import l2dist_ref
+from repro_torch.kernels.topk import kernel as T
 from repro_torch.kernels.topk.kernel import topk_scan, topk_scan_plain
 from repro_torch.kernels.topk.ops import topk
 from repro_torch.kernels.topk.ref import topk_ref
@@ -125,14 +129,14 @@ def test_topk_split_scan_merges_to_the_sequential_queue():
     rng = np.random.default_rng(9)
     s = torch.from_numpy(np.round(rng.standard_normal((3, 5000)) * 3).astype(np.float32))
     v1, i1 = topk_scan_plain(s, 64, 256, 1)
-    vs, is_ = topk_scan(s, 64, 1, 256, 7)  # CPU tensors: the plain version, S = 7
+    vs, is_ = topk_scan(s, 64, 256, 7)  # CPU tensors: the plain version, S = 7
     assert vs.shape == (3, 7, 64)
     mv, mi = K.knn_merge(vs, is_)
     assert torch.equal(mv, v1[:, 0]) and torch.equal(mi, i1[:, 0])
     with pytest.raises(ValueError):
-        topk_scan(s, 48, 1, 256)
+        topk_scan(s, 48, 256)
     with pytest.raises(ValueError):
-        topk_scan(s.to(torch.float64), 64, 1, 256)
+        topk_scan(s.to(torch.float64), 64, 256)
 
 
 def test_cpu_tensors_never_launch():
@@ -140,3 +144,50 @@ def test_cpu_tensors_never_launch():
     l2dist(torch.ones(2, 3), torch.ones(4, 3))
     topk(torch.ones(2, 30), 3)
     assert sum(K.LAUNCHES.values()) == 0
+
+
+# ------------------------------------------------- shared-memory formulas
+CSRC = Path(K.__file__).resolve().parents[1] / "csrc"
+
+
+def _c_constants(*sources):
+    """Every constant ``constexpr int NAME = EXPR;`` of the sources (those
+    whose EXPR is arithmetic on earlier ones), evaluated."""
+    env = {}
+    for src in sources:
+        for name, expr in re.findall(r"^constexpr int (\w+) = ([\w\s*+/()-]+);",
+                                     (CSRC / src).read_text(), re.M):
+            env[name] = eval(expr, {}, dict(env))
+    return env
+
+
+def _c_formula(source, name, env):
+    """The host function ``size_t name(...) { return EXPR; }`` of a source
+    as a Python function of its arguments."""
+    body = re.search(rf"size_t {name}\(([^)]*)\) {{\s*return (.*?);\s*}}",
+                     (CSRC / source).read_text(), re.S)
+    args = [a.split()[-1] for a in body.group(1).split(",")]
+    expr = " ".join(body.group(2).replace("(size_t)", "").replace("rt::", "").split())
+    return lambda *vals: eval(expr, {}, {**env, **dict(zip(args, vals))})
+
+
+@pytest.mark.parametrize("bm,cap", [(1, 128), (8, 128), (16, 128), (16, 512), (16, 1024)])
+def test_int8_smem_formula_matches_the_kernel(bm, cap):
+    env = _c_constants("select.cuh", "knn_int8.cu")
+    c = _c_formula("knn_int8.cu", "int8_smem_bytes", env)
+    assert K.int8_scan_smem_bytes(bm, cap) == c(bm, cap)
+    assert (env["kChunk"], env["kDepth"]) == (K._INT8_CHUNK, K._INT8_DEPTH)
+
+
+@pytest.mark.parametrize("k_eff", [1, 64, 1024, 8192])
+def test_topk_smem_formula_matches_the_kernel(k_eff):
+    env = _c_constants("select.cuh", "topk.cu")
+    assert T.topk_smem_bytes(k_eff) == _c_formula("topk.cu", "topk_smem_bytes", env)(
+        k_eff, T._CAP)
+    assert T.topk_smem_bytes(8192) <= K._BLOCK_SMEM_MAX < T.topk_smem_bytes(16384)
+
+
+@pytest.mark.parametrize("bm,bn,k", [(1, 512, 72), (8, 1024, 1024), (16, 512, 1024)])
+def test_scan_smem_formula_matches_the_kernel(bm, bn, k):
+    env = _c_constants("tile.cuh", "knn.cu")
+    assert K.scan_smem_bytes(bm, bn, k) == _c_formula("knn.cu", "scan_smem_bytes", env)(bm, bn, k)
