@@ -12,9 +12,16 @@ Phases, in order (any failure makes the run exit non-zero):
 2. exact   — every kernel against its plain version on integer-valued data,
              bit for bit: knn_scan, knn_merge and knn_fused (values in [-8, 8]
              with planted duplicate rows, +inf-norm rows and a ragged N, for
-             l2/ip/cos, f32 and bf16, k in {1, 7, 72, 1024}, m in {1, 16});
-             knn_int8_scan (rows in [-127, 127] whose int8 scale is 1, so only
-             sqrt and the square round, k in {1, 7, 72, 1024}: q_len 8 to
+             l2/ip/cos, f32 and bf16, k in {1, 7, 72, 1024}, m in {1, 16}, and
+             in two adversarial row orders for l2/ip, f32 and bf16, k in
+             {1, 72, 1024}, m in {1, 16}: farthest from query 0 first, so the
+             survivor buffer overflows, and all rows equal, so only index
+             ties decide); knn_merge alone on queues built to stress its
+             threshold (every answer pair in one queue, most queues empty,
+             all values equal, integer ties with -0.0/+0.0) at (m, S, k) up
+             to (16, 123, 8192), one launch per call; knn_int8_scan (rows
+             in [-127, 127] whose int8 scale is 1, so only sqrt and the
+             square round, k in {1, 7, 72, 1024}: q_len 8 to
              8192, m in {1, 16}, codes never padded to the n-block; rows in
              random order, farthest from query 0 first so that every lane
              survives the filter and its buffer overflows, and all equal so
@@ -40,10 +47,11 @@ Phases, in order (any failure makes the run exit non-zero):
 
 Phases 3-6 are the main path. The launch counters are set to 0 just before
 each search (phase 6: before l2dist + topk) and read just after; every
-kernel of the path must have launched. Each result is held against the
-plain version on the same padded operands within TOL_REL·(qn + max xn) per
-score (f32 sums over d terms taken in another order), with indices equal
-wherever the plain scores around them are more than twice that apart; topk
+kernel of the path must have launched, knn_merge exactly once. Each result
+is held against the plain version on the same padded operands within
+TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in another
+order), with indices equal wherever the plain scores around them are more
+than twice that apart; topk
 and the merges move values without arithmetic and must be bit-identical.
 Each kernel is timed with CUDA events (median of REPEATS after a warm-up)
 beside its plain version, one PyTorch call computing the same function (a
@@ -52,13 +60,15 @@ yardstick is the f32 knn_scan at the same shape, printed as f32_scan_ms),
 and its bound on this card. bound_ms is the function's own work: its
 unpadded inputs read once, its result written once, and its arithmetic
 (2·d + the epilogue per pair for the scans, one comparison per element for
-the selections), whichever takes longer; the scans and topk also print
-design_bound_ms, the same over the work each design does: for knn_scan the
-padded operands, the per-block queues and a full sort of every merged
-tile; for knn_int8_scan and topk the padded operands (codes once per
-m-tile), the per-block queues, and the survivor filter's sorts, rank
-searches and merges as the kernel counts them (select.cuh's counters, with
-the survivors and the share of lanes that survived printed beside). topk
+the selections), whichever takes longer. knn_merge's inputs are sorted, so
+its function reads only the queued pairs below the answer's last one and
+one pair past them in each queue (at most S + k a row, of S·k), one
+comparison each, and writes the answer. The scans and topk also print
+design_bound_ms, the same over the work each design does: the padded
+operands (rows once per m-tile), the per-block queues, and the survivor
+filter's sorts, rank searches and merges as the kernel counts them
+(select.cuh's counters, with the survivors and the share of lanes that
+survived printed beside). topk
 is also timed with its merges (topk_with_merges_ms) beside torch.topk. The
 bounds are stated for the H100 SXM (CARD); on any other card the run stops
 before it measures.
@@ -151,15 +161,20 @@ class Smoke:
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     @staticmethod
-    def sort_ops(rows: int, L: int) -> int:
-        """Compare-exchanges of a full bitonic sort of `rows` rows of L."""
-        lg = int(math.log2(L))
-        return rows * (L // 2) * lg * (lg + 1) // 2
+    def merge_work(sv, si, av, ai) -> tuple[int, int]:
+        """The bytes and comparisons that merging the sorted (m, S, k)
+        queues (sv, si) into their answer (av, ai) needs on this data: per
+        row, every pair of each queue strictly below the answer's last pair
+        (all of them reach the answer) and one more pair of each queue not
+        read to its end (to see it stop), read once, and the (m, k) answer
+        written once; one comparison per pair read. At most (S + k) pairs a
+        row are read, of the S·k queued."""
+        from repro_torch.core.topk import pair_keys
 
-    @staticmethod
-    def update_ops(rows: int, k: int) -> int:
-        """Lane minima plus the bitonic merge of one queue update."""
-        return rows * (k + (k // 2) * int(math.log2(k)))
+        last = pair_keys(av[:, -1:], ai[:, -1:])[:, :, None]
+        below = (pair_keys(sv, si) < last).sum(-1)
+        read = int((below + 1).clamp(max=sv.shape[-1]).sum())
+        return read * 8 + av.numel() * 8, read
 
     @staticmethod
     def select_work(stats, k: int, lanes: int) -> dict:
@@ -223,7 +238,9 @@ class Smoke:
         log(f"phase exact: knn_scan {cases - fails}/{cases} cases bit-identical "
             f"(values, indices, skip counts)")
         ok = fails == 0
-        for name, check in (("knn_int8_scan", self._exact_int8), ("l2dist", self._exact_l2dist),
+        for name, check in (("knn_scan adversarial", self._exact_scan_orders),
+                            ("knn_merge", self._exact_merge),
+                            ("knn_int8_scan", self._exact_int8), ("l2dist", self._exact_l2dist),
                             ("topk", self._exact_topk)):
             cases, bad = check(g)
             for b in bad:
@@ -231,6 +248,58 @@ class Smoke:
             log(f"phase exact: {name} {cases - len(bad)}/{cases} cases bit-identical")
             ok &= not bad
         return ok
+
+    def _exact_scan_orders(self, g):
+        """The f32/bf16 scan on integer rows in [-8, 8] in two adversarial
+        orders: farthest from query 0 first (by its metric), so every lane
+        of every tile beats query 0's queue and the survivor buffer
+        overflows (the multi-pass path), and every row equal, so only the
+        index ties decide; l2 and ip, k in {1, 72, 1024}, m in {1, 16}."""
+        torch, ops = self.torch, self.ops
+        n, d = EXACT["n"], EXACT["d"]
+        x = torch.randint(-8, 9, (n, d), generator=g, device=self.dev).to(torch.float32)
+        q = torch.randint(-8, 9, (max(EXACT["ms"]), d), generator=g,
+                          device=self.dev).to(torch.float32)
+        q[0] = x[17]
+        inf_rows = torch.tensor([100, n // 4, n - 2], device=self.dev)
+        cases, bad = 0, []
+        for metric in ("l2", "ip"):
+            key = torch.sum((x - q[0]) ** 2, -1) if metric == "l2" else -(x @ q[0])
+            orders = {"farthest_first": x[torch.argsort(key, descending=True, stable=True)],
+                      "equal": x[17].expand(n, d).contiguous()}
+            for order, rows in orders.items():
+                xn = torch.sum(rows * rows, dim=-1)
+                xn[inf_rows] = torch.inf
+                for dtype in (torch.float32, torch.bfloat16):
+                    for k in (1, 72, 1024):
+                        for m in EXACT["ms"]:
+                            cases += 1
+                            call = ops.prepare(q[:m].to(dtype), rows.to(dtype), k, metric, xn)
+                            problems = self._exact_case(call)
+                            if problems:
+                                bad.append(f"{order} {metric} {dtype} k={k} m={m}: {problems}")
+        return cases, bad
+
+    def _exact_merge(self, _g):
+        """The one-launch merge on queues built to stress its threshold
+        (``repro_torch.data.merge_cases``, seeded per case), at the main
+        path's widths, one launch per call."""
+        torch, K = self.torch, self.K
+        from repro_torch.data.merge_cases import KINDS, merge_queues
+
+        cases, bad = 0, []
+        for kind in KINDS:
+            for m, s, k in ((3, 7, 1), (1, 264, 128), (16, 245, 1024), (16, 123, 8192)):
+                cases += 1
+                v, i = merge_queues(kind, m, s, k, seed=cases, device=self.dev)
+                K.reset_launch_counts()
+                mv, mi = K.knn_merge(v, i)
+                self.sync()
+                pv, pi = K.knn_merge_plain(v, i)
+                launches = K.LAUNCHES["knn_merge"]
+                if not (torch.equal(mv, pv) and torch.equal(mi, pi)) or launches != 1:
+                    bad.append(f"{kind} (m, S, k)=({m}, {s}, {k}) launches={launches}")
+        return cases, bad
 
     def _exact_int8(self, g):
         """The int8 scan on rows whose scale is exactly 1 (integers in
@@ -365,7 +434,7 @@ class Smoke:
         qn = torch.sum(q.to(torch.float32) ** 2, dim=-1)
         m_tiles, n_tiles = q.shape[0] // bm, x.shape[0] // bn
         problems = []
-        for splits in (K.scan_splits(m_tiles, n_tiles, bm, bn, call.k_eff, self.dev), 1):
+        for splits in (K.scan_config(m_tiles, n_tiles, bm, self.dev)[0], 1):
             for prune in (True, False):
                 got = K.knn_scan(q, x, qn, xn, call.k_eff, call.metric, bm, bn, prune, splits)
                 want = K.knn_scan_plain(q, x, qn, xn, call.k_eff, call.metric, bm, bn,
@@ -397,7 +466,7 @@ class Smoke:
         self.sync()
         launches = dict(K.LAUNCHES)
         ok = (res.plan.executor == "fdsq-cuda" and launches["knn_scan"] >= 1
-              and launches["knn_merge"] >= 1)
+              and launches["knn_merge"] == 1)
         log(f"{label}: executor={res.plan.executor} mode={res.plan.mode} "
             f"launches={launches} skip_rate={float(res.kernel_stats['prune_skip_rate']):.6f} "
             f"blocks={res.kernel_stats['blocks']}")
@@ -420,8 +489,9 @@ class Smoke:
         cq, cx, cxn = call.q, call.x, call.xn
         qn = torch.sum(cq.to(torch.float32) ** 2, dim=-1)
         m_tiles, n_tiles = cq.shape[0] // bm, cx.shape[0] // bn
-        splits = K.scan_splits(m_tiles, n_tiles, bm, bn, call.k_eff, self.dev)
-        sv, si, sk = K.knn_scan(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits)
+        splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        sv, si, sk, st = K.knn_scan(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits,
+                                    return_stats=True)
         pv, pi, psk = K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits)
         mv, mi = K.knn_merge(sv, si)
         mpv, mpi = K.knn_merge_plain(sv, si)
@@ -456,17 +526,20 @@ class Smoke:
         scan_bytes = ((n_valid + m) * d * cx.element_size() + (n_valid + m) * 4
                       + m * k * 8)
         scan_ops = m * n_valid * (2 * d + L2_EPILOGUE_OPS)
-        # the design's own work: padded operands, the S per-block queues and
-        # skip counts, and a full bitonic sort + queue update per merged tile
-        merged_tiles = m_tiles * n_tiles - int(sk.sum())
-        design_bytes = (cx.numel() * cx.element_size() + cq.numel() * cq.element_size()
-                        + (cxn.numel() + qn.numel()) * 4 + sv.numel() * 8 + sk.numel() * 4)
-        design_ops = (2 * cq.shape[0] * cx.shape[0] * cx.shape[1] + merged_tiles
-                      * (self.sort_ops(bm, bn) + self.update_ops(bm, call.k_eff)))
-        merge_bytes = sv.numel() * 8 + mv.numel() * 8
-        merge_ops = sv.numel()  # one comparison per queued pair
+        # the design's own work: the padded rows and their norms once per
+        # m-tile, the padded queries, the S per-block queues and skip counts,
+        # the padded rows' FMAs and epilogues, and the survivor filter's
+        # sorts, rank searches and merges as the kernel counts them, whose
+        # queues live in device memory (each moved pair read and written)
+        sel = self.select_work(st, call.k_eff, cq.shape[0] * cx.shape[0])
+        design_bytes = (m_tiles * (cx.numel() * cx.element_size() + cxn.numel() * 4)
+                        + cq.numel() * cq.element_size() + qn.numel() * 4 + sv.numel() * 8
+                        + sk.numel() * 4 + sel["pairs_moved"] * 16 + sel["survivors"] * 8)
+        design_ops = (cq.shape[0] * cx.shape[0] * (2 * cx.shape[1] + L2_EPILOGUE_OPS)
+                      + sel["ops"])
+        merge_bytes, merge_ops = self.merge_work(sv, si, mv, mi)
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
-                 "search_ms": statistics.median(e2e), "kernels": {}}
+                 "search_ms": statistics.median(e2e), "select": sel, "kernels": {}}
         library = {"knn_scan": f"torch.topk(torch.cdist(q, x, compute_mode={lib_form!r})**2)",
                    "knn_merge": "torch.topk(queues.reshape(m, -1))"}
         for name, t, tp, tl, (bb, by), err in (
@@ -481,7 +554,8 @@ class Smoke:
                 f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
         design_ms, _ = self.bound(design_bytes, design_ops)
         shape["kernels"]["knn_scan"]["design_bound_ms"] = design_ms
-        log(f"{label}: knn_scan bound over the padded operands, queues and sorts "
+        log(f"{label}: knn_scan survivor filter {sel}")
+        log(f"{label}: knn_scan bound over the padded operands, queues and survivor work "
             f"design_bound_ms={design_ms:.4f}")
         log(f"{label}: search ms median={statistics.median(e2e):.3f} "
             f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
@@ -614,7 +688,7 @@ class Smoke:
         m = q.shape[0]
         v, i = res.topk.scores, res.topk.indices
         ok = (res.plan.executor == "fqsd-int8-cuda" and launches["knn_int8_scan"] >= 1
-              and launches["knn_merge"] >= 1)
+              and launches["knn_merge"] == 1)
         ok &= tuple(v.shape) == (m, k) and bool(torch.isfinite(v).all())
         ok &= bool(((i >= 0) & (i < eng.n)).all())
         share = float(cert.to(torch.float32).mean())
@@ -701,8 +775,7 @@ class Smoke:
                         + call.qn.numel() * 4 + sv.numel() * 8 + sk.numel() * 4
                         + sel["pairs_moved"] * 16 + sel["survivors"] * 8)
         design_ops = mp * rows * (2 * dp + INT8_EPILOGUE_OPS) + sel["ops"]
-        merge_bytes = sv.numel() * 8 + lb.numel() * 8
-        merge_ops = sv.numel()  # one comparison per queued pair
+        merge_bytes, merge_ops = self.merge_work(sv, si, lb, li)
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "q_len": call.q_len, "search_ms": statistics.median(e2e),
                  "certified_share": share, "rescore_ms": rescore_ms,
@@ -752,7 +825,7 @@ class Smoke:
         v, i = TO.topk(dist, k)
         self.sync()
         launches = dict(K.LAUNCHES)
-        ok = launches["l2dist"] >= 1 and launches["topk"] >= 1 and launches["knn_merge"] >= 1
+        ok = launches["l2dist"] >= 1 and launches["topk"] >= 1 and launches["knn_merge"] == 1
         label = f"standalone_m{m}_n{n}_d{d}_k{k}"
         log(f"{label}: launches={launches}")
 
@@ -798,8 +871,7 @@ class Smoke:
         tk_ops = m * n  # one comparison per score
         sel = self.select_work(st, k_eff, m * n)
         design_ms, _ = self.bound(m * n * 4 + sv.numel() * 8, m * n + sel["ops"])
-        merge_bytes = sv.numel() * 8 + m * k_eff * 8
-        merge_ops = sv.numel()  # one comparison per queued pair
+        merge_bytes, merge_ops = self.merge_work(sv, si, *K.knn_merge_plain(sv, si))
         shape = {"shape": label, "splits": splits, "blocks": [1, bn], "select": sel,
                  "topk_with_merges_ms": tk_fused_ms, "kernels": {}}
         for name, t, tp, tl, lib, (bb, by), err in (

@@ -8,12 +8,13 @@ l2dist  — the tiled squared-L2 distance matrix (``l2dist/kernel.py``,
           ``csrc/l2dist.cu``)
 topk    — streaming top-k over a score matrix, reduced by ``knn_merge``
           (``topk/kernel.py``, ``csrc/topk.cu``)
-select  — the survivor filter ``knn_int8_scan`` and ``topk`` fold their
-          batches through (``csrc/select.cuh``)
+select  — the survivor filter ``knn_scan``, ``knn_int8_scan`` and ``topk``
+          fold their batches through (``csrc/select.cuh``)
 bitonic — the compare-exchange networks the queues use (``bitonic.py`` is
           the plain reference of ``csrc/bitonic.cuh``)
 
-``knn_scan`` and ``l2dist`` share the staged loads of ``csrc/tile.cuh``.
+The scans share the ``cp.async`` helpers of ``csrc/ring.cuh``; ``l2dist``
+stages its loads through ``csrc/tile.cuh``.
 Kernels are built by ``build.py`` at first launch, never at import; every
 wrapper counts its launches in ``knn.kernel.LAUNCHES``.
 """

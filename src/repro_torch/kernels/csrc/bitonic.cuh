@@ -1,11 +1,13 @@
-// Bitonic compare-exchange networks over rows of (value, index) pairs in
-// shared memory — the device side of repro_torch/kernels/bitonic.py.
+// The lexicographic pair order and a bitonic sort over rows of (value,
+// index) pairs in shared memory — the device side of
+// repro_torch/kernels/bitonic.py's bitonic_sort; select.cuh sorts its
+// survivors with it.
 //
 // Comparisons are lexicographic on (value, index), so exact score ties break
-// to the smaller index; float `<` and `==` already treat -0.0 as +0.0. Every
-// function is called by all threads of the block, works on `rows` rows of
-// `L` lanes (L a power of two) at `stride` floats apart, and returns with the
-// block synchronised.
+// to the smaller index; float `<` and `==` already treat -0.0 as +0.0.
+// bitonic_sort_rows is called by all threads of the block, works on `rows`
+// rows of `L` lanes (L a power of two) at `stride` floats apart, and returns
+// with the block synchronised.
 #pragma once
 
 #include <math_constants.h>
@@ -53,62 +55,6 @@ __device__ inline void bitonic_sort_rows(float* v, int* ix, int rows, int L, int
       __syncthreads();
     }
   }
-}
-
-// Sort each row, a bitonic sequence, ascending: log2(L) stages.
-__device__ inline void bitonic_merge_rows(float* v, int* ix, int rows, int L, int stride) {
-  const int half = L >> 1;
-  if (half == 0) return;
-  const int lg = __ffs(half) - 1;
-  const int total = rows * half;
-  for (int s = half; s > 0; s >>= 1) {
-    for (int p = threadIdx.x; p < total; p += blockDim.x) {
-      const int r = p >> lg;
-      const int a = lower_lane(p & (half - 1), s);
-      compare_exchange(v + r * stride, ix + r * stride, a, a | s, true);
-    }
-    __syncthreads();
-  }
-}
-
-// Queue update: each sorted queue row (K lanes) becomes the K smallest pairs
-// of itself and the first K lanes of the matching sorted candidate row. The
-// reversed candidates against the queue, lane-wise minimum, form a bitonic
-// sequence holding exactly those K pairs; one bitonic merge sorts it.
-__device__ inline void topk_update_rows(float* qv, int* qi, int qstride, const float* cv,
-                                 const int* ci, int cstride, int rows, int K) {
-  const int lg = __ffs(K) - 1;
-  for (int p = threadIdx.x; p < rows * K; p += blockDim.x) {
-    const int r = p >> lg, l = p & (K - 1);
-    const float rv = cv[r * cstride + K - 1 - l];
-    const int ri = ci[r * cstride + K - 1 - l];
-    float* v = qv + r * qstride + l;
-    int* ix = qi + r * qstride + l;
-    if (pair_less(rv, ri, *v, *ix)) {
-      *v = rv;
-      *ix = ri;
-    }
-  }
-  __syncthreads();
-  bitonic_merge_rows(qv, qi, rows, K, qstride);
-  __syncthreads();
-}
-
-// Tile pruning: true on every thread iff, for each of `rows` rows, the row's
-// minimum over L tile lanes is strictly greater than the queue row's last
-// (worst) value. Strict: a candidate tying the worst value can still enter
-// through the index tie-break, so a tile touching the threshold is kept.
-__device__ inline bool tile_prunable(const float* tv, int L, const float* qv, int K, int rows) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  bool ok = true;
-  for (int r = warp; r < rows; r += warps) {
-    float m = CUDART_INF_F;
-    for (int c = lane; c < L; c += 32) m = fminf(m, tv[r * L + c]);
-    for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    ok = ok && (m > qv[r * K + K - 1]);
-  }
-  return __syncthreads_and(ok) != 0;
 }
 
 }  // namespace rt

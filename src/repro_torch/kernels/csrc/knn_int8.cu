@@ -12,6 +12,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "ring.cuh"
 #include "select.cuh"
 
 namespace {
@@ -30,12 +31,9 @@ size_t int8_smem_bytes(int bm, int cap) {
          (size_t)bm * cap * 8 + 128;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+using rt::cp_async16;
+using rt::cp_async_commit;
+using rt::cp_async_wait_all;
 
 // Four int8 codes (one word) -> four exact floats in full-rate operations:
 // the byte b + 128 becomes the low mantissa byte of 2^23, and subtracting

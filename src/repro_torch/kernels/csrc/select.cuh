@@ -1,6 +1,7 @@
 // Survivor selection: fold a batch of candidate (value, index) pairs, held
 // in registers, into R sorted queues of K pairs without sorting the batch.
-// Shared by topk_scan (topk.cu) and knn_int8_scan (knn_int8.cu).
+// Shared by knn_scan (knn.cu), knn_int8_scan (knn_int8.cu) and topk_scan
+// (topk.cu).
 //
 // Per pass, every thread of the block:
 //   1. keeps the lanes with pair_less(v, i, worst_v, worst_i) against its

@@ -1,8 +1,7 @@
-// Block geometry and row loads shared by the scan kernels (knn.cu) and the
-// distance-matrix kernel (l2dist.cu): 256 threads score 256 dataset rows, one
-// row per thread, over 32-feature slices staged in shared memory by
-// coalesced 16-byte (bf16: 8-byte) loads and widened to f32 on the way in.
-// The staging helpers below serve l2dist; the scans stage in their own body.
+// Block geometry and row loads of the distance-matrix kernel (l2dist.cu):
+// 256 threads score 256 dataset rows, one row per thread, over 32-feature
+// slices staged in shared memory by coalesced 16-byte (bf16: 8-byte) loads
+// and widened to f32 on the way in.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,7 +6,7 @@ Replaces ``repro/kernels/knn/kernel.py::knn_pallas`` (``_knn_kernel``),
 ``repro/kernels/bitonic.py`` they call. The CUDA sources are
 ``../csrc/knn.cu`` (``knn_scan``, ``knn_merge``), ``../csrc/knn_int8.cu``
 (``knn_int8_scan``), ``../csrc/select.cuh`` (the survivor filter),
-``../csrc/tile.cuh`` and ``../csrc/bitonic.cuh``.
+``../csrc/ring.cuh`` (``cp.async``) and ``../csrc/bitonic.cuh``.
 
 What ``knn_scan`` computes, exactly as the TPU kernel does: for each query,
 the k_eff lexicographically smallest (score, index) pairs over the dataset,
@@ -22,40 +22,58 @@ Design of ``knn_scan``. The TPU grid runs in order with one queue per
 m-tile, and only the m axis is parallel, so for FD-SQ (m = 1) it would be
 one block on a card of 132 SMs. Here the n-tiles are split instead: the
 scan runs a grid of (m / bm, S) blocks, block (i, s) scanning a contiguous
-range of n-tiles into its own sorted queues in shared memory (the tile and
-the queue both live there, so bm shrinks as the queue grows), with S chosen
-to fill the card; ``knn_merge`` then reduces the S sorted queues of each
-query, 8 at a time, in a tree of launches. The result is the exact top-k of
-the union, so it equals the sequential TPU result bit for bit whenever the
-scores do. It reads x once (N·d·4 bytes) and does 2·M·N·d f32 FLOPs on the
-CUDA cores (no tensor cores, no TF32: f32 stays IEEE); at the main path's
-shapes (M <= 16) the bytes bound it. Each thread scores one row from a
-32-feature slice staged in shared memory, with one shared-memory query load
-per FMA and no load overlap yet.
+range of n-tiles into its own sorted queues, with S chosen to fill the card
+with two blocks per SM; ``knn_merge`` then reduces the S sorted queues of
+each query. The result is the exact top-k of the union, so it equals the
+sequential TPU result bit for bit whenever the scores do. It reads x once
+per m-tile (N·d·4 bytes, half that in bf16) and does 2·M·N·d f32 FLOPs on
+the CUDA cores (no tensor cores, no TF32: f32 stays IEEE, bf16 is widened
+exactly); at the main path's shapes (M <= 16) the bytes bound it. A block
+scores all bm (up to 16) queries of its m-tile, so x is read once at
+M = 16. Each thread owns a bm × kRows micro-tile (queries × rows; kRows
+is 2 for bm >= 8, else 4) in registers: each row element is read once from
+shared memory and used for every query, each query value (staged as f32)
+comes in a 16-byte broadcast. At bm = 16 the scoring is bound by those
+broadcasts (shared-memory bytes, not FMAs), so a stage holds 64 bytes of
+two rows a thread and each query value feeds 8 FMAs, with L2 asked to
+fetch each row's whole 128-byte line, whose other half the next stage
+reads (32-byte pieces read without it ran at half the memory rate); at
+small bm, where the scan only streams, a stage holds 128 bytes of one row
+a thread. Stages of 32 KB and the query slices come through a two-stage
+``cp.async`` ring, the next stage loading under the current one's FMAs. The scores never reach shared memory as a tile: after
+each chunk of 256·kRows rows they go from registers through
+``select.cuh``, which keeps only the lanes below each queue's worst pair,
+sorts those (counting ranks when a few, ``bitonic_sort_rows`` otherwise)
+and merges them into the queue along merge paths. The bm queues live in
+device memory (the output, and a scratch buffer as the second of two), so
+shared memory holds only the ring and a survivor buffer of 128 to 1024
+lanes a row, and k no longer limits bm. The per-tile semantics stay the
+TPU kernel's: after each bn-row tile every queue holds the k smallest pairs
+of (queue ∪ tile), and a tile whose every row's minimum is strictly above
+its queue's tile-start worst value counts as a skip, so values, indices
+and skip counts are the plain version's at the same (bm, bn, S).
 
-Design of ``knn_int8_scan`` (its own kernel). At M = 16 the widened codes'
-f32 FMAs, not the 1 B/element reads, bound it, so the design is about issue
-rate. A block scores all bm (up to 16) queries of its m-tile, so the codes
-are read once per m-tile: once at M = 16. Each thread owns a 16 × 4
-micro-tile (queries × rows) in registers: each code is widened once (a byte
-permute and a float subtraction, exact, full rate) and used for all bm
-queries, each query value is a 16-byte shared-memory broadcast used 16
-times. Slices of 32 features of 1024 rows (and the query slices) come
-through a two-stage ``cp.async`` ring, the next slice loading under the
-current one's FMAs. The bounds never reach shared memory as a tile: after
-each 1024-row chunk they go from registers through ``select.cuh``, which
-keeps only the lanes below each queue's worst pair, sorts those (counting
-ranks when a few, ``bitonic_sort_rows`` otherwise) and merges them into
-the queue along merge paths, each thread writing a run of 8 places. The bm
-queues (q_len pairs each) live in device memory (the output, and a scratch
-buffer as the second of two), so shared memory holds only the ring and a
-survivor buffer of 128 to 1024 lanes a row (as many as the grid's blocks
-per SM leave room for), and q_len no longer limits bm. The per-tile
-semantics stay the TPU kernel's: after each bn-row tile every queue holds
-the q_len smallest pairs of (queue ∪ tile), and a tile whose every row's
-minimum is strictly above its queue's tile-start worst value counts as a
-skip, so the result and the skip count are the plain version's at the same
-(bm, bn, S). S fills the card with two blocks per SM.
+Design of ``knn_int8_scan`` (its own kernel, the same structure). At
+M = 16 the widened codes' f32 FMAs, not the 1 B/element reads, bound it.
+Its stages hold 32 codes a row, widened by a byte permute and a float
+subtraction (exact, full rate), and its epilogue gives certified lower
+bounds into queues of q_len pairs.
+
+Design of ``knn_merge``: one launch, one block of 1024 threads per query
+row, reading only what can reach the answer. Queue s's pair at place
+(j+1)·stride - 1 has at least (j+1)·stride pairs of its queue at or below
+it, so the (k / stride)-th smallest of these samples over all S queues,
+tau, has at least k pairs of the union at or below it and fewer than
+k + S·stride strictly below. One binary search per queue finds its prefix
+strictly below tau; the answer is the k smallest of those candidates,
+sorted, then copies of tau. Both selections (the samples', the
+candidates') gather their pairs in rounds of 8192 into shared memory
+beside the pairs kept so far and keep the smallest by a radix select over
+a 64-bit key whose order is the pair order (8 bits a pass, stopping as
+soon as the bucket of the k-th is taken whole), so only the k kept pairs
+are ever sorted (``bitonic_sort_rows``). With stride ≈ sqrt(k) a row reads
+fewer than S·(k / stride + stride) + k of its S·k pairs, and the binary
+searches (at S = 123, k = 8192, stride 128: 31,808 of 1,007,616, 3.2 %).
 
 The union's q_len smallest pairs are the sequential queue's q_len smallest
 pairs, so the certificate's entry r is the TPU kernel's. Pruning skips a
@@ -82,16 +100,19 @@ LAUNCHES = {"knn_scan": 0, "knn_merge": 0, "knn_int8_scan": 0, "topk": 0, "l2dis
 
 _METRICS = {"l2": 0, "ip": 1}
 _BLOCK_ROWS = (1, 2, 4, 8, 16)  # bm values every kernel is built for
-_THREADS = 256  # threads per block; the scan scores one row per thread
-_DEPTH = 32  # features staged per pass: dim must be a multiple
-_MERGE_GROUP = 8  # queues one merge block reduces
+_THREADS = 256  # threads per block
+_DEPTH = 32  # dim must be a multiple
 _SM_SMEM_BYTES = 233_472  # shared memory per SM on Hopper (228 KB)
 _BLOCK_SMEM_MAX = 232_448  # shared memory one block may take (227 KB)
 _SM_BLOCK_RESERVED = 1024  # shared memory the SM keeps back per resident block
 _SELECT_BOOK = 1024  # bookkeeping bytes of csrc/select.cuh (kSelectBookBytes)
 _INT8_CHUNK = 1024  # dataset rows an int8 block scores per pass: 256 threads × 4
-_INT8_DEPTH = 32  # features per stage of the int8 scan's two-stage ring
-_INT8_CAP_MIN, _INT8_CAP_MAX = 128, 1024  # survivor lanes per query row
+_STAGE_BYTES = 32_768  # rows of one stage of the f32/bf16 scan's ring
+_QUERY_BYTES = 256  # room per query row in a stage of that ring
+_INT8_DEPTH = 32  # features (bytes) per stage of the int8 scan's ring
+_CAP_MIN, _CAP_MAX = 128, 1024  # survivor lanes per query row of a scan
+_MERGE_THREADS = 1024  # threads of a merge block
+_MERGE_POOL = 8192  # pairs a merge round gathers
 
 
 def reset_launch_counts() -> None:
@@ -99,67 +120,79 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def scan_smem_bytes(bm: int, bn: int, k_eff: int) -> int:
-    """Shared memory of one scan block (``scan_smem_bytes`` in knn.cu)."""
-    return bm * bn * 8 + bm * k_eff * 8 + _THREADS * (_DEPTH + 1) * 4 + bm * _DEPTH * 4
-
-
-def max_block_m(k_eff: int, bn: int) -> int:
-    """Largest bm whose tile and queues fit one block's shared memory."""
-    fit = [b for b in _BLOCK_ROWS if scan_smem_bytes(b, bn, k_eff) <= _BLOCK_SMEM_MAX]
-    if not fit:
-        raise ValueError(f"k_eff={k_eff}, bn={bn}: queue and tile exceed shared memory")
-    return fit[-1]
+def scan_smem_bytes(bm: int, cap: int) -> int:
+    """Shared memory of one f32/bf16 scan block (``scan_smem_bytes`` in
+    knn.cu): selection bookkeeping, two ring stages of 32 KB of rows and of
+    f32 query slices, a survivor buffer of ``cap`` (value, index) lanes per
+    query row, and the rows' qn and tile-start worst values. The queues live in device memory, so k does
+    not enter."""
+    return _SELECT_BOOK + 2 * (_STAGE_BYTES + bm * _QUERY_BYTES) + bm * cap * 8 + 128
 
 
 def int8_scan_smem_bytes(bm: int, cap: int) -> int:
     """Shared memory of one int8 scan block (``int8_smem_bytes`` in
-    knn_int8.cu): selection bookkeeping, two ring stages of codes and query
-    slices, a survivor buffer of ``cap`` (value, index) lanes per
-    query row, and the rows' qn and tile-start worst values. The queues live
-    in device memory, so q_len does not enter."""
+    knn_int8.cu): as :func:`scan_smem_bytes`, with stages of 32 int8 codes
+    a row and query slices of 32 f32 features."""
     return (_SELECT_BOOK + 2 * (_INT8_CHUNK * _INT8_DEPTH + bm * _INT8_DEPTH * 4)
             + bm * cap * 8 + 128)
+
+
+def _max_block_m(smem) -> int:
+    fit = [b for b in _BLOCK_ROWS if 2 * (smem(b, _CAP_MIN) + _SM_BLOCK_RESERVED)
+           <= _SM_SMEM_BYTES]
+    return fit[-1]
+
+
+def max_block_m() -> int:
+    """Largest bm for which two f32/bf16 scan blocks share an SM: the
+    scoring's 16, whatever the queue width."""
+    return _max_block_m(scan_smem_bytes)
 
 
 def int8_max_block_m() -> int:
     """Largest bm for which two int8 blocks share an SM: the scoring's 16,
     whatever q_len is."""
-    fit = [b for b in _BLOCK_ROWS if 2 * (int8_scan_smem_bytes(b, _INT8_CAP_MIN)
-                                          + _SM_BLOCK_RESERVED) <= _SM_SMEM_BYTES]
-    return fit[-1]
+    return _max_block_m(int8_scan_smem_bytes)
 
 
-def int8_survivor_cap(bm: int, blocks: int, sms: int) -> int:
-    """Survivor lanes per query row: the largest power of two (128 to 1024)
-    whose block still fits the grid's blocks per SM (two when the grid
-    has more blocks than the card has SMs, else one), so the first
-    batches, where every lane survives, sort in as few passes as fit."""
+def _survivor_cap(smem, bm: int, blocks: int, sms: int) -> int:
     room = (_SM_SMEM_BYTES // 2 - _SM_BLOCK_RESERVED if blocks > sms else _BLOCK_SMEM_MAX)
-    cap = _INT8_CAP_MIN
-    while cap < _INT8_CAP_MAX and int8_scan_smem_bytes(bm, 2 * cap) <= room:
+    cap = _CAP_MIN
+    while cap < _CAP_MAX and smem(bm, 2 * cap) <= room:
         cap *= 2
     return cap
 
 
+def scan_survivor_cap(bm: int, blocks: int, sms: int) -> int:
+    """Survivor lanes per query row of the f32/bf16 scan: the largest power
+    of two (128 to 1024) whose block still fits the grid's blocks per SM
+    (two when the grid has more blocks than the card has SMs, else one),
+    so the first batches, where every lane survives, sort in as few passes
+    as fit."""
+    return _survivor_cap(scan_smem_bytes, bm, blocks, sms)
+
+
+def int8_survivor_cap(bm: int, blocks: int, sms: int) -> int:
+    """As :func:`scan_survivor_cap`, for the int8 scan."""
+    return _survivor_cap(int8_scan_smem_bytes, bm, blocks, sms)
+
+
+def merge_smem_bytes(k: int) -> int:
+    """Shared memory of one merge block (``merge_smem_bytes`` in knn.cu):
+    the pool of gathered pairs, two buffers of k kept pairs, the radix
+    histogram and the candidate offsets of 1024 queues."""
+    return _MERGE_POOL * 8 + k * 16 + (256 + _MERGE_THREADS) * 4 + 128
+
+
+def merge_stride(k: int) -> int:
+    """Sample stride of the merge: the power of two at or just above
+    sqrt(k), which keeps the S·k / stride samples and the fewer than
+    k + S·stride candidates about equal."""
+    return 1 << (k.bit_length() // 2)
+
+
 def tiles_per_split(n_tiles: int, splits: int) -> int:
     return -(-n_tiles // splits)
-
-
-def splits_for(m_tiles: int, n_tiles: int, smem: int, device) -> int:
-    """S for a grid of (m_tiles, S) blocks of `smem` bytes each: as many
-    blocks as one wave of the card holds and no more (a second, partial
-    wave would double the time), no split empty."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = max(1, min(2048 // _THREADS, _SM_SMEM_BYTES // (smem + 1024)))
-    splits = min(n_tiles, 65535, max(1, sms * per_sm // m_tiles))
-    return -(-n_tiles // tiles_per_split(n_tiles, splits))
-
-
-def scan_splits(m_tiles: int, n_tiles: int, bm: int, bn: int, k_eff: int,
-                device) -> int:
-    """S for the scan (f32 or int8; ``k_eff`` is the queue width)."""
-    return splits_for(m_tiles, n_tiles, scan_smem_bytes(bm, bn, k_eff), device)
 
 
 def _check(q, x, qn, xn, k_eff, metric, bm, bn):
@@ -196,11 +229,8 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def _resolve_splits(splits, m_tiles: int, n_tiles: int, smem: int, device):
-    """(S, tiles per split): ``None`` fills the card; a given S must leave
-    no split empty."""
-    if splits is None:
-        splits = splits_for(m_tiles, n_tiles, smem, device)
+def _resolve_splits(splits: int, n_tiles: int):
+    """(S, tiles per split) of a given S, which must leave no split empty."""
     if not 1 <= splits <= min(n_tiles, 65535):
         raise ValueError(f"splits={splits} must be in [1, min({n_tiles}, 65535)]")
     tps = tiles_per_split(n_tiles, splits)
@@ -209,78 +239,93 @@ def _resolve_splits(splits, m_tiles: int, n_tiles: int, smem: int, device):
     return splits, tps
 
 
-def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
-             prune: bool = True, splits: int | None = None):
-    """Per-split sorted queues: (M, S, k_eff) f32 values and i32 indices,
-    and (M / bm, S) i32 skip counts. ``splits=None`` fills the card."""
-    _check(q, x, qn, xn, k_eff, metric, bm, bn)
-    if q.device.type == "cpu":
-        return knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits or 1)
-    _check_cuda(q, x, qn, xn)
-    if q.shape[1] % _DEPTH:
-        raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
-    if scan_smem_bytes(bm, bn, k_eff) > _BLOCK_SMEM_MAX:
-        raise ValueError(f"bm={bm}, bn={bn}, k_eff={k_eff} exceed shared memory")
-    from repro_torch.kernels.build import load_library
-
-    m, n, d = q.shape[0], x.shape[0], q.shape[1]
-    m_tiles, n_tiles = m // bm, n // bn
-    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, scan_smem_bytes(bm, bn, k_eff),
-                                  q.device)
-    out_v = torch.empty((m, splits, k_eff), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((m, splits, k_eff), dtype=torch.int32, device=q.device)
-    skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
-    err = load_library().knn_scan(
-        q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(), skips.data_ptr(),
-        m, n, d, k_eff, bm, bn, _METRICS[metric], int(prune), splits, tps,
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(err, "knn_scan")
-    LAUNCHES["knn_scan"] += 1
-    return out_v, out_i, skips
-
-
-def knn_merge(v, i):
-    """(M, S, k) sorted queues -> (M, k): the k smallest pairs of each
-    query's S queues, sorted (one launch per tree level, at least one)."""
-    if v.ndim != 3 or v.shape != i.shape or v.dtype != torch.float32 or i.dtype != torch.int32:
-        raise ValueError(f"expected (M, S, k) f32 and i32 queues, got {v.dtype} {i.dtype} "
-                         f"{tuple(v.shape)} {tuple(i.shape)}")
-    k = v.shape[2]
-    if k & (k - 1):
-        raise ValueError(f"queue width k={k} must be a power of two")
-    if v.device.type == "cpu":
-        return knn_merge_plain(v, i)
-    _check_cuda(v, i)
-    from repro_torch.kernels.build import load_library
-
-    lib, stream = load_library(), torch.cuda.current_stream(v.device).cuda_stream
-    m = v.shape[0]
-    while True:
-        splits = v.shape[1]
-        groups = -(-splits // _MERGE_GROUP)
-        out_v = torch.empty((m, groups, k), dtype=torch.float32, device=v.device)
-        out_i = torch.empty((m, groups, k), dtype=torch.int32, device=v.device)
-        _raise_on(lib.knn_merge(v.data_ptr(), i.data_ptr(), out_v.data_ptr(),
-                                out_i.data_ptr(), m, splits, _MERGE_GROUP, k, stream),
-                  "knn_merge")
-        LAUNCHES["knn_merge"] += 1
-        v, i = out_v, out_i
-        if groups == 1:
-            return v[:, 0], i[:, 0]
-
-
-def int8_scan_config(m_tiles: int, n_tiles: int, bm: int, device,
-                     splits: int | None = None) -> tuple[int, int, int]:
-    """(S, tiles per split, survivor cap) of an int8 scan: ``None`` fills
-    the card with two blocks per SM (one wave), a given S must leave no
-    split empty."""
+def _scan_config(cap_of, m_tiles: int, n_tiles: int, bm: int, device, splits):
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if splits is None:
         splits = min(n_tiles, 65535, max(1, 2 * sms // m_tiles))
         splits = -(-n_tiles // tiles_per_split(n_tiles, splits))
-    splits, tps = _resolve_splits(splits, m_tiles, n_tiles, 0, device)
-    return splits, tps, int8_survivor_cap(bm, m_tiles * splits, sms)
+    splits, tps = _resolve_splits(splits, n_tiles)
+    return splits, tps, cap_of(bm, m_tiles * splits, sms)
+
+
+def scan_config(m_tiles: int, n_tiles: int, bm: int, device,
+                splits: int | None = None) -> tuple[int, int, int]:
+    """(S, tiles per split, survivor cap) of an f32/bf16 scan: ``None``
+    fills the card with two blocks per SM (one wave), a given S must leave
+    no split empty."""
+    return _scan_config(scan_survivor_cap, m_tiles, n_tiles, bm, device, splits)
+
+
+def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
+             prune: bool = True, splits: int | None = None, return_stats: bool = False):
+    """Per-split sorted queues: (M, S, k_eff) f32 values and i32 indices,
+    and (M / bm, S) i32 skip counts. ``splits=None`` fills the card.
+    ``return_stats=True`` (CUDA tensors only) adds the kernel's selection
+    counters, (M / bm, S, 4) i32: survivors, passes, comparisons of the
+    survivor sorts, queue pairs moved."""
+    _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    if q.device.type == "cpu":
+        if return_stats:
+            raise ValueError("selection counters come from the kernel: CUDA tensors only")
+        return knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits or 1)
+    _check_cuda(q, x, qn, xn)
+    if q.shape[1] % _DEPTH:
+        raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
+    from repro_torch.kernels.build import load_library
+
+    m, n, d = q.shape[0], x.shape[0], q.shape[1]
+    m_tiles, n_tiles = m // bm, n // bn
+    splits, tps, cap = scan_config(m_tiles, n_tiles, bm, q.device, splits)
+    shape = (m, splits, k_eff)
+    out_v, scratch_v = (torch.empty(shape, dtype=torch.float32, device=q.device)
+                        for _ in range(2))
+    out_i, scratch_i = (torch.empty(shape, dtype=torch.int32, device=q.device)
+                        for _ in range(2))
+    skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
+    stats = (torch.zeros((m_tiles, splits, 4), dtype=torch.int32, device=q.device)
+             if return_stats else None)
+    q32 = q.to(torch.float32).contiguous()  # bf16 widens exactly
+    err = load_library().knn_scan(
+        q32.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), scratch_v.data_ptr(), scratch_i.data_ptr(), skips.data_ptr(),
+        None if stats is None else stats.data_ptr(), m, n, d, k_eff, bm, bn,
+        _METRICS[metric], int(prune), splits, tps, cap, int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "knn_scan")
+    LAUNCHES["knn_scan"] += 1
+    return (out_v, out_i, skips, stats) if return_stats else (out_v, out_i, skips)
+
+
+def knn_merge(v, i):
+    """(M, S, k) sorted queues -> (M, k): the k smallest pairs of each
+    query's S queues, sorted; one launch."""
+    if v.ndim != 3 or v.shape != i.shape or v.dtype != torch.float32 or i.dtype != torch.int32:
+        raise ValueError(f"expected (M, S, k) f32 and i32 queues, got {v.dtype} {i.dtype} "
+                         f"{tuple(v.shape)} {tuple(i.shape)}")
+    m, splits, k = v.shape
+    if k & (k - 1) or not k:
+        raise ValueError(f"queue width k={k} must be a power of two")
+    if v.device.type == "cpu":
+        return knn_merge_plain(v, i)
+    _check_cuda(v, i)
+    if merge_smem_bytes(k) > _BLOCK_SMEM_MAX or not 1 <= splits * k < 2**31:
+        raise ValueError(f"(S, k) = ({splits}, {k}): the merge takes k <= 8192, S·k < 2^31")
+    from repro_torch.kernels.build import load_library
+
+    out_v = torch.empty((m, k), dtype=torch.float32, device=v.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=v.device)
+    _raise_on(load_library().knn_merge(
+        v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), m, splits, k,
+        merge_stride(k), torch.cuda.current_stream(v.device).cuda_stream),
+        "knn_merge")
+    LAUNCHES["knn_merge"] += 1
+    return out_v, out_i
+
+
+def int8_scan_config(m_tiles: int, n_tiles: int, bm: int, device,
+                     splits: int | None = None) -> tuple[int, int, int]:
+    """As :func:`scan_config`, for the int8 scan."""
+    return _scan_config(int8_survivor_cap, m_tiles, n_tiles, bm, device, splits)
 
 
 def _check_int8(q, x8, qn, scales, err, hn, q_len, bm, bn):

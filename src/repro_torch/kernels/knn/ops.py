@@ -56,17 +56,16 @@ def resolved_blocks(
     queue. bd is the largest multiple of LANE that divides the padded dim
     and is <= block_d, so an aligned dataset is never copied to pad its
     dim. bm shrinks to the batch (``next_pow2(m)`` when m is given) and to
-    the kernel's limit: for the f32 kernel, what one block's shared memory
-    holds beside a (bm, bn) tile and a (bm, queue) queue; for the int8
-    kernel, whose queues live in device memory, its scoring's 16 whatever
-    the queue. On the card a row of padding queries is work thrown away.
+    the kernel's limit: both kernels keep their queues in device memory, so
+    that is their scoring's 16 whatever the queue. On the card a row of
+    padding queries is work thrown away.
     """
     k_eff = next_pow2(k)
     queue = k_eff if rescore_factor is None else int8_queue(k, rescore_factor)[1]
     bn = max(block_n, queue)
     dp = round_up(max(d, 1), LANE)
     bd = max(b for b in range(LANE, max(block_d, LANE) + 1, LANE) if dp % b == 0)
-    bm = min(block_m, max_block_m(queue, bn) if rescore_factor is None else int8_max_block_m())
+    bm = min(block_m, max_block_m() if rescore_factor is None else int8_max_block_m())
     if m is not None:
         bm = min(bm, next_pow2(m))
     bm = 1 << (bm.bit_length() - 1)  # the kernel's row blocks are powers of 2

@@ -102,7 +102,7 @@ def topk_scan(scores, k_eff: int, bn: int, splits: int | None = None,
     n_tiles = -(-n // bn)
     if splits is None:
         splits = topk_splits(m, n_tiles, scores.device)
-    splits, tps = _resolve_splits(splits, m, n_tiles, 0, scores.device)
+    splits, tps = _resolve_splits(splits, n_tiles)
     out_v = torch.empty((m, splits, k_eff), dtype=torch.float32, device=scores.device)
     out_i = torch.empty((m, splits, k_eff), dtype=torch.int32, device=scores.device)
     stats = (torch.zeros((m, splits, 4), dtype=torch.int32, device=scores.device)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch import ExactKNN, SearchRequest
+from repro_torch.data.merge_cases import KINDS, merge_queues
 from repro_torch.kernels.knn import kernel as K
 from repro_torch.kernels.knn import ops
 
@@ -50,7 +51,7 @@ def test_fused_kernel_bit_identical_to_plain(dev, dtype, metric, k, m):
     K.reset_launch_counts()
     v, i, sk = K.knn_fused(call.q, call.x, call.xn, call.k_eff, call.metric, bm, bn, bd)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] >= 1
+    assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] == 1
     pv, pi, _ = K.knn_fused_plain(call.q, call.x, call.xn, call.k_eff, call.metric, bm, bn, bd)
     assert torch.equal(v, pv) and torch.equal(i, pi)
     assert int(sk.sum()) <= (call.q.shape[0] // bm) * (call.x.shape[0] // bn)
@@ -223,3 +224,52 @@ def test_int8_scan_filter_edge_cases_bit_identical(dev, order, k):
             want = K.knn_int8_scan_plain(*args, prune, splits)
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,s,k", [(3, 7, 1), (1, 264, 128), (16, 245, 1024), (2, 123, 8192)])
+def test_merge_one_launch_on_adversarial_queues(dev, kind, m, s, k):
+    """The one-launch merge against knn_merge_plain on queues built to
+    stress its threshold (``repro_torch.data.merge_cases``), at the main
+    path's widths."""
+    v, i = merge_queues(kind, m, s, k, seed=m + s + k, device=dev)
+    K.reset_launch_counts()
+    got = K.knn_merge(v, i)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_merge"] == 1
+    want = K.knn_merge_plain(v, i)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("order", ["random", "farthest_first", "equal"])
+@pytest.mark.parametrize("k,m", [(72, 16), (1024, 1)])
+def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
+    """Rows farthest from query 0 first (every lane survives for it: the
+    multi-pass path) and all rows equal (index ties), at the card's S and
+    at S = 1: values, indices and skip counts, with the selection
+    counters of every block."""
+    g = torch.Generator(device=dev).manual_seed(k + m)
+    x = _ints((12_288, 256), g, dev)
+    q = _ints((m, 256), g, dev)
+    q[0] = x[9]
+    if order == "farthest_first":
+        key = torch.sum((x - q[0]) ** 2, -1) if metric == "l2" else -(x @ q[0])
+        x = x[torch.argsort(key, descending=True, stable=True)]
+    elif order == "equal":
+        x = x[9].expand_as(x).contiguous()
+    xn = torch.sum(x * x, dim=-1)
+    xn[[100, 12_287]] = torch.inf
+    call = ops.prepare(q.to(dtype), x.to(dtype), k, metric, xn)
+    bm, bn, _ = call.blocks
+    qn = torch.sum(call.q.float() ** 2, dim=-1)
+    args = (call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
+    m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
+    for splits in (K.scan_config(m_tiles, n_tiles, bm, dev)[0], 1):
+        for prune in (True, False):
+            *got, stats = K.knn_scan(*args, prune, splits, return_stats=True)
+            want = K.knn_scan_plain(*args, prune, splits)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            assert stats.shape == (m_tiles, splits, 4) and int(stats[..., 1].min()) >= 1

@@ -168,13 +168,13 @@ def test_int8_scan_plain_matches_pallas_bitwise(n, m, bm, bn, q_len, q0_row):
 
 def test_int8_block_rule_follows_the_scoring_not_the_queue():
     """The card's int8 kernel keeps its queues in device memory, so bm is
-    its scoring's 16 at every q_len (GIST: q_len 8192; MS-MARCO: 1024),
-    where the f32 kernel's shared-memory queue still limits its own."""
+    its scoring's 16 at every q_len (GIST: q_len 8192; MS-MARCO: 1024), as
+    the f32 kernel does at every k."""
     assert K.int8_max_block_m() == 16
     assert tops.resolved_blocks(1024, 960, m=16, rescore_factor=4) == (16, 8192, 512)
     assert tops.resolved_blocks(72, 769, m=16, rescore_factor=4) == (16, 1024, 128)
     assert tops.resolved_blocks(10, 64, m=3, rescore_factor=4) == (4, 512, 128)
-    assert tops.resolved_blocks(1024, 960, m=16) == (8, 1024, 512)
+    assert tops.resolved_blocks(1024, 960, m=16) == (16, 1024, 512)
     # two blocks of bm = 16 share an SM with 256 survivor lanes a row; a
     # grid of at most one block per SM takes the largest buffer, 1024
     assert 2 * (K.int8_scan_smem_bytes(16, 256) + 1024) <= 233_472

@@ -27,6 +27,8 @@ from repro.kernels.l2dist.ops import l2dist as jl2dist
 from repro.kernels.l2dist.ref import l2dist_ref as jl2dist_ref
 from repro.kernels.topk.kernel import topk_pallas
 from repro.kernels.topk.ref import topk_ref as jtopk_ref
+from repro_torch.core.topk import pair_keys, sort_pairs, topk_smallest
+from repro_torch.data.merge_cases import KINDS, merge_queues
 from repro_torch.kernels.knn import kernel as K
 from repro_torch.kernels.l2dist.kernel import l2dist_plain
 from repro_torch.kernels.l2dist.ops import l2dist
@@ -187,7 +189,75 @@ def test_topk_smem_formula_matches_the_kernel(k_eff):
     assert T.topk_smem_bytes(8192) <= K._BLOCK_SMEM_MAX < T.topk_smem_bytes(16384)
 
 
-@pytest.mark.parametrize("bm,bn,k", [(1, 512, 72), (8, 1024, 1024), (16, 512, 1024)])
-def test_scan_smem_formula_matches_the_kernel(bm, bn, k):
-    env = _c_constants("tile.cuh", "knn.cu")
-    assert K.scan_smem_bytes(bm, bn, k) == _c_formula("knn.cu", "scan_smem_bytes", env)(bm, bn, k)
+@pytest.mark.parametrize("bm,cap", [(1, 1024), (16, 256), (16, 1024)])
+def test_scan_smem_formula_matches_the_kernel(bm, cap):
+    env = _c_constants("select.cuh", "knn.cu")
+    assert K.scan_smem_bytes(bm, cap) == _c_formula("knn.cu", "scan_smem_bytes", env)(bm, cap)
+    assert (env["kStageBytes"], env["kQueryBytes"]) == (K._STAGE_BYTES, K._QUERY_BYTES)
+
+
+@pytest.mark.parametrize("bm,blocks", [(16, 245), (16, 100), (1, 264), (4, 132)])
+def test_scan_survivor_cap_fits_the_grid(bm, blocks):
+    """The cap is the largest power of two (128 to 1024) whose block, by
+    the kernel's own formula, fits the blocks per SM the grid needs."""
+    c = _c_formula("knn.cu", "scan_smem_bytes", _c_constants("select.cuh", "knn.cu"))
+    cap = K.scan_survivor_cap(bm, blocks, 132)
+    room = 233_472 // 2 - 1024 if blocks > 132 else 232_448
+    assert c(bm, cap) <= room and (cap == 1024 or c(bm, 2 * cap) > room)
+    assert cap & (cap - 1) == 0 and 128 <= cap <= 1024
+
+
+@pytest.mark.parametrize("k", [1, 128, 1024, 8192])
+def test_merge_smem_formula_matches_the_kernel(k):
+    env = _c_constants("select.cuh", "knn.cu")
+    c = _c_formula("knn.cu", "merge_smem_bytes", env)
+    assert K.merge_smem_bytes(k) == c(k)
+    assert (env["kMergeThreads"], env["kPool"]) == (K._MERGE_THREADS, K._MERGE_POOL)
+    assert K.merge_smem_bytes(8192) <= K._BLOCK_SMEM_MAX < K.merge_smem_bytes(16384)
+
+
+# ---------------------------------------------------------------- merge
+def _threshold_merge(v, i):
+    """knn_merge's three steps in torch ops: tau, the (k / stride)-th
+    smallest of the samples at places (j+1)·stride - 1; each queue's pairs
+    strictly below tau; their k smallest, then copies of tau. Checks the
+    two bounds the design rests on: at least k pairs at or below tau, fewer
+    than k + S·stride strictly below."""
+    m, s, k = v.shape
+    stride = K.merge_stride(k)
+    ks = k // stride
+    tv, ti = topk_smallest(v[:, :, stride - 1::stride].reshape(m, -1),
+                           i[:, :, stride - 1::stride].reshape(m, -1), ks)
+    tau = pair_keys(tv[:, -1], ti[:, -1])[:, None, None]
+    keys = pair_keys(v, i)
+    assert bool(((keys <= tau).sum(dim=(1, 2)) >= k).all())
+    below = keys < tau
+    assert bool((below.sum(dim=(1, 2)) < k + s * stride).all())
+    out_v, out_i = [], []
+    for r in range(m):
+        cv, ci = topk_smallest(v[r][below[r]], i[r][below[r]], k)
+        fill = min(k, int(below[r].sum()))
+        out_v.append(torch.cat([cv[:fill], tv[r, -1].expand(k - fill)]))
+        out_i.append(torch.cat([ci[:fill], ti[r, -1].expand(k - fill)]))
+    return torch.stack(out_v), torch.stack(out_i)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,s,k", [(3, 7, 1), (2, 5, 64), (2, 37, 16), (1, 3, 1024)])
+def test_merge_plain_equals_a_full_sort(kind, m, s, k):
+    """knn_merge_plain, and the kernel's threshold steps, against one full
+    sort of each row's S·k pairs, on queues built to stress the threshold."""
+    v, i = merge_queues(kind, m, s, k, seed=m + s + k)
+    want_v, want_i = sort_pairs(v.reshape(m, -1), i.reshape(m, -1))
+    pv, pi = K.knn_merge_plain(v, i)
+    assert torch.equal(pv, want_v[:, :k]) and torch.equal(pi, want_i[:, :k])
+    tv, ti = _threshold_merge(v, i)
+    assert torch.equal(tv, pv) and torch.equal(ti, pi)
+    mv, mi = K.knn_merge(v, i)  # CPU tensors: the plain version
+    assert torch.equal(mv, pv) and torch.equal(mi, pi)
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 128, 1024, 8192])
+def test_merge_stride_is_near_sqrt_k(k):
+    stride = K.merge_stride(k)
+    assert stride & (stride - 1) == 0 and k <= stride * stride <= 2 * k

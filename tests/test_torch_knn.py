@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.kernels.knn import ops as jops
+from repro.kernels.knn.kernel import knn_pallas
 from repro_torch.kernels import build
 from repro_torch.kernels.knn import kernel as K
 from repro_torch.kernels.knn import ops as tops
@@ -182,6 +183,35 @@ def test_split_scan_and_merge_equal_one_sequential_queue(splits):
     assert int(unpruned[2].sum()) == 0
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_scan_plain_matches_pallas_at_the_card_blocks(metric):
+    """The blocks the card's f32 scan takes at GIST (bm = 16 whatever k,
+    k_eff = 1024, bn = 1024): the plain scan (S = 1) is the TPU kernel bit
+    for bit on integer data, skip counts included, and its split queues
+    (S = 2 and 4) merge to the same queue. Rows nearest the queries come
+    first, so that later tiles prune."""
+    rng = np.random.default_rng(21)
+    n, d, m, bm, bn, k = 4096, 32, 16, 16, 1024, 1024
+    x = _ints(rng, (n, d))
+    q = x[5] + _ints(rng, (m, d), -1, 2)
+    key = ((x - x[5]) ** 2).sum(-1) if metric == "l2" else -(x @ x[5])
+    x = x[np.argsort(key, kind="stable")]
+    x[3000] = x[2]  # an exact tie across tiles
+    xn = _inf_norms(x, (7, 2500))
+    jv, ji, jsk = knn_pallas(jnp.asarray(q), jnp.asarray(x), jnp.asarray(xn)[None], k,
+                                  metric, bm, bn, d, True, True)
+    t = [torch.from_numpy(a) for a in (q, x, (q * q).sum(-1).astype(np.float32), xn)]
+    v, i, sk = K.knn_scan_plain(*t, k, metric, bm, bn, True, 1)
+    np.testing.assert_array_equal(v[:, 0].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(i[:, 0].numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(sk.numpy(), np.asarray(jsk))
+    assert int(sk.sum()) > 0
+    for splits in (2, 4):
+        sv, si, _ = K.knn_scan_plain(*t, k, metric, bm, bn, True, splits)
+        mv, mi = K.knn_merge(sv, si)
+        assert torch.equal(mv, v[:, 0]) and torch.equal(mi, i[:, 0])
+
+
 def test_wrappers_reject_what_the_kernel_does_not_take():
     q, x = torch.zeros(4, 128), torch.zeros(512, 128)
     xn = torch.zeros(512)
@@ -216,11 +246,13 @@ def test_cpu_tensors_take_the_plain_version_and_never_build():
 
 def test_resolved_blocks():
     # bn grows to the queue, bd divides the padded dim, bm follows the batch
-    assert tops.resolved_blocks(1024, 960, m=16) == (8, 1024, 512)
+    assert tops.resolved_blocks(1024, 960, m=16) == (16, 1024, 512)
     assert tops.resolved_blocks(72, 769, m=1) == (1, 512, 128)
     assert tops.resolved_blocks(10, 100, m=128) == (16, 512, 128)
     assert tops.resolved_blocks(10, 100, block_m=4, m=3) == (4, 512, 128)
     assert tops.DEFAULT_BLOCKS == jops.DEFAULT_BLOCKS
-    for bm, bn, k in ((16, 512, 1024), (8, 1024, 1024), (1, 2048, 2048)):
-        fits = K.scan_smem_bytes(bm, bn, k) <= 232_448
-        assert fits == (bm <= K.max_block_m(k, bn)) or bm > 16
+    # the queues live in device memory: bm is the scoring's 16 at every k,
+    # and two blocks of bm = 16 share an SM with 256 survivor lanes a row
+    assert K.max_block_m() == 16
+    assert 2 * (K.scan_smem_bytes(16, 256) + 1024) <= 233_472
+    assert 2 * (K.scan_smem_bytes(16, 512) + 1024) > 233_472
