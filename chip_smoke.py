@@ -42,12 +42,39 @@ Phases, in order (any failure makes the run exit non-zero):
              bit-identical to the port's knn_exact_direct (certified rows come
              from the rescore, the others from the fallback); the certified
              share, the scan, merge, rescore and fallback times are printed.
-6. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+6. streamed — out-of-core FQ-SD at the GIST shape (phase 3's data, seed 3):
+             the rows made on the card, then kept in a pinned host store of
+             16 shards of 65,536 rows (1,048,576 padded, 4.29 GB of f32 a
+             search ships) with its int8 tier quantised shard by shard on
+             the card (1.07 GB of codes + 12.6 MB of channels), searched
+             through ExactKNN(backend="cuda").fit_store(store,
+             resident=False): fqsd-mmap-streamed (f32) and
+             fqsd-int8-streamed, at prefetch_depth 1 and 2. Prints the host
+             RAM, the pinned copy rate of one shard (CUDA events, median of
+             10; the phase's bound is bytes shipped over it), and per search
+             the host-clock median of 10 (each ending in a synchronise),
+             transfers, bytes, GB/s and share of the copy rate, the
+             copy-only time of the same shards, the compute-only time of
+             the per-shard steps on device-resident copies, and the
+             launches per search; int8 at the default spec_trigger (0.5)
+             and, at depth 2, at 1.0 (no speculation), with the
+             scan/gather/rescore split, the speculation counters at 0.0,
+             0.5 and 1.0 and the certified share. Checks: (a) the f32 result is
+             bit-identical to a resident fdsq-cuda search over the same
+             store; (b) the int8 result is bit-identical to
+             streamed_direct_scan over the store and to the resident
+             fqsd-int8-cuda result wherever both are certified; (c) each
+             per-shard kernel step equals its plain step (knn_scan_plain /
+             knn_int8_scan_plain + knn_merge_plain) on one shard; (d) the
+             results at spec_trigger 0.0, 0.5 and 1.0 are bit-identical;
+             (e) the card is the H100 the bounds are stated for.
+7. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024.
 
-Phases 3-6 are the main path. The launch counters are set to 0 just before
-each search (phase 6: before l2dist + topk) and read just after; every
-kernel of the path must have launched, knn_merge exactly once. Each result
+Phases 3-7 are the main path. The launch counters are set to 0 just before
+each search (phase 7: before l2dist + topk) and read just after; every
+kernel of the path must have launched, knn_merge exactly once (phase 6:
+once a shard, beside knn_scan or knn_int8_scan once a shard). Each result
 is held against the plain version on the same padded operands within
 TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in another
 order), with indices equal wherever the plain scores around them are more
@@ -76,7 +103,8 @@ before it measures.
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
 library_ms and bound_ms summed over the main path's runs, one of each shape,
-with the per-shape numbers under "shapes"), and as the last line
+with the per-shape numbers under "shapes"; phase 6's shapes give one
+shard's launch), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -117,6 +145,9 @@ GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
 STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024)
+#: phase 6: phase 3's GIST data in pinned host shards, streamed
+STREAMED = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
+                depths=(1, 2), triggers=(0.0, 0.5, 1.0), repeats=10)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -128,10 +159,11 @@ def log(msg: str) -> None:
 
 
 class Smoke:
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, card: str = ""):
         from repro_torch.kernels.knn import kernel as K, ops
 
         self.torch, self.K, self.ops, self.dev = torch, K, ops, dev
+        self.card = card  # nvidia-smi's name and power limit, beside every time
         self.bw, self.flops = PEAK_BW, PEAK_F32
         self.shapes: list[dict] = []  # one per main-path search
         self.msmarco_eng = None  # phase 4's engine, quantised by phase 5
@@ -806,7 +838,327 @@ class Smoke:
         self.shapes.append(shape)
         return ok
 
-    # --------------------------------------------------- phase 6: kernels
+    # -------------------------------------------------- phase 6: streamed
+    def host_clock_ms(self, fn, repeats: int) -> tuple[float, list[float]]:
+        """Median host-clock time of fn (each run ending in a synchronise)
+        over `repeats` runs after a warm-up, and every run's time."""
+        fn()
+        self.sync()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    @staticmethod
+    def host_ram() -> str:
+        fields = {}
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            key, _, rest = line.partition(":")
+            fields[key] = rest.strip()
+        return f"MemTotal {fields.get('MemTotal')} MemAvailable {fields.get('MemAvailable')}"
+
+    def copy_rate(self, shard) -> tuple[float, float]:
+        """Pinned host -> device copy of one f32 shard (vectors + norms):
+        (median ms of 10 by CUDA events, bytes/s)."""
+        torch = self.torch
+        dst = [torch.empty_like(t, device=self.dev) for t in (shard.vectors, shard.norms)]
+        nbytes = sum(t.numel() * t.element_size() for t in dst)
+
+        def copy():
+            for d_, s_ in zip(dst, (shard.vectors, shard.norms)):
+                d_.copy_(s_, non_blocking=True)
+
+        t = self.ms(copy, repeats=STREAMED["repeats"])
+        return t, nbytes / (t * 1e-3)
+
+    def phase_streamed(self) -> bool:
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core.fqsd import make_partition_step, streamed_direct_scan
+        from repro_torch.core.quantized import make_int8_bound_step
+        from repro_torch.core.streaming import DoubleBufferedStream, device_put_partition
+        from repro_torch.store import DatasetStore
+
+        cfg = STREAMED
+        n, d, m, k = cfg["n"], cfg["d"], cfg["m"], cfg["k"]
+        log(f"streamed: host RAM {self.host_ram()}")
+        x, q = self._dataset(n, d, m, seed=cfg["seed"])
+        t0 = time.perf_counter()
+        store = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"], pin_memory=True)
+        del x
+        self.sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store.ensure_tier("int8", device=self.dev)
+        self.sync()
+        quant_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        shard_rows, dp, n_shards = store.rows_per_shard, store.padded_dim, store.n_shards
+        f32_bytes = n_shards * shard_rows * (dp + 1) * 4  # vectors + norms a shard
+        int8_bytes = sum(store.read_shard(i, "int8").scan_bytes() for i in range(n_shards))
+        log(f"streamed: pinned store of {n_shards} shards x {shard_rows} rows x {dp} "
+            f"({store.n_main} valid, {f32_bytes} B f32 + norms shipped a search) built in "
+            f"{build_s:.2f} s; int8 tier ({int8_bytes} B a search) quantised on the card in "
+            f"{quant_s:.2f} s; pinned={store.is_pinned}")
+        copy_ms, rate = self.copy_rate(store.read_shard(0))
+        log(f"streamed: pinned copy of one shard {copy_ms:.4f} ms -> {rate / 1e9:.3f} GB/s "
+            f"(median of {cfg['repeats']}, CUDA events) [{self.card}]")
+
+        eng = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(store, resident=False)
+        eng.enable_int8()
+        qv = eng._pad_queries(q)
+        ok = True
+        results = {}
+        # ---- the main path: one search of each tier, counters read around it
+        for tier, kernels in (("f32", ("knn_scan", "knn_merge")),
+                              ("int8", ("knn_int8_scan", "knn_merge"))):
+            req = SearchRequest(queries=q, k=k, tier=tier, prefetch_depth=2)
+            self.sync()
+            K.reset_launch_counts()
+            res = eng.search(req)
+            self.sync()
+            launches = dict(K.LAUNCHES)
+            want_exec = "fqsd-mmap-streamed" if tier == "f32" else "fqsd-int8-streamed"
+            good = (res.plan.executor == want_exec and res.stats["transfers"] == n_shards
+                    and all(launches[name] == n_shards for name in kernels)
+                    and sum(launches.values()) == 2 * n_shards)
+            v, i = res.topk.scores, res.topk.indices
+            good &= tuple(v.shape) == (m, k) and bool(torch.isfinite(v).all())
+            good &= bool(((i >= 0) & (i < store.n_main)).all())
+            log(f"streamed {tier}: executor={res.plan.executor} transfers="
+                f"{res.stats['transfers']} bytes_scanned={res.stats['bytes_scanned']} "
+                f"launches={launches} health={res.stats['health']} ok={good}")
+            ok &= good
+            results[tier] = (res, launches)
+
+        # ---- (a) f32: bit-identical to a resident fdsq-cuda search of the store
+        resident = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(store, resident=True)
+        want = resident.search(SearchRequest(queries=q, k=k, mode_hint="fqsd"))
+        got = results["f32"][0]
+        check_a = (want.plan.executor == "fdsq-cuda"
+                   and torch.equal(got.topk.scores, want.topk.scores)
+                   and torch.equal(got.topk.indices, want.topk.indices))
+        log(f"streamed check (a): f32 streamed bit-identical to resident fdsq-cuda={check_a}")
+
+        # ---- (b) int8: = streamed_direct_scan, = resident int8 where both certified
+        got8 = results["int8"][0]
+        oracle = streamed_direct_scan(qv, store.shard_source("f32"), k)
+        resident.enable_int8()
+        res8 = resident.search(SearchRequest(queries=q, k=k, tier="int8"))
+        both = got8.certified & res8.certified
+        check_b = (torch.equal(got8.topk.scores, oracle.scores)
+                   and torch.equal(got8.topk.indices, oracle.indices)
+                   and res8.plan.executor == "fqsd-int8-cuda"
+                   and torch.equal(got8.topk.scores[both], res8.topk.scores[both])
+                   and torch.equal(got8.topk.indices[both], res8.topk.indices[both]))
+        share = float(got8.certified.to(torch.float32).mean())
+        log(f"streamed check (b): int8 streamed bit-identical to streamed_direct_scan and to "
+            f"resident fqsd-int8-cuda on {int(both.sum())}/{m} rows certified by both={check_b}; "
+            f"certified share {share:.4f} (resident {float(res8.certified.float().mean()):.4f})")
+        del resident, res8, oracle
+        torch.cuda.empty_cache()
+
+        # ---- (d) speculation triggers reschedule reads, never results
+        spec = {}
+        check_d = True
+        for trigger in cfg["triggers"]:
+            r = eng.search(SearchRequest(queries=q, k=k, tier="int8", spec_trigger=trigger))
+            spec[trigger] = r.stats["speculation"]
+            check_d &= (torch.equal(r.topk.scores, got8.topk.scores)
+                        and torch.equal(r.topk.indices, got8.topk.indices))
+        log(f"streamed check (d): results at spec_trigger {cfg['triggers']} bit-identical="
+            f"{check_d}; speculation {spec}")
+
+        # ---- timings at depth 1 and 2, beside copy-only and compute-only
+        f32_parts = [device_put_partition(p, self.dev) for p in store.shard_source("f32")]
+        int8_parts = [device_put_partition(p, self.dev) for p in store.shard_source("int8")]
+        r_budget = max(1, min(n_shards * shard_rows, eng.rescore_factor * k))
+        step = make_partition_step(k, "l2", "cuda")
+        bound_step = make_int8_bound_step(r_budget, "cuda")
+
+        def compute_f32():
+            state = step.init(m, self.dev)
+            for p in f32_parts:
+                state = step(state, qv, p.vectors, p.norms, p.base_index, p.n_valid)
+            return step.finish(state)
+
+        def compute_int8():
+            lb = torch.full((m, r_budget + 1), torch.inf, device=self.dev)
+            li = torch.full((m, r_budget + 1), -1, dtype=torch.int32, device=self.dev)
+            for p in int8_parts:
+                lb, li = bound_step(lb, li, qv, p.q, p.scales, p.err, p.qnorm, p.base_index)
+            return lb, li
+
+        def copy_only(tier, depth):
+            for _ in DoubleBufferedStream(store.shard_source(tier), depth=depth,
+                                          device=self.dev):
+                pass
+
+        timing = {"card": self.card, "copy_ms_one_shard": copy_ms, "copy_GBps": rate / 1e9,
+                  "host_ram": self.host_ram()}
+        reps = cfg["repeats"]
+        for tier, shipped, compute in (("f32", f32_bytes, compute_f32),
+                                       ("int8", int8_bytes, compute_int8)):
+            compute_ms, _ = self.host_clock_ms(compute, reps)
+            bound_ms = shipped / rate * 1e3
+            per_tier = {"bytes_shipped": shipped, "bound_ms": bound_ms,
+                        "compute_only_ms": compute_ms}
+            # int8: the default trigger at both depths, then no speculation
+            runs = [(depth, None) for depth in cfg["depths"]]
+            if tier == "int8":
+                runs.append((cfg["depths"][-1], 1.0))
+            for depth, trigger in runs:
+                req = SearchRequest(queries=q, k=k, tier=tier, prefetch_depth=depth,
+                                    spec_trigger=trigger)
+                search_ms, all_ms = self.host_clock_ms(lambda: eng.search(req), reps)
+                copy_only_ms, _ = self.host_clock_ms(lambda: copy_only(tier, depth), reps)
+                res = eng.search(req)
+                self.sync()
+                row = {"search_ms": search_ms, "all_ms": [round(t, 3) for t in all_ms],
+                       "copy_only_ms": copy_only_ms, "transfers": res.stats["transfers"],
+                       "GBps": shipped / (search_ms * 1e-3) / 1e9,
+                       "share_of_copy_rate": shipped / (search_ms * 1e-3) / rate,
+                       "overlap": search_ms < copy_only_ms + compute_ms}
+                if tier == "int8":
+                    row.update({key: res.stats[key] for key in ("scan_ms", "gather_ms",
+                                                                "rescore_ms")})
+                label = f"depth{depth}" + ("" if trigger is None else f"_trigger{trigger}")
+                per_tier[label] = row
+                log(f"streamed {tier} {label}: search {search_ms:.3f} ms (median of "
+                    f"{reps}), copy-only {copy_only_ms:.3f} ms, compute-only {compute_ms:.3f} "
+                    f"ms, bound {bound_ms:.3f} ms, {row['GBps']:.3f} GB/s = "
+                    f"{row['share_of_copy_rate']:.3f} of the copy rate, transfers "
+                    f"{row['transfers']} [{self.card}]")
+            if tier == "int8":
+                per_tier["speculation"] = spec
+                per_tier["certified_share"] = share
+            timing[tier] = per_tier
+        overlapped = timing["f32"]["depth2"]["overlap"]
+        log(f"streamed: f32 depth 2 below copy-only + compute-only={overlapped}")
+        log("streamed timings " + json.dumps(timing))
+
+        # ---- (c) each per-shard kernel step against its plain step, and the
+        # kernels' per-launch numbers at the shard shape
+        check_c = self._streamed_kernels(eng, qv, f32_parts, int8_parts, r_budget, results)
+        del f32_parts, int8_parts, eng, store
+        torch.cuda.empty_cache()
+        return ok and check_a and check_b and check_c and check_d
+
+    def _streamed_kernels(self, eng, qv, f32_parts, int8_parts, r, results) -> bool:
+        """One shard's step on the kernels against the plain step (scan plain +
+        knn_merge_plain), with the running queue of the shards before it; the
+        per-launch times and bounds of the three kernels at the shard shape."""
+        torch, K, ops = self.torch, self.K, self.ops
+        cfg = STREAMED
+        m, k, d = cfg["m"], cfg["k"], cfg["d"]
+        shard, prev = f32_parts[1], f32_parts[0]
+        ok = True
+        # f32: the running queue after shard 0, then shard 1
+        call0 = ops.prepare(qv, prev.vectors, k, "l2", prev.norms)
+        bm, bn, _ = call0.blocks
+        v0 = torch.full((m, call0.k_eff), torch.inf, device=self.dev)
+        i0 = torch.full((m, call0.k_eff), -1, dtype=torch.int32, device=self.dev)
+        v, i = ops.knn_shard(v0, i0, qv, prev.vectors, prev.norms, k, "l2", prev.base_index)
+        call = ops.prepare(qv, shard.vectors, k, "l2", shard.norms)
+        qn = torch.sum(call.q * call.q, dim=-1)
+        m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
+        splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        got = ops.knn_shard(v, i, qv, shard.vectors, shard.norms, k, "l2", shard.base_index)
+        pv, pi, _ = K.knn_scan_plain(call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn,
+                                     True, splits)
+        want = ops.merge_shard(v, i, pv[:m], pi[:m], shard.base_index, merge=K.knn_merge_plain)
+        f32_ok = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        sv, si, _ = K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True,
+                               splits)
+        scan_exact = torch.equal(sv, pv) and torch.equal(si, pi)
+        # the queues the step's merge takes: the shard's S, then the running one
+        qv_all = torch.cat([sv[:m], v[:, None]], 1)
+        qi_all = torch.cat([torch.where(torch.isfinite(sv[:m]), si[:m] + shard.base_index, -1),
+                            i[:, None]], 1)
+        mv, mi = K.knn_merge(qv_all, qi_all)
+        pmv, pmi = K.knn_merge_plain(qv_all, qi_all)
+        merge_exact = torch.equal(mv, pmv) and torch.equal(mi, pmi)
+        # int8: the running bound queue after shard 0, then shard 1
+        p8, prev8 = int8_parts[1], int8_parts[0]
+        lb0 = torch.full((m, r + 1), torch.inf, device=self.dev)
+        li0 = torch.full((m, r + 1), -1, dtype=torch.int32, device=self.dev)
+        lb, li = ops.knn_int8_shard(lb0, li0, qv, prev8.q, prev8.scales, prev8.err, prev8.qnorm,
+                                    prev8.base_index, r)
+        got8 = ops.knn_int8_shard(lb, li, qv, p8.q, p8.scales, p8.err, p8.qnorm, p8.base_index, r)
+        args = ops.int8_shard_operands(qv, p8.q, p8.scales, p8.err, p8.qnorm, r)
+        q_len, bm8, bn8 = args[6], args[7], args[8]
+        splits8 = K.int8_scan_config(args[0].shape[0] // bm8, args[5].shape[0] // bn8, bm8,
+                                     self.dev)[0]
+        pv8, pi8, _ = K.knn_int8_scan_plain(*args, True, splits8)
+        wv8, wi8 = ops.merge_shard(lb, li, pv8[:m], pi8[:m], p8.base_index,
+                                   merge=K.knn_merge_plain)
+        int8_ok = torch.equal(got8[0], wv8[:, : r + 1]) and torch.equal(got8[1], wi8[:, : r + 1])
+        sv8, si8, _ = K.knn_int8_scan(*args, True, splits8)
+        scan8_exact = torch.equal(sv8, pv8) and torch.equal(si8, pi8)
+        self.sync()
+        ok = f32_ok and int8_ok and scan_exact and scan8_exact and merge_exact
+        log(f"streamed check (c): f32 shard step bit-identical to its plain step={f32_ok} "
+            f"(scan {scan_exact}, merge {merge_exact}); int8 shard step={int8_ok} "
+            f"(scan {scan8_exact}); S={splits} / {splits8}, q_len={q_len}")
+
+        # per-launch numbers at the shard shape (shard 1: all its rows valid)
+        rows = shard.n_valid
+        lq8 = torch.cat([sv8[:m], lb.new_full((m, 1, q_len), torch.inf)], 1)
+        li8 = torch.cat([torch.where(torch.isfinite(sv8[:m]), si8[:m] + p8.base_index, -1),
+                         li.new_full((m, 1, q_len), -1)], 1)
+        lm8 = K.knn_merge(lq8, li8)
+        numbers = {
+            "knn_scan": (self.ms(lambda: K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff,
+                                                     "l2", bm, bn, True, splits)),
+                         self.ms(lambda: K.knn_scan_plain(call.q, call.x, qn, call.xn,
+                                                          call.k_eff, "l2", bm, bn, True,
+                                                          splits)),
+                         self._library_scan_ms("streamed", qv[:, :d], shard.vectors[:rows, :d],
+                                               k)[0],
+                         "torch.topk(torch.cdist(q, shard)**2)",
+                         self.bound((rows + m) * d * 4 + (rows + m) * 4 + m * k * 8,
+                                    m * rows * (2 * d + L2_EPILOGUE_OPS)),
+                         0.0 if scan_exact else math.inf),
+            "knn_merge": (self.ms(lambda: K.knn_merge(qv_all, qi_all)),
+                          self.ms(lambda: K.knn_merge_plain(qv_all, qi_all)),
+                          self.ms(lambda: torch.topk(qv_all.reshape(m, -1), call.k_eff,
+                                                     largest=False)),
+                          "torch.topk(queues.reshape(m, -1))",
+                          self.bound(*self.merge_work(qv_all, qi_all, mv, mi)),
+                          0.0 if merge_exact else math.inf),
+            "knn_int8_scan": (self.ms(lambda: K.knn_int8_scan(*args, True, splits8)),
+                              self.ms(lambda: K.knn_int8_scan_plain(*args, True, splits8)),
+                              None, None,
+                              self.bound(rows * d + 3 * rows * 4 + m * (d + 1) * 4
+                                         + m * q_len * 8,
+                                         m * rows * (2 * d + INT8_EPILOGUE_OPS)),
+                              0.0 if scan8_exact else math.inf),
+        }
+        int8_merge = (self.ms(lambda: K.knn_merge(lq8, li8)),
+                      self.ms(lambda: K.knn_merge_plain(lq8, li8)),
+                      self.ms(lambda: torch.topk(lq8.reshape(m, -1), q_len, largest=False)),
+                      "torch.topk(queues.reshape(m, -1))",
+                      self.bound(*self.merge_work(lq8, li8, *lm8)), 0.0)
+        for tier, names, merge in (("f32", ("knn_scan", "knn_merge"), numbers["knn_merge"]),
+                                   ("int8", ("knn_int8_scan", "knn_merge"), int8_merge)):
+            launches = results[tier][1]
+            shape = {"shape": f"streamed_gist_{tier}_m{m}_k{k}_one_shard_of_{rows}_rows",
+                     "per": "one launch on one shard", "kernels": {}}
+            for name in names:
+                t, tp, tl, lib, (bb, by), err = merge if name == "knn_merge" else numbers[name]
+                shape["kernels"][name] = {
+                    "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
+                    "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
+                log(f"streamed {tier}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
+                    f"bound_ms={bb:.6f} ({by}) per shard; launches a search={launches[name]} "
+                    f"[{self.card}]")
+            self.shapes.append(shape)
+        return ok
+
+    # --------------------------------------------------- phase 7: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix."""
         torch, K = self.torch, self.K
@@ -919,7 +1271,7 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("exact", "gist", "msmarco", "int8", "kernels")
+PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "kernels")
 
 
 def main(argv=None) -> int:
@@ -967,7 +1319,7 @@ def main(argv=None) -> int:
     except Exception:
         traceback.print_exc()
         failed.append("build")
-    smoke = Smoke(torch, torch.device("cuda")) if not failed else None
+    smoke = Smoke(torch, torch.device("cuda"), " ".join(smi)) if not failed else None
     for name in PHASES if smoke else ():
         if name not in wanted:
             continue

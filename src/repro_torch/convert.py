@@ -14,6 +14,7 @@ import torch
 from repro_torch.core.engine import ExactKNN, resolve_device
 from repro_torch.core.partition import PaddedDataset
 from repro_torch.core.quantized import QuantizedDataset
+from repro_torch.store import DatasetStore
 
 _BACKENDS = {"xla": "torch", "pallas": "cuda"}
 
@@ -47,6 +48,28 @@ def quantized_from_numpy(q, scales, err, norms_sq, qnorm_sq, device=None) -> Qua
         raise ValueError(f"int8 codes expected, got {codes.dtype}")
     return QuantizedDataset(codes, *(_tensor(a, device).to(torch.float32)
                                      for a in (scales, err, norms_sq, qnorm_sq)))
+
+
+def store_from_numpy(jax_store, pin_memory: bool = False) -> DatasetStore:
+    """The port's host-RAM store over a JAX ``DatasetStore``'s per-shard
+    arrays, so both packages stream the identical padded state.
+
+    Reads, per main shard, the f32 vectors and norms (+inf on padding) with
+    their n_valid and base index (``read_shard(i, "f32")``), and, when the
+    store has its int8 tier, the codes, scales, err, norms_sq and qnorm_sq
+    of that shard. The shards stay on the host, page-locked with
+    ``pin_memory=True`` (which needs a CUDA device).
+    """
+    shards = []
+    for i in range(int(jax_store.n_shards)):
+        p = jax_store.read_shard(i, "f32")
+        shards.append(padded_from_numpy(p.vectors, p.norms, p.n_valid, p.base_index,
+                                        device="cpu"))
+    int8 = None
+    if jax_store.has_tier("int8"):
+        int8 = [quantized_from_numpy(*q8, device="cpu") for q8 in jax_store._int8]
+    store = DatasetStore(shards, int8=int8)
+    return store.pin() if pin_memory else store
 
 
 def engine_state_from_jax(jax_engine, device=None) -> ExactKNN:

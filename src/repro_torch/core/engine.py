@@ -1,11 +1,14 @@
 """ExactKNN — thin facade over the store + planner/executor core.
 
     ExactKNN (this module)          facade: owns config + device views only
-        -> store.DatasetStore       the padded resident dataset
+        -> store.DatasetStore       equal padded shards: one resident, or
+                                    many in (pinned) host RAM
         -> planner.plan(...)        PURE: shapes + store meta -> ExecutionPlan
         -> executors.execute(...)   registry: plan -> cached callable
-             fdsq-torch / fqsd-torch / fdsq-cuda       f32 tier
-             fqsd-int8-torch / fqsd-int8-cuda          certified int8 tier
+             fdsq-torch / fqsd-torch / fdsq-cuda       f32 tier, resident
+             fqsd-int8-torch / fqsd-int8-cuda          certified int8 tier, resident
+             fqsd-streamed / fqsd-mmap-streamed        f32 tier, out of core
+             fqsd-int8-streamed / -mmap-streamed       int8 tier, out of core
 
 One engine plays the role of the single physical configuration: FD-SQ and
 FQ-SD are logical configurations over the same building blocks, chosen per
@@ -27,9 +30,14 @@ Usage (request-first API — every option is a per-request fact):
     res = eng.search(SearchRequest(queries=Q, tier="int8"))
     res.certified                            # (m,) bool; every row exact
 
-The port serves resident single-device data. Out-of-core stores,
-mutations and meshes raise ``NotImplementedError`` naming the slice of the
-port that brings them.
+    store = DatasetStore.from_array(x, rows_per_shard=65536, pin_memory=True)
+    eng = ExactKNN(k=10, backend="cuda").fit_store(store, resident=False)
+    res = eng.search(SearchRequest(queries=Q))   # shards stream to the card
+    res.stats["transfers"], res.stats["bytes_scanned"], res.stats["health"]
+
+The port serves single-device data, resident or streamed from host RAM.
+Mutations, mmap stores and meshes raise ``NotImplementedError`` naming the
+slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -66,6 +74,77 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def _keep_rows(mask: torch.Tensor, base_index: int, n_valid: int, n_pad: int) -> torch.Tensor:
+    """Slice a global-id filter mask down to one padded row block: True =
+    row eligible; padding rows stay True (their norms are +inf already).
+    The one place the id-space -> row-block arithmetic lives."""
+    keep = torch.ones(n_pad, dtype=torch.bool, device=mask.device)
+    keep[:n_valid] = mask[base_index: base_index + n_valid]
+    return keep
+
+
+class _MaskedShardSource:
+    """A DatasetStore view with a per-request filter mask folded onto each
+    shard's validity channel as it streams (+inf norm on f32 shards, +inf
+    quantised norm on int8 partitions): the store surface the streamed
+    executors read (``read_shard`` / ``iter_shards`` / ``shard_source`` /
+    ``delta_shards`` / ``gather_rows`` / ``n_shards``). The mask lives on
+    the host beside the shards."""
+
+    def __init__(self, store, mask: torch.Tensor):
+        self._store = store
+        self._mask = mask
+
+    def _fold_f32(self, p: part.PaddedDataset) -> part.PaddedDataset:
+        keep = _keep_rows(self._mask, p.base_index, p.n_valid, int(p.vectors.shape[0]))
+        if bool(keep.all()):
+            return p
+        return p._replace(norms=torch.where(keep, p.norms, torch.inf))
+
+    def _fold_int8(self, p):
+        keep = _keep_rows(self._mask, p.base_index, p.n_valid, int(p.qnorm.shape[0]))
+        if bool(keep.all()):
+            return p
+        return p._replace(qnorm=torch.where(keep, p.qnorm, torch.inf))
+
+    def _fold(self, p):
+        # quarantine can turn an int8 read into an f32 shard: fold by type
+        return self._fold_f32(p) if isinstance(p, part.PaddedDataset) else self._fold_int8(p)
+
+    def iter_shards(self, tier: str = "f32"):
+        for p in self._store.iter_shards(tier):
+            yield self._fold(p)
+
+    def read_shard(self, i: int, tier: str = "f32"):
+        return self._fold(self._store.read_shard(i, tier))
+
+    def shard_source(self, tier: str = "f32"):
+        return _MaskedTierSource(self, tier)
+
+    def delta_shards(self):
+        return [self._fold_f32(p) for p in self._store.delta_shards()]
+
+    def gather_rows(self, ids):
+        # candidates already passed the masked scan (excluded rows carry
+        # +inf bounds and index -1), so no mask re-check is needed here
+        return self._store.gather_rows(ids)
+
+    @property
+    def n_shards(self) -> int:
+        return self._store.n_shards
+
+
+class _MaskedTierSource:
+    """Restartable iterable over one tier of a masked shard source."""
+
+    def __init__(self, source: _MaskedShardSource, tier: str):
+        self._source = source
+        self._tier = tier
+
+    def __iter__(self):
+        return self._source.iter_shards(self._tier)
+
+
 def _normalize_rows(vec: torch.Tensor, dtype) -> torch.Tensor:
     """L2-normalised rows (zero rows stay zero), cast to `dtype`."""
     rn = torch.sqrt(row_norms_sq(vec))[:, None]
@@ -86,10 +165,25 @@ class ExactKNN:
         device=None,
         mesh=None,
         rescore_factor: int | None = None,
+        device_budget_bytes: int | None = None,
+        prefetch_depth: int | None = None,
+        spec_trigger: float | None = None,
+        max_retries: int | None = None,
+        retry_backoff_s: float | None = None,
     ):
         validate_metric(metric)
         if k < 1:
             raise ValueError("k must be >= 1")
+        if prefetch_depth is not None and prefetch_depth < 1:
+            raise ValueError(f"prefetch_depth must be >= 1, got {prefetch_depth}")
+        if max_retries is not None and max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {max_retries}")
+        if retry_backoff_s is not None and retry_backoff_s < 0:
+            raise ValueError(f"retry_backoff_s must be >= 0, got {retry_backoff_s}")
+        if spec_trigger is not None and not (0.0 <= spec_trigger <= 1.0):
+            raise ValueError(
+                "spec_trigger must be a shard fraction in [0, 1] "
+                f"(1 disables speculation), got {spec_trigger}")
         if rescore_factor is not None and rescore_factor < 1:
             raise ValueError(f"rescore_factor must be >= 1, got {rescore_factor}")
         if mesh is not None:
@@ -102,8 +196,24 @@ class ExactKNN:
         self.n_partitions = int(n_partitions)
         self.dtype = dtype
         #: int8 rescore budget: r = next_pow2(rescore_factor·next_pow2(k))
+        #: resident, r = rescore_factor·k streamed (the reference's budgets)
         self.rescore_factor = 4 if rescore_factor is None else int(rescore_factor)
+        #: fit_store(store) keeps a store resident when its f32 bytes fit
+        #: this budget (None = unlimited)
+        self.device_budget_bytes = device_budget_bytes
+        #: streamed-scan double-buffer depth (2 = the paper's two memory
+        #: banks: one shard in flight); a request's own value wins
+        self.prefetch_depth = 2 if prefetch_depth is None else int(prefetch_depth)
+        #: streamed-int8 speculation trigger (shard fraction after which the
+        #: candidate gather starts on a background thread; 1.0 = none);
+        #: None = the executor default
+        self.spec_trigger = spec_trigger
+        #: bounded retry budget for streamed shard reads, candidate gathers
+        #: and transfers (exponential backoff from retry_backoff_s)
+        self.max_retries = 2 if max_retries is None else int(max_retries)
+        self.retry_backoff_s = 0.05 if retry_backoff_s is None else float(retry_backoff_s)
         self._store = None
+        self._resident = True
         # cos + fused backend: the resident view is normalised at fit time,
         # so the kernel skips its own dataset pass per query batch
         self._cos_prenormalized = metric == "cos" and backend == "cuda"
@@ -127,16 +237,27 @@ class ExactKNN:
         store = DatasetStore.from_array(v, row_mult=self._row_mult())
         return self.fit_store(store)
 
-    def fit_store(self, store, resident: bool | None = True) -> "ExactKNN":
-        """Attach a DatasetStore and put its rows on the engine's device."""
-        if resident is False:
-            raise NotImplementedError(
-                "out-of-core (non-resident) stores are ported in the streaming slice")
+    def fit_store(self, store, resident: bool | None = None) -> "ExactKNN":
+        """Attach a DatasetStore. Residency: the explicit `resident` flag,
+        else the store's f32 bytes against ``device_budget_bytes`` (None =
+        unlimited). A resident store's rows go to the engine's device; a
+        non-resident one stays in host memory and every search streams its
+        shards (fqsd-mmap-streamed / fqsd-int8-streamed). On a CUDA device
+        the shards are pinned here, once (a store that cannot be pinned
+        raises): the double buffer overlaps copies only from pinned memory.
+        """
+        if resident is None:
+            budget = self.device_budget_bytes
+            resident = budget is None or store.nbytes("f32") <= budget
         self._store = store
+        self._resident = bool(resident)
+        self._ds = None
         self._int8 = None
-        host = store.resident()
-        self._attach(host.vectors, host.norms, host.n_valid,
-                     prenormalized=False)
+        if self._resident:
+            host = store.resident()
+            self._attach(host.vectors, host.norms, host.n_valid, prenormalized=False)
+        elif self.device.type == "cuda":
+            store.pin()
         return self
 
     def _attach(self, vectors: torch.Tensor, norms: torch.Tensor, n_valid: int,
@@ -161,7 +282,7 @@ class ExactKNN:
 
     @property
     def is_fitted(self) -> bool:
-        return self._ds is not None
+        return self._store is not None or self._ds is not None
 
     @property
     def n(self) -> int:
@@ -173,7 +294,8 @@ class ExactKNN:
             raise RuntimeError("call .fit(dataset) first")
 
     def _padded_dim(self) -> int:
-        return int(self._ds.vectors.shape[1])
+        return (int(self._ds.vectors.shape[1]) if self._ds is not None
+                else self._store.padded_dim)
 
     def _pad_queries(self, q) -> torch.Tensor:
         q = torch.as_tensor(q).to(device=self.device, dtype=self.dtype)
@@ -190,13 +312,19 @@ class ExactKNN:
 
     # ---------------------------------------------------------- int8 tier
     def enable_int8(self) -> "ExactKNN":
-        """Materialise the store's int8 tier (the 1 B/element scan tier) and
-        put it on the engine's device beside the f32 view."""
+        """Materialise the store's int8 tier (the 1 B/element scan tier). A
+        resident engine puts it on its device beside the f32 view; a
+        non-resident one streams the per-shard codes through the
+        fqsd-int8-streamed executor (quantised on the engine's device, kept
+        in host memory beside the f32 shards)."""
         self._require_fit()
         if self._store is None:
             raise RuntimeError("int8 tier requires a DatasetStore-backed fit")
         if self.metric != "l2":
             raise ValueError("int8 tier supports the l2 metric only")
+        if not self._resident:
+            self._store.ensure_tier("int8", device=self.device)
+            return self
         self._store.ensure_tier("int8")
         self._int8 = QuantizedDataset(
             *(t.to(self.device) for t in self._store.int8_resident()))
@@ -204,7 +332,11 @@ class ExactKNN:
 
     @property
     def has_int8(self) -> bool:
-        """The engine can serve tier="int8" (a device int8 view exists)."""
+        """The engine can serve tier="int8": a device int8 view exists, or
+        (out of core) the attached store has the tier for the streamed
+        scan."""
+        if self._store is not None and not self._resident:
+            return self._store.has_tier("int8")
         return self._int8 is not None
 
     @property
@@ -233,7 +365,7 @@ class ExactKNN:
         """Planner-visible storage facts."""
         self._require_fit()
         if self._store is not None:
-            return self._store.meta(device_resident=True, tier=tier)
+            return self._store.meta(device_resident=self._resident, tier=tier)
         rows = int(self._ds.vectors.shape[0])
         return DatasetStoreMeta(padded_rows=rows, padded_dim=self._padded_dim(),
                                 n_valid=int(self._ds.n_valid), tier=tier,
@@ -245,9 +377,16 @@ class ExactKNN:
         return plan_fn((m, self._padded_dim()), self.dataset_meta(tier=tier),
                        self.config(), mode, **kw)
 
-    def _run(self, p: ExecutionPlan, queries: torch.Tensor, dataset) -> TopK:
+    def _run(self, p: ExecutionPlan, queries: torch.Tensor, dataset,
+             prefetch_depth: int | None = None, spec_trigger: float | None = None,
+             max_retries: int | None = None, allow_partial: bool = False) -> TopK:
         self._plans.append(p)
-        ctx = ExecContext(cos_prenormalized=self._cos_prenormalized)
+        ctx = ExecContext(
+            cos_prenormalized=self._cos_prenormalized,
+            prefetch_depth=self.prefetch_depth if prefetch_depth is None else prefetch_depth,
+            spec_trigger=spec_trigger,
+            max_retries=self.max_retries if max_retries is None else int(max_retries),
+            retry_backoff_s=self.retry_backoff_s, allow_partial=bool(allow_partial))
         self._last_ctx = ctx
         return execute(p, queries, dataset, ctx)
 
@@ -270,10 +409,8 @@ class ExactKNN:
         ds = self._ds
         if mask is None:
             return ds
-        keep = torch.ones(ds.vectors.shape[0], dtype=torch.bool, device=self.device)
-        keep[: ds.n_valid] = mask[: ds.n_valid]
-        norms = torch.where(keep, ds.norms, torch.inf)
-        return part.PaddedDataset(ds.vectors, norms, ds.n_valid, ds.base_index)
+        keep = _keep_rows(mask, 0, ds.n_valid, int(ds.vectors.shape[0]))
+        return ds._replace(norms=torch.where(keep, ds.norms, torch.inf))
 
     def _masked_int8(self, mask: torch.Tensor | None) -> QuantizedDataset:
         """Int8 view under the same mask: norms_sq is the int8 executors'
@@ -281,8 +418,7 @@ class ExactKNN:
         q8 = self._int8
         if mask is None:
             return q8
-        keep = torch.ones(q8.norms_sq.shape[0], dtype=torch.bool, device=self.device)
-        keep[: self._ds.n_valid] = mask[: self._ds.n_valid]
+        keep = _keep_rows(mask, 0, self._ds.n_valid, int(q8.norms_sq.shape[0]))
         return q8._replace(norms_sq=torch.where(keep, q8.norms_sq, torch.inf))
 
     def search(self, request: SearchRequest) -> SearchResult:
@@ -321,7 +457,8 @@ class ExactKNN:
 
     def _search_pinned(self, request: SearchRequest, k: int, metric: str,
                        tier: str) -> SearchResult:
-        """The body of :meth:`search` on the resident view."""
+        """The body of :meth:`search`: the resident view, or the streamed
+        shards of a non-resident store."""
         qv = self._pad_queries(request.queries)
         m = int(qv.shape[0])
         mode = request.mode_hint
@@ -331,29 +468,66 @@ class ExactKNN:
             mode = "fdsq" if m <= AUTO_FDSQ_MAX_BATCH else "fqsd"
         mask = request.filter_mask
         if mask is not None:
-            mask = torch.as_tensor(mask).to(device=self.device, dtype=torch.bool).reshape(-1)
+            # streamed shards live on the host: so does their mask
+            mask = torch.as_tensor(mask).to(
+                device=self.device if self._resident else "cpu", dtype=torch.bool).reshape(-1)
             if mask.shape[0] != self.n_ids:
                 raise ValueError(
                     "filter_mask must cover the engine's global id space "
                     f"({self.n_ids} rows), got {mask.shape[0]}")
         t0 = time.perf_counter()
-        p = plan_fn((m, self._padded_dim()), self.dataset_meta(tier=tier),
-                    self.config(), mode, k=k, metric=metric)
-        dataset = self._masked_resident(mask)
-        if p.tier == "int8":
-            dataset = TieredResident(dataset, self._masked_int8(mask))
-        out = self._run(p, qv, dataset)
+        if not self._resident:
+            # tier="int8" survives planning here: the out-of-core scan
+            # streams 1 B/element codes and rescores candidate rows only
+            p = plan_fn(qv.shape, self.dataset_meta(tier=tier), self.config(),
+                        "fqsd-streamed", stream_rows=self._store.rows_per_shard,
+                        k=k, metric=metric)
+            source = self._store if mask is None else _MaskedShardSource(self._store, mask)
+            # pipeline knobs: the request's value, else the engine's (the
+            # executor resolves a None trigger against its default)
+            out = self._run(
+                p, qv, source, prefetch_depth=request.prefetch_depth,
+                spec_trigger=(request.spec_trigger if request.spec_trigger is not None
+                              else self.spec_trigger),
+                max_retries=request.max_retries, allow_partial=request.allow_partial)
+        else:
+            p = plan_fn((m, self._padded_dim()), self.dataset_meta(tier=tier),
+                        self.config(), mode, k=k, metric=metric)
+            dataset = self._masked_resident(mask)
+            if p.tier == "int8":
+                dataset = TieredResident(dataset, self._masked_int8(mask))
+            out = self._run(p, qv, dataset, max_retries=request.max_retries,
+                            allow_partial=request.allow_partial)
         dispatch_ms = (time.perf_counter() - t0) * 1e3
         ctx = self._last_ctx
+        elem = 4 if self._ds is None else self._ds.vectors.element_size()
         stats = {
             "k": k, "metric": metric, "m": m, "batched": m,
-            "bytes_scanned": p.padded_rows * p.padded_dim * (
-                1 if p.tier == "int8" else self._ds.vectors.element_size()),
+            # streamed int8 reports its own traffic (codes + side channels +
+            # candidate-row reads); plans predict the rest
+            "bytes_scanned": (ctx.bytes_scanned if ctx.bytes_scanned is not None
+                              else p.padded_rows * p.padded_dim
+                              * (1 if p.tier == "int8" else elem)),
             "dispatch_ms": dispatch_ms,
-            "health": {"retries": 0, "failed_shards": [], "degraded": [],
-                       "slow_shards": [], "shed": False},
-            "partial": False,
         }
+        if ctx.stream_stats is not None:
+            stats["transfers"] = ctx.stream_stats.get("transfers", 0)
+            stats["restarts"] = ctx.stream_stats.get("restarts", 0)
+        if ctx.phase_ms is not None:
+            stats.update(ctx.phase_ms)
+        if ctx.speculation is not None:
+            stats["speculation"] = dict(ctx.speculation)
+        # health is always present; shard lists are dedup'd and sorted
+        h = ctx.health or {}
+        stats["health"] = {
+            "retries": int(h.get("retries", 0)),
+            "failed_shards": sorted(set(h.get("failed_shards", ()))),
+            "degraded": sorted(set(h.get("degraded", ()))),
+            "slow_shards": sorted(set(h.get("slow_shards", ()))),
+            "shed": False,
+        }
+        # partial is loud: only an allow_partial=True request can see it
+        stats["partial"] = bool(stats["health"]["failed_shards"])
         if request.deadline_ms is not None:
             stats["deadline_ms"] = request.deadline_ms
         return SearchResult(topk=out, plan=p, tier=p.tier,
@@ -369,6 +543,31 @@ class ExactKNN:
             DeprecationWarning, stacklevel=2)
         return self.search(SearchRequest(queries=queries, tier="int8",
                                          mode_hint="fqsd")).topk
+
+    def search_streamed(self, queries, host_vectors, rows_per_partition: int = 65536,
+                        prefetch_depth: int = 2) -> TopK:
+        """FQ-SD over host vectors too large for the device (fig. 1), through
+        the fqsd-streamed executor over :func:`partition.iter_partitions`.
+
+        Deprecated: attach a non-resident store instead —
+        ``fit_store(DatasetStore.from_array(x, rows_per_shard=...),
+        resident=False)`` then ``search(SearchRequest(queries=Q))``.
+        """
+        warnings.warn(
+            "ExactKNN.search_streamed() is deprecated; attach a non-resident "
+            "DatasetStore (fit_store(..., resident=False)) and call "
+            "search(SearchRequest(queries=Q))", DeprecationWarning, stacklevel=2)
+        q = torch.as_tensor(queries).to(device=self.device, dtype=self.dtype)
+        if q.ndim == 1:
+            q = q[None, :]
+        d_pad = part.round_up(host_vectors.shape[1], part.LANE)
+        q = part.pad_dim(q, d_pad)
+        rows = part.round_up(rows_per_partition, part.LANE)
+        meta = DatasetMeta(padded_rows=int(host_vectors.shape[0]), padded_dim=d_pad,
+                           n_valid=int(host_vectors.shape[0]), resident=False)
+        p = plan_fn(q.shape, meta, self.config(), "fqsd-streamed", stream_rows=rows)
+        return self._run(p, q, part.iter_partitions(host_vectors, rows),
+                         prefetch_depth=prefetch_depth)
 
 
 __all__ = ["ExactKNN", "ExecutionPlan", "SearchRequest", "SearchResult",

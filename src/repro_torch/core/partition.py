@@ -13,8 +13,9 @@ generated on the card is padded there, with no host copy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.distance import row_norms_sq
@@ -85,3 +86,24 @@ def make_padded(
     norms = row_norms_sq(v)
     norms[n:] = torch.inf
     return PaddedDataset(v, norms, n, base_index)
+
+
+def iter_partitions(vectors, rows_per_part: int, row_mult: int = LANE,
+                    dim_mult: int = LANE) -> Iterator[PaddedDataset]:
+    """Host-side generator of equal padded partitions (paper arrow 3).
+
+    Every partition has the same padded shape, the last one included, so a
+    streamed scan sees one shape throughout. ``vectors`` is a numpy array
+    or a tensor; each partition lies on its device.
+    """
+    v = vectors if isinstance(vectors, torch.Tensor) else torch.from_numpy(
+        np.asarray(vectors, dtype=np.float32))
+    n = v.shape[0]
+    rows_per_part = round_up(rows_per_part, row_mult)
+    for start in range(0, n, rows_per_part):
+        chunk = pad_rows(v[start: start + rows_per_part].to(torch.float32), rows_per_part)
+        p = make_padded(chunk, base_index=start, row_mult=row_mult, dim_mult=dim_mult)
+        # validity follows the true rows of the last, short chunk
+        n_valid = min(rows_per_part, n - start)
+        p.norms[n_valid:] = torch.inf
+        yield PaddedDataset(p.vectors, p.norms, n_valid, start)

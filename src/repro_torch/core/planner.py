@@ -22,12 +22,15 @@ Names, against the JAX package this port mirrors:
     executor "fqsd-int8-torch"  <->  "fqsd-int8"
     executor "fqsd-int8-cuda"   <->  "fqsd-int8-pallas"
 
-This port plans resident single-device search over the f32 tier and the
-certified int8 tier. Streamed and sharded plans raise
-``NotImplementedError`` naming the slice of the port that brings them.
-Block fields stay 0 (the kernel's ``DEFAULT_BLOCKS``): per-device autotuned
-blocks come with the tuning slice, and no capability verdict ever swaps the
-kernel for a plain path.
+The streamed executors keep the reference's names ("fqsd-streamed",
+"fqsd-mmap-streamed", "fqsd-int8-streamed", "fqsd-int8-mmap-streamed");
+their per-shard steps run on the plan's backend. This port plans resident
+and streamed single-device search over the f32 tier and the certified int8
+tier. Sharded plans raise ``NotImplementedError`` naming the slice of the
+port that brings them. Block fields stay 0 (the kernel's
+``DEFAULT_BLOCKS``) and the pipeline knobs unset (0 / -1.0): per-device
+autotuned values come with the tuning slice, and no capability verdict ever
+swaps the kernel for a plain path.
 """
 from __future__ import annotations
 
@@ -38,8 +41,14 @@ Backend = Literal["torch", "cuda"]
 ModeHint = Literal["fdsq", "fqsd", "fqsd-streamed"]
 
 #: Executors the planner may select (must match the executor registry).
-PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda", "fqsd-int8-torch",
-                       "fqsd-int8-cuda")
+PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda", "fqsd-streamed",
+                       "fqsd-mmap-streamed", "fqsd-int8-torch", "fqsd-int8-cuda",
+                       "fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
+
+#: Streamed executors whose pipeline knobs (prefetch depth, speculation
+#: trigger) the tuning slice's autotuner will override; until then their
+#: plans carry the unset values and the engine's defaults apply.
+PIPELINE_TUNABLE_EXECUTORS = ("fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
 
 BACKENDS = ("torch", "cuda")
 
@@ -154,6 +163,7 @@ def plan(
     dataset_meta: DatasetMeta,
     engine_cfg: EngineConfig,
     mode: ModeHint = "fdsq",
+    stream_rows: int | None = None,
     k: int | None = None,
     metric: str | None = None,
     **unknown,
@@ -164,6 +174,13 @@ def plan(
     they ride ``ExecutionPlan.cache_key()``. Unknown keyword arguments are
     rejected loudly.
 
+    * non-resident dataset -> the streamed executors: "fqsd-mmap-streamed"
+      when the meta is a DatasetStoreMeta (store shards, host RAM or mmap
+      files), "fqsd-streamed" over a bare iterable of partitions otherwise.
+      A store-backed non-resident plan with tier="int8" (l2 only) keeps the
+      quantised tier: "fqsd-int8-mmap-streamed" for mmap shards,
+      "fqsd-int8-streamed" for host-RAM shards. chunk_rows is the shard
+      (``stream_rows``, else the store's rows per shard);
     * tier="int8", mode="fqsd", l2 -> "fqsd-int8-cuda" (backend "cuda",
       the int8 scan kernel) or "fqsd-int8-torch"; chunk_rows, a divisor of
       the padded rows, is the geometry of the exact fallback scan;
@@ -198,27 +215,39 @@ def plan(
     rows = int(dataset_meta.padded_rows)
     chunk = int(cfg.chunk_rows)
     n_parts = int(cfg.n_partitions)
-    tier = dataset_meta.tier if isinstance(dataset_meta, DatasetStoreMeta) else "f32"
+    store_backed = isinstance(dataset_meta, DatasetStoreMeta)
+    tier = dataset_meta.tier if store_backed else "f32"
 
-    if mode == "fqsd-streamed" or not dataset_meta.resident:
-        raise NotImplementedError(
-            "out-of-core streamed search is ported in the streaming slice")
     if cfg.sharded or dataset_meta.sharded:
         raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
-    # the int8 tier serves l2 FQ-SD only; every other plan reads f32
-    tier = "int8" if tier == "int8" and mode == "fqsd" and metric == "l2" else "f32"
-    if tier == "int8":
+    if mode == "fqsd-streamed" or not dataset_meta.resident:
+        if store_backed and tier == "int8" and metric == "l2":
+            # the paper's throughput deployment: out-of-core scan at
+            # 1 B/element with certified rescore reads of candidate rows
+            executor = ("fqsd-int8-mmap-streamed" if dataset_meta.mmap
+                        else "fqsd-int8-streamed")
+            mode = "fqsd-int8-streamed"
+        else:
+            executor = "fqsd-mmap-streamed" if store_backed else "fqsd-streamed"
+            mode = "fqsd-streamed"
+            tier = "f32"  # exact base tier (int8 needs a store + l2)
+        if stream_rows is not None:
+            chunk = int(stream_rows)
+        elif store_backed and dataset_meta.rows_per_shard:
+            chunk = int(dataset_meta.rows_per_shard)
+    # the int8 tier serves l2 FQ-SD only; every other resident plan reads f32
+    elif tier == "int8" and mode == "fqsd" and metric == "l2":
         executor = "fqsd-int8-cuda" if cfg.backend == "cuda" else "fqsd-int8-torch"
         mode = "fqsd-int8"
         # chunking doubles as the f32 fallback geometry for uncertified rows
         chunk = largest_divisor_at_most(rows, max(1, chunk))
     elif cfg.backend == "cuda":
-        executor = "fdsq-cuda"
+        executor, tier = "fdsq-cuda", "f32"
     elif mode == "fdsq":
-        executor = "fdsq-torch"
+        executor, tier = "fdsq-torch", "f32"
         n_parts = largest_divisor_at_most(rows, max(1, n_parts))
     else:
-        executor = "fqsd-torch"
+        executor, tier = "fqsd-torch", "f32"
         chunk = largest_divisor_at_most(rows, max(1, chunk))
 
     return ExecutionPlan(

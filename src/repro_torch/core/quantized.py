@@ -44,7 +44,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.distance import direct_l2_sq
-from repro_torch.core.topk import TopK, topk_smallest
+from repro_torch.core.topk import TopK, sort_pairs, topk_smallest
 
 #: Rows quantised per pass: the f32 temporaries of one pass stay a few
 #: hundred MB whatever the dataset's size.
@@ -61,6 +61,30 @@ class QuantizedDataset(NamedTuple):
     qnorm_sq: torch.Tensor  # (N,) f32 — EXACT quantised norm ||x_hat||^2 =
     #                         s_x^2 * ||q_x||^2 (not derived from norms_sq,
     #                         or the bounds lose soundness — see above).
+
+
+class Int8Partition(NamedTuple):
+    """One streamed shard of the int8 tier: the multi-array partition the
+    double buffer ships in one slot (1 B/element codes plus 12 B/row of f32
+    side channels instead of 4 B/element f32 rows).
+
+    ``qnorm`` is the exact quantised norm ``||x_hat||^2`` with validity
+    folded in: +inf on padding and filter-masked rows, so the scan step
+    needs one channel. ``n_valid``/``base_index`` stay host scalars.
+    """
+
+    q: torch.Tensor  # (padded_rows, padded_dim) int8 codes
+    scales: torch.Tensor  # (padded_rows,) f32
+    err: torch.Tensor  # (padded_rows,) f32 — certified ||e_x|| upper bound
+    qnorm: torch.Tensor  # (padded_rows,) f32 — exact ||x_hat||^2; +inf invalid
+    n_valid: int
+    base_index: int
+
+    def scan_bytes(self) -> int:
+        """Bytes one streamed pass moves for this shard: int8 codes plus
+        the three per-row f32 channels (scales, err, qnorm)."""
+        rows = int(self.q.shape[0])
+        return rows * int(self.q.shape[1]) + 12 * rows
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -128,6 +152,41 @@ def int8_lower_bounds(queries, codes, scales, err, qnorm, base: int = 0):
     idx = torch.where(valid, base + torch.arange(n, dtype=torch.int32, device=codes.device),
                       -1).to(torch.int32)
     return lower, idx
+
+
+def make_int8_bound_step(r: int, backend: str = "torch"):
+    """The step of the streamed int8 scan: insert one int8 shard's certified
+    lower bounds into the running (m, r+1) candidate queue.
+
+    The queue is one entry wider than the rescore budget ``r`` so the
+    epilogue can read the smallest lower bound OUTSIDE the candidates
+    (entry r) for the certificate. Invalid rows (+inf ``qnorm``) carry
+    index -1. With ``backend="cuda"`` the step is the int8 scan kernel
+    and one ``knn_merge`` (``kernels.knn.ops.knn_int8_shard``; their plain
+    versions on a CPU tensor); otherwise plain ops. Both keep the queue in
+    lexicographic (bound, index) order, so among equal bounds at the queue's
+    boundary the smaller index stays (the reference's ``lax.top_k`` keeps
+    either): the bound values, and so the certificate, are the same.
+
+    Returns fn(lb, li, queries, codes, scales, err, qnorm, base) -> (lb, li).
+    """
+    if r < 1:
+        raise ValueError(f"rescore budget r must be >= 1, got {r}")
+    if backend == "cuda":
+        from repro_torch.kernels.knn.ops import knn_int8_shard
+
+        def kernel_step(lb, li, queries, codes, scales, err, qnorm, base):
+            return knn_int8_shard(lb, li, queries, codes, scales, err, qnorm, int(base), r)
+
+        return kernel_step
+
+    def step(lb, li, queries, codes, scales, err, qnorm, base):
+        lower, idx = int8_lower_bounds(queries, codes, scales, err, qnorm, int(base))
+        s_loc, i_loc = topk_smallest(lower, idx.expand(lower.shape), r + 1)
+        s, i = sort_pairs(torch.cat([lb, s_loc], -1), torch.cat([li, i_loc], -1))
+        return s[:, : r + 1], i[:, : r + 1]
+
+    return step
 
 
 def knn_quantized(queries: torch.Tensor, ds: QuantizedDataset, full_vectors: torch.Tensor,

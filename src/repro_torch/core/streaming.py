@@ -1,0 +1,414 @@
+"""Host->device double-buffered dataset streaming (paper section 3.3).
+
+The paper keeps the PCIe link busy by writing partition i+1 into one FPGA
+memory bank while the FPGA computes on partition i from the other. On the
+card the two banks are literal: :class:`DoubleBufferedStream` allocates
+``depth`` device slots per partition layout (one tensor per array field:
+vectors + norms for an f32 shard; codes + scales + err + qnorm for an
+:class:`~repro_torch.core.quantized.Int8Partition`) and cycles through
+them. For each slot:
+
+1. the copy of stream position i goes into slot ``i % depth`` on a
+   dedicated copy stream, after waiting on that slot's "consumer done"
+   event (so it never overwrites a shard the scan still reads);
+2. "copy done" is recorded on the copy stream;
+3. the compute stream waits on "copy done" before the consumer's step;
+4. "consumer done" is recorded after the step.
+
+``depth=2`` keeps one partition in flight while the consumer computes on
+the other (two banks); ``depth=1`` copies and computes in turn. The slots
+belong to the stream for its lifetime, so the caching allocator never hands
+one back while a copy into it is pending. The copies overlap compute only
+from pinned host memory: a copy from pageable memory is synchronous, which
+is why the engine pins a non-resident store once at ``fit_store``.
+
+On the CPU (``device="cpu"``) a partition is handed over as it is: the
+structure (order, transfer counts, retries, restarts) is the same.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, Iterable, Iterator, TypeVar
+
+import numpy as np
+import torch
+
+T = TypeVar("T")
+
+
+def _fresh_health() -> dict:
+    """One search's resilience accounting (the engine surfaces it as
+    ``stats["health"]``): failed attempts retried, shards quarantined to
+    the f32 tier, shards skipped under ``allow_partial``, straggler reads.
+    """
+    return {"retries": 0, "degraded": [], "failed_shards": [],
+            "slow_shards": []}
+
+
+def _is_array(v) -> bool:
+    return isinstance(v, (torch.Tensor, np.ndarray))
+
+
+def _as_tensor(v) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+
+
+def _array_fields(p) -> dict:
+    """The array fields of a NamedTuple partition, by name (host scalars
+    such as n_valid and base_index are left out)."""
+    return {name: v for name, v in zip(type(p)._fields, p) if _is_array(v)}
+
+
+def device_put_partition(p, device=None):
+    """Every array field of a partition record on `device`, host scalar
+    metadata (n_valid, base_index) untouched; a bare array is moved as it
+    is. ``device=None`` means CUDA, which must exist. Works for any
+    NamedTuple partition: ``PaddedDataset`` and the int8 tier's multi-array
+    ``Int8Partition`` alike."""
+    from repro_torch.core.engine import resolve_device
+
+    dev = resolve_device(device)
+    if not isinstance(p, tuple) or not hasattr(p, "_fields"):
+        return _as_tensor(p).to(dev) if _is_array(p) else p
+    arrays = _array_fields(p)
+    if not arrays:
+        return p
+    return p._replace(**{name: _as_tensor(v).to(dev) for name, v in arrays.items()})
+
+
+class _Banks:
+    """``depth`` device slots for one partition layout, with their events."""
+
+    def __init__(self, template: dict, depth: int, device: torch.device):
+        compute = torch.cuda.current_stream(device)
+        self.slots = [{name: torch.empty(tuple(v.shape), dtype=_as_tensor(v).dtype,
+                                         device=device)
+                       for name, v in template.items()} for _ in range(depth)]
+        self.ready = [torch.cuda.Event() for _ in range(depth)]
+        # the slots' memory may have served tensors the compute stream still
+        # reads: the first copy into each waits on the compute stream
+        allocated = torch.cuda.Event()
+        allocated.record(compute)
+        self.consumed = [allocated] * depth
+        self.next = 0
+
+
+class DoubleBufferedStream:
+    """Iterate device-resident partitions while ``depth - 1`` more are in
+    flight (``depth`` slots, see the module docstring).
+
+    ``put_fn`` replaces the slot copy by the caller's own transfer (it gets
+    the host item and returns the item to yield). ``device=None`` means
+    CUDA, which must exist; on ``device="cpu"`` items pass unchanged (numpy
+    arrays become tensors).
+
+    Re-iteration: if the source is a restartable iterable (a list, a
+    DatasetStore's ``shard_source``, anything whose ``iter()`` opens a fresh
+    pass), every ``iter(stream)`` starts a new scan. A one-shot source (a
+    bare generator) supports exactly one pass: a second ``iter()`` raises
+    instead of silently yielding nothing.
+
+    A failed put is retried ``put_retries`` times with exponential backoff
+    from ``retry_backoff_s``; every failed attempt counts into
+    ``health["retries"]``, and the last failure escapes tagged with its
+    stream position (``err.shard_index``). ``transfers`` counts partitions
+    delivered to the consumer, ``restarts`` completed re-iterations.
+    """
+
+    def __init__(
+        self,
+        host_iter: Iterable[T],
+        depth: int = 2,
+        put_fn: Callable[[T], T] | None = None,
+        put_retries: int = 0,
+        retry_backoff_s: float = 0.05,
+        health: dict | None = None,
+        device=None,
+    ):
+        from repro_torch.core.engine import resolve_device
+
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self._device = resolve_device(device)
+        self._source = host_iter
+        self._it = iter(host_iter)
+        self._depth = depth
+        self._put_fn = put_fn
+        self._put_retries = max(0, int(put_retries))
+        self._retry_backoff_s = max(0.0, float(retry_backoff_s))
+        self._health = health
+        self._buf: collections.deque = collections.deque()
+        self._banks: dict = {}
+        self._copy_stream = None
+        self._started = False
+        self._next_i = 0  # stream position of the next item the source yields
+        self.transfers = 0  # observability: number of partitions delivered
+        self.restarts = 0  # observability: completed re-iterations
+
+    @staticmethod
+    def _tag(err: BaseException, index: int) -> None:
+        # failure forensics: which stream position died
+        try:
+            err.shard_index = index
+        except Exception:
+            pass
+
+    def _put(self, item):
+        """Issue the transfer of one host item; returns (device item, slot)
+        where slot is (banks, i) for a slot copy, else None."""
+        if self._put_fn is not None:
+            return self._put_fn(item), None
+        if self._device.type != "cuda":
+            return device_put_partition(item, self._device), None
+        named = isinstance(item, tuple) and hasattr(item, "_fields")
+        arrays = _array_fields(item) if named else {"": item}
+        if not arrays:
+            return item, None
+        key = (type(item),) + tuple((name, tuple(v.shape), str(v.dtype))
+                                    for name, v in arrays.items())
+        banks = self._banks.get(key)
+        if banks is None:
+            banks = self._banks[key] = _Banks(arrays, self._depth, self._device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self._device)
+        i = banks.next
+        banks.next = (i + 1) % self._depth
+        slot = banks.slots[i]
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(banks.consumed[i])
+            for name, v in arrays.items():
+                slot[name].copy_(_as_tensor(v), non_blocking=True)
+            banks.ready[i].record(self._copy_stream)
+        out = item._replace(**slot) if named else slot[""]
+        return out, (banks, i)
+
+    def _fill(self) -> None:
+        while len(self._buf) < self._depth:
+            try:
+                item = next(self._it)
+            except StopIteration:
+                return
+            except BaseException as e:
+                self._tag(e, self._next_i)
+                raise
+            idx = self._next_i
+            self._next_i += 1
+            delay = self._retry_backoff_s
+            for attempt in range(self._put_retries + 1):
+                try:
+                    self._buf.append(self._put(item))
+                    break
+                except Exception as e:
+                    if self._health is not None:
+                        self._health["retries"] = self._health.get("retries", 0) + 1
+                    if attempt == self._put_retries:
+                        self._tag(e, idx)
+                        raise
+                    if delay > 0:
+                        time.sleep(delay)
+                        delay *= 2
+
+    def __iter__(self) -> Iterator[T]:
+        if self._started:
+            fresh = iter(self._source)
+            if fresh is self._source:
+                raise RuntimeError(
+                    "DoubleBufferedStream source is a one-shot iterator that "
+                    "was already consumed; a second pass would silently "
+                    "yield nothing. Pass a restartable iterable (list, "
+                    "a store's shard_source, or a callable-backed source) "
+                    "to re-iterate.")
+            self._it = fresh
+            self._buf.clear()
+            self._next_i = 0
+            self.restarts += 1
+        self._started = True
+        compute = (torch.cuda.current_stream(self._device)
+                   if self._device.type == "cuda" else None)
+        try:
+            self._fill()
+            while self._buf:
+                item, slot = self._buf.popleft()
+                if slot is not None:
+                    banks, i = slot
+                    compute.wait_event(banks.ready[i])
+                self.transfers += 1  # count on delivery, not on (maybe lost) ship
+                yield item
+                if slot is not None:
+                    done = torch.cuda.Event()
+                    done.record(compute)
+                    banks.consumed[i] = done
+                self._fill()  # the freed bank takes the next partition
+        finally:
+            if self._copy_stream is not None:
+                # copies still in flight finish before the compute stream
+                # (and the allocator, in its order) moves on
+                compute.wait_stream(self._copy_stream)
+
+
+def prefetch_to_device(host_iter: Iterable[T], depth: int = 2, put_fn=None, device=None):
+    """Functional alias used by the data pipelines."""
+    return iter(DoubleBufferedStream(host_iter, depth=depth, put_fn=put_fn, device=device))
+
+
+class ResilientShardSource:
+    """Restartable shard iterable with bounded retry, quarantine, and
+    straggler accounting — the self-healing front of every streamed scan.
+
+    Wraps anything with the store surface (``read_shard(i, tier)``,
+    ``n_shards``, ``delta_shards()`` — ``DatasetStore`` or the engine's
+    masked view) and yields its shards in order:
+
+    * a failed read is retried up to ``max_retries`` times with exponential
+      backoff starting at ``backoff_s``; every failed attempt counts into
+      ``health["retries"]``;
+    * an int8 shard that stays unreadable is **quarantined with certified
+      degradation**: its f32 rows are read (same retry budget) and yielded
+      instead — exact distances are valid lower bounds, so the streamed
+      int8 certificate stays sound and results stay bit-identical to the
+      f32 oracle; the shard id lands in ``health["degraded"]``;
+    * a shard unrecoverable on every tier raises unless the request opted
+      in with ``allow_partial=True``, in which case it is skipped and
+      listed in ``health["failed_shards"]`` (the engine flags the result
+      ``partial``) — never a silent wrong top-k;
+    * reads slower than ``straggler_factor ×`` the EWMA of recent read
+      times are recorded in ``health["slow_shards"]``.
+
+    The f32 pass also yields the store's delta shards; the int8 pass covers
+    main shards only.
+    """
+
+    def __init__(self, store, tier: str, max_retries: int = 2,
+                 backoff_s: float = 0.05, allow_partial: bool = False,
+                 health: dict | None = None, straggler_factor: float = 4.0):
+        self._store = store
+        self._tier = tier
+        self._retries = max(0, int(max_retries))
+        self._backoff_s = max(0.0, float(backoff_s))
+        self._allow_partial = bool(allow_partial)
+        self._straggler_factor = float(straggler_factor)
+        self._mean_read_s: float | None = None  # EWMA of shard read times
+        self.health = health if health is not None else _fresh_health()
+
+    def _note_read_time(self, i: int, dt: float) -> None:
+        mean = self._mean_read_s
+        if mean is None:
+            self._mean_read_s = dt
+            return
+        if mean > 1e-6 and dt > self._straggler_factor * mean:
+            self.health["slow_shards"].append(i)
+        self._mean_read_s = 0.8 * mean + 0.2 * dt
+
+    def _read(self, i: int, tier: str):
+        delay = self._backoff_s
+        for attempt in range(self._retries + 1):
+            try:
+                t0 = time.perf_counter()
+                p = self._store.read_shard(i, tier)
+                self._note_read_time(i, time.perf_counter() - t0)
+                return p
+            except Exception as e:
+                self.health["retries"] += 1
+                if attempt == self._retries:
+                    try:
+                        e.shard_index = i
+                    except Exception:
+                        pass
+                    raise
+                if delay > 0:
+                    time.sleep(delay)
+                    delay *= 2
+
+    def __iter__(self):
+        for i in range(int(self._store.n_shards)):
+            try:
+                p = self._read(i, self._tier)
+            except Exception:
+                p = None
+                if self._tier == "int8":
+                    try:
+                        p = self._read(i, "f32")
+                    except Exception:
+                        p = None
+                    else:
+                        if i not in self.health["degraded"]:
+                            self.health["degraded"].append(i)
+                if p is None:
+                    if not self._allow_partial:
+                        raise
+                    if i not in self.health["failed_shards"]:
+                        self.health["failed_shards"].append(i)
+                    continue
+            yield p
+        if self._tier == "f32":
+            yield from self._store.delta_shards()
+
+
+class SpeculativeGather:
+    """Background speculative gather of candidate rows.
+
+    The double buffer pointed the other way: while the card drains the
+    remaining shards of a streamed int8 scan, a thread resolves a snapshot
+    of the candidate queue to host ids, dedups them and reads their f32 rows
+    through ``store.gather_rows`` (host reads, safe beside the scan's own
+    shard reads). The consumer joins at rescore time and tops up only ids
+    the final queue added after the snapshot.
+
+    The snapshot is a clone taken on the compute stream, with an event
+    recorded after it; the thread waits on that event and copies the clone
+    to the host on a stream of its own, so it neither reads a queue still
+    being written nor queues behind the rest of the scan.
+
+    The speculation is advisory by construction: the exact rescore always
+    runs on the final queue's ids, with speculated rows keyed by id — a
+    wrong guess costs wasted bytes (reported, charged to bytes_scanned),
+    never a wrong result. A failed speculation is advisory too:
+    ``result()`` returns ``None`` (the error is kept on ``.error``) and the
+    executor degrades to the synchronous gather it would have run anyway.
+    """
+
+    def __init__(self, candidate_ids: torch.Tensor, store):
+        self._snapshot = candidate_ids.clone()
+        self._ready = None
+        if self._snapshot.is_cuda:
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(self._snapshot.device))
+        self._store = store
+        self.ids: torch.Tensor | None = None  # sorted unique snapshot ids (int64)
+        self.rows: torch.Tensor | None = None  # f32 rows, aligned with ids
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="speculative-gather")
+        self._thread.start()
+
+    def _host_snapshot(self) -> torch.Tensor:
+        if self._ready is None:
+            return self._snapshot
+        self._ready.synchronize()
+        side = torch.cuda.Stream(self._snapshot.device)
+        with torch.cuda.stream(side):
+            host = self._snapshot.to("cpu")
+        return host
+
+    def _run(self) -> None:
+        try:
+            ids = torch.unique(self._host_snapshot().to(torch.int64))  # sorted
+            self.rows = self._store.gather_rows(ids)
+            self.ids = ids
+        except Exception as e:  # surfaced to the consumer on result()
+            self.error = e
+
+    def result(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """Join the thread; (sorted unique ids, their f32 rows), or ``None``
+        if the background gather failed (``.error`` holds the exception)."""
+        self._thread.join()
+        if self.error is not None:
+            return None
+        assert self.ids is not None and self.rows is not None
+        return self.ids, self.rows
+
+
+__all__ = ["DoubleBufferedStream", "ResilientShardSource", "SpeculativeGather",
+           "device_put_partition", "prefetch_to_device"]

@@ -32,6 +32,9 @@ from repro_torch.kernels.knn.kernel import (
     int8_max_block_m,
     knn_fused,
     knn_int8_fused,
+    knn_int8_scan,
+    knn_merge,
+    knn_scan,
     max_block_m,
 )
 
@@ -150,13 +153,18 @@ def prepare(
                       metric == "cos")
 
 
-def finish(call: KernelCall, v: torch.Tensor, i: torch.Tensor) -> TopK:
-    """Slice a kernel result back to (m, k); cos scores get their +1 and
+def finish_queue(v: torch.Tensor, i: torch.Tensor, k: int, cos: bool) -> TopK:
+    """A kernel queue as the (rows, k) result: cos scores get their +1 and
     every +inf score carries index -1."""
-    v, i = v[: call.m, : call.k], i[: call.m, : call.k]
-    if call.cos:
+    v, i = v[:, :k], i[:, :k]
+    if cos:
         v = v + 1.0  # -<q_hat, x_hat> -> cosine distance (+inf stays +inf)
     return TopK(v, torch.where(torch.isfinite(v), i, -1))
+
+
+def finish(call: KernelCall, v: torch.Tensor, i: torch.Tensor) -> TopK:
+    """Slice a kernel result back to (m, k) (:func:`finish_queue`)."""
+    return finish_queue(v[: call.m], i[: call.m], call.k, call.cos)
 
 
 def knn(
@@ -307,6 +315,71 @@ def knn_int8(
     if not return_stats:
         return out, cert
     return out, cert, skips.sum().to(torch.float32) / call.merges
+
+
+# --------------------------------------------------------- streamed shards
+def merge_shard(v: torch.Tensor, i: torch.Tensor, sv: torch.Tensor, si: torch.Tensor,
+                base_index: int, merge=knn_merge) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold one shard's per-split sorted queues (m, S, w), indices local to
+    the shard, into the running sorted (m, w0) queue (v, i), w0 <= w, with
+    one :func:`knn_merge` (``merge``; ``knn_merge_plain`` gives the plain
+    step): the indices move by ``base_index`` (an empty +inf slot keeps -1)
+    and the running queue, padded with (+inf, -1) to width w, joins as
+    split S + 1. Returns the (m, w) queue."""
+    m, _, w = sv.shape
+    si = torch.where(torch.isfinite(sv), si + base_index, -1)
+    if v.shape[-1] < w:
+        pad = w - v.shape[-1]
+        v = torch.cat([v, v.new_full((m, pad), torch.inf)], -1)
+        i = torch.cat([i, i.new_full((m, pad), -1)], -1)
+    return merge(torch.cat([sv, v[:, None]], 1), torch.cat([si, i[:, None]], 1))
+
+
+def knn_shard(v: torch.Tensor, i: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
+              x_norms: torch.Tensor, k: int, metric: str, base_index: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard of a streamed f32 scan on the kernels: ``knn_scan`` over
+    the shard (its rows normalised by :func:`prepare` for cos), then
+    :func:`merge_shard` into the running (m, next_pow2(k)) queue of kernel
+    scores (ip form for cos: :func:`finish_queue` adds the 1). Two
+    launches a shard; the same kernel scores every pair as a resident
+    search does, and merging sorted queues is exact, so the streamed result
+    is the resident one bit for bit."""
+    call = prepare(q.to(x.dtype), x, k, metric, x_norms)
+    bm, bn, _ = call.blocks
+    qn = torch.sum(call.q.to(torch.float32) ** 2, dim=-1)
+    sv, si, _ = knn_scan(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
+    return merge_shard(v, i, sv[: call.m], si[: call.m], base_index)
+
+
+def int8_shard_operands(q: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+                        err: torch.Tensor, qnorm: torch.Tensor, r: int) -> tuple:
+    """The arguments of ``knn_int8_scan`` (and its plain version) for one
+    shard of a streamed int8 scan: (q, codes, qn, scales, err, hn, q_len,
+    bm, bn) with q_len = next_pow2(r + 1), the queries padded to bm rows
+    and the channels to the n-block (scales 1, err 0, hn +inf). ``qnorm``
+    is the exact quantised norm with validity folded in (+inf invalid)."""
+    m, d = q.shape
+    q_len = next_pow2(r + 1)
+    bm = min(int8_max_block_m(), next_pow2(m))
+    bn = max(DEFAULT_BLOCKS[1], q_len)
+    np_ = round_up(codes.shape[0], bn)
+    qp = _pad2(q.to(torch.float32), round_up(m, bm), d).contiguous()
+    return (qp, codes.contiguous(), torch.sum(qp * qp, dim=-1), _pad1(scales, np_, 1.0),
+            _pad1(err, np_, 0.0), _pad1(qnorm, np_, torch.inf), q_len, bm, bn)
+
+
+def knn_int8_shard(lb: torch.Tensor, li: torch.Tensor, q: torch.Tensor, codes: torch.Tensor,
+                   scales: torch.Tensor, err: torch.Tensor, qnorm: torch.Tensor,
+                   base_index: int, r: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One shard of a streamed int8 scan on the kernels: ``knn_int8_scan``
+    over the shard's codes (:func:`int8_shard_operands`), then
+    :func:`merge_shard` into the running (m, r + 1) bound queue. Two
+    launches a shard."""
+    m = q.shape[0]
+    sv, si, _ = knn_int8_scan(*int8_shard_operands(q, codes, scales, err, qnorm, r))
+    v, i = merge_shard(lb, li, sv[:m], si[:m], base_index)
+    return v[:, : r + 1], i[:, : r + 1]
 
 
 def knn_exact_direct(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor, k: int,

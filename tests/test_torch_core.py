@@ -323,8 +323,9 @@ def test_plan_rejects_what_this_slice_lacks():
     cfg = tplanner.EngineConfig(k=4)
     with pytest.raises(TypeError, match="bogus"):
         tplanner.plan((1, 128), meta, cfg, "fdsq", bogus=1)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tplanner.plan((1, 128), dataclasses.replace(meta, resident=False), cfg, "fqsd")
+    # non-resident plans stream now; a bare DatasetMeta has no store behind it
+    streamed = tplanner.plan((1, 128), dataclasses.replace(meta, resident=False), cfg, "fqsd")
+    assert (streamed.executor, streamed.mode) == ("fqsd-streamed", "fqsd-streamed")
     with pytest.raises(NotImplementedError, match="mesh"):
         tplanner.plan((1, 128), dataclasses.replace(meta, sharded=True), cfg, "fdsq")
     with pytest.raises(ValueError, match="backend"):

@@ -273,3 +273,118 @@ def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
             assert stats.shape == (m_tiles, splits, 4) and int(stats[..., 1].min()) >= 1
+
+
+# ------------------------------------------------------------- streaming
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_shard_step_bit_identical_to_plain(dev, metric):
+    """One shard through knn_scan + knn_merge equals the plain step
+    (knn_scan_plain + knn_merge_plain) on the same running queue. For cos
+    the rows have 4 (queries: 16) entries of ±1, so their normalised form
+    is exact and so is every score."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if metric == "cos":
+        def signs(n, nnz):
+            ranks = torch.rand(n, 256, generator=g, device=dev).argsort(1).argsort(1)
+            sign = torch.randint(0, 2, (n, 256), generator=g, device=dev) * 2 - 1
+            return ((ranks < nnz) * sign).to(torch.float32)
+
+        x, q = signs(8192, 4), signs(16, 16)
+    else:
+        x, q = _ints((8192, 256), g, dev), _ints((16, 256), g, dev)
+    q[0] = x[9]
+    xn = torch.sum(x * x, dim=-1)
+    xn[[100, 8191]] = torch.inf
+    v, i = torch.full((16, 128), torch.inf, device=dev), torch.full(
+        (16, 128), -1, dtype=torch.int32, device=dev)
+    v[:, :64], i[:, :64] = torch.sort(torch.rand(16, 64, generator=g, device=dev) * 50)[0], 7
+    K.reset_launch_counts()
+    got = ops.knn_shard(v, i, q, x, xn, 100, metric, 40_960)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] == 1
+    call = ops.prepare(q, x, 100, metric, xn)
+    bm, bn, _ = call.blocks
+    pv, pi, _ = K.knn_scan_plain(call.q, call.x, torch.sum(call.q ** 2, -1), call.xn,
+                                 call.k_eff, call.metric, bm, bn, True, 1)
+    want = ops.merge_shard(v, i, pv[:16], pi[:16], 40_960, merge=K.knn_merge_plain)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_int8_shard_step_bit_identical_to_plain(dev):
+    from repro_torch.core.quantized import quantize_dataset
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = _unit_scale_rows(8192, 256, g, dev)
+    q = torch.randint(-40, 41, (16, 256), generator=g, device=dev).to(torch.float32)
+    q[0] = x[9]
+    ds = quantize_dataset(x)
+    qnorm = ds.qnorm_sq.clone()
+    qnorm[[100, 8191]] = torch.inf
+    r = 4096  # q_len 8192, as at GIST k=1024
+    lb = torch.full((16, r + 1), torch.inf, device=dev)
+    li = torch.full((16, r + 1), -1, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    got = ops.knn_int8_shard(lb, li, q, ds.q, ds.scales, ds.err, qnorm, 65_536, r)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_int8_scan"] == 1 and K.LAUNCHES["knn_merge"] == 1
+    args = ops.int8_shard_operands(q, ds.q, ds.scales, ds.err, qnorm, r)
+    pv, pi, _ = K.knn_int8_scan_plain(*args, True, 1)
+    wv, wi = ops.merge_shard(lb, li, pv[:16], pi[:16], 65_536, merge=K.knn_merge_plain)
+    assert torch.equal(got[0], wv[:, : r + 1]) and torch.equal(got[1], wi[:, : r + 1])
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pinned_store_streams_the_resident_answer(dev, depth):
+    from repro_torch.core.streaming import DoubleBufferedStream
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(50_000, 200, generator=g, device=dev)
+    q = x[:16] + 0.1 * torch.randn(16, 200, generator=g, device=dev)
+    store = DatasetStore.from_array(x, rows_per_shard=8192, pin_memory=True)
+    assert store.is_pinned and store.read_shard(0).vectors.is_pinned()
+    resident = ExactKNN(k=50, backend="cuda").fit_store(store, resident=True)
+    streamed = ExactKNN(k=50, backend="cuda", prefetch_depth=depth).fit_store(
+        store, resident=False)
+    want = resident.search(SearchRequest(queries=q, mode_hint="fqsd"))
+    K.reset_launch_counts()
+    got = streamed.search(SearchRequest(queries=q))
+    torch.cuda.synchronize()
+    assert got.plan.executor == "fqsd-mmap-streamed" and got.stats["transfers"] == 7
+    assert K.LAUNCHES["knn_scan"] == 7 and K.LAUNCHES["knn_merge"] == 7
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert torch.equal(got.topk.indices, want.topk.indices)
+    stream = DoubleBufferedStream(store.shard_source(), depth=depth)
+    for p, host in zip(stream, store.shard_source()):
+        assert p.vectors.is_cuda and torch.equal(p.vectors.cpu(), host.vectors)
+    store.ensure_tier("int8", device=dev)
+    streamed.enable_int8()
+    K.reset_launch_counts()
+    got8 = streamed.search(SearchRequest(queries=q, tier="int8"))
+    torch.cuda.synchronize()
+    assert got8.plan.executor == "fqsd-int8-streamed" and K.LAUNCHES["knn_int8_scan"] == 7
+    oracle = ops.knn_exact_direct(streamed._pad_queries(q), resident._ds.vectors,
+                                  resident._ds.norms, 50, 8192)
+    assert torch.equal(got8.topk.scores, oracle.scores)
+    assert torch.equal(got8.topk.indices, oracle.indices)
+
+
+def test_speculation_snapshot_equals_a_synchronous_copy(dev):
+    from repro_torch.core.streaming import SpeculativeGather
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    store = DatasetStore.from_array(torch.randn(20_000, 64, generator=g, device=dev),
+                                    rows_per_shard=4096, pin_memory=True)
+    ids = torch.randint(-1, 20_000, (16, 4096), generator=g, device=dev, dtype=torch.int32)
+    big = torch.randn(4096, 4096, generator=g, device=dev)
+    for _ in range(3):  # keep the compute stream busy when the snapshot is taken
+        big = big @ big / 64
+    ids += torch.isfinite(big[:16, :1]).to(torch.int32) * 0
+    expected = ids.clone()
+    spec = SpeculativeGather(ids, store)
+    ids.fill_(5)  # later writes on the compute stream never reach the snapshot
+    got_ids, rows = spec.result()
+    want = torch.unique(expected.cpu().to(torch.int64))  # a synchronous copy
+    assert torch.equal(got_ids, want)
+    assert torch.equal(rows, store.gather_rows(want))

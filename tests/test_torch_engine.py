@@ -177,8 +177,9 @@ def test_engine_refuses_what_this_slice_lacks(data):
         eng.search(SearchRequest(queries=q, tier="int8"))
     with pytest.raises(NotImplementedError, match="store"):
         eng.upsert(x[:2])
-    with pytest.raises(NotImplementedError, match="streaming"):
-        eng.fit_store(eng.store, resident=False)
+    # out-of-core stores are ported now (tests/test_torch_streaming.py)
+    streamed = ExactKNN(k=3, device="cpu").fit_store(eng.store, resident=False)
+    assert streamed.search(SearchRequest(queries=q)).plan.executor == "fqsd-mmap-streamed"
     with pytest.raises(NotImplementedError, match="mesh"):
         ExactKNN(k=3, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="filter_mask"):

@@ -4,7 +4,8 @@
   JAX package ``repro`` (only the parity tests import both).
 * Entry points run on a CUDA device unless the caller passes
   ``device="cpu"``; on a host without one they raise instead of quietly
-  running on the CPU.
+  running on the CPU. That holds for the streamed path too: the double
+  buffer (``core/streaming.py``) and a streamed search over a host store.
 * The kernel modules import without ``nvcc``: the CUDA library is built at
   its first launch, never at import.
 """
@@ -122,3 +123,42 @@ def test_int8_state_without_device_needs_cuda():
     assert got.q.dtype == torch.int8 and got.scales.device.type == "cpu"
     with pytest.raises(ValueError, match="int8"):
         quantized_from_numpy(np.zeros((4, 2), np.float32), *arrays[1:], device="cpu")
+
+
+def test_streaming_modules_stand_alone():
+    """The double buffer and the host store import neither JAX nor the JAX
+    package (checked on the source: their imports, not what they reach)."""
+    for rel in ("core/streaming.py", "store/store.py", "core/fqsd.py", "convert.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+        assert not [m for m in names if _forbidden(m)], rel
+        assert any(m.startswith("torch") for m in names), rel
+
+
+def test_streamed_search_without_device_needs_cuda():
+    """A streamed search on an engine built with device=None runs on the
+    card, and raises where there is none; the double buffer likewise."""
+    import numpy as np
+
+    from repro_torch import ExactKNN, SearchRequest
+    from repro_torch.core.streaming import DoubleBufferedStream
+    from repro_torch.store import DatasetStore
+
+    x = np.arange(600, dtype=np.float32).reshape(200, 3)
+    store = DatasetStore.from_array(x, rows_per_shard=128)
+    if torch.cuda.is_available():
+        eng = ExactKNN(k=2, backend="cuda").fit_store(store, resident=False)
+        res = eng.search(SearchRequest(queries=x[:2]))
+        assert res.topk.scores.device.type == "cuda" and store.is_pinned
+        assert DoubleBufferedStream([x]).__class__ is DoubleBufferedStream
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ExactKNN(k=2, backend="cuda").fit_store(store, resident=False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DoubleBufferedStream([x])
+    eng = ExactKNN(k=2, backend="cuda", device="cpu").fit_store(store, resident=False)
+    res = eng.search(SearchRequest(queries=x[:2]))
+    assert res.plan.executor == "fqsd-mmap-streamed" and res.topk.indices.tolist() == [[0, 1],
+                                                                                      [1, 0]]
