@@ -4,6 +4,7 @@ their plain versions.
 
     python3 chip_smoke.py                  # from the root of a checkout, one CUDA card
     python3 chip_smoke.py --phases exact   # build + the named phases only
+    python3 chip_smoke.py --package OTHER  # drive another checkout's package
 
 Phases, in order (any failure makes the run exit non-zero):
 
@@ -26,7 +27,10 @@ Phases, in order (any failure makes the run exit non-zero):
              random order, farthest from query 0 first so that every lane
              survives the filter and its buffer overflows, and all equal so
              that only index ties decide; at the card's S and at S = 1);
-             l2dist (f32 and bf16, m in {1, 16}, ragged N); topk (k in
+             l2dist (f32 and bf16, m in {1, 16, 37, 300}: both sides of
+             the stream/tiled crossover, ragged against the 128-row tiles,
+             ragged N; through the entry point and each of its two kernels,
+             one launch each); topk (k in
              {1, 72, 1024}, ragged M and N: integer scores with ties and
              -0.0/+0.0, scores descending along N, all equal, +inf lanes).
              Values, indices and skip counts must be bit-identical (d = 960:
@@ -69,10 +73,15 @@ Phases, in order (any failure makes the run exit non-zero):
              results at spec_trigger 0.0, 0.5 and 1.0 are bit-identical;
              (e) the card is the H100 the bounds are stated for.
 7. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
-             then topk over that (16, 1,000,000) matrix at k = 1024.
+             then topk over that (16, 1,000,000) matrix at k = 1024; then
+             l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
+             (bf16) and 256 (f32), each one launch with the counters at 0,
+             beside torch.cdist's matrix-product form; and both l2dist
+             kernels at M = 16 to 128 (the crossover, printed only).
 
 Phases 3-7 are the main path. The launch counters are set to 0 just before
-each search (phase 7: before l2dist + topk) and read just after; every
+each search (phase 7: before l2dist + topk, and before each l2dist shape)
+and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phase 6:
 once a shard, beside knn_scan or knn_int8_scan once a shard). Each result
 is held against the plain version on the same padded operands within
@@ -80,14 +89,16 @@ TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in another
 order), with indices equal wherever the plain scores around them are more
 than twice that apart; topk
 and the merges move values without arithmetic and must be bit-identical.
-Each kernel is timed with CUDA events (median of REPEATS after a warm-up)
-beside its plain version, one PyTorch call computing the same function (a
+Each kernel is timed with CUDA events (median of REPEATS after a warm-up;
+l2dist's shapes over runs of 5 calls back to back, per call) beside its
+plain version, one PyTorch call computing the same function (a
 yardstick the port never calls; none exists for the int8 scan, whose
 yardstick is the f32 knn_scan at the same shape, printed as f32_scan_ms),
 and its bound on this card. bound_ms is the function's own work: its
 unpadded inputs read once, its result written once, and its arithmetic
-(2·d + the epilogue per pair for the scans, one comparison per element for
-the selections), whichever takes longer. knn_merge's inputs are sorted, so
+(2·d + the epilogue per pair for the scans, 2·d per pair for l2dist, one
+comparison per element for the selections), whichever takes longer; bytes
+count each operand at its element size. knn_merge's inputs are sorted, so
 its function reads only the queued pairs below the answer's last one and
 one pair past them in each queue (at most S + k a row, of S·k), one
 comparison each, and writes the answer. The scans and topk also print
@@ -140,11 +151,18 @@ KERNELS = {
     "topk": (_CSRC + "topk.cu", "src/repro/kernels/topk/kernel.py:57"),
 }
 #: Shapes of the phases (paper Table 2 via src/repro/configs/knn_paper.py).
-EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1024))
+EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1024),
+             l2dist_ms=(1, 16, 37, 300))
 GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
-STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024)
+#: phase 7: the main path at (m, n, d), then l2dist alone at each (M, dtype)
+#: of "l2dist" and both of its kernels at the batches of "crossover_ms",
+#: each timed (beside its plain version and library call) over runs of
+#: "calls" calls back to back
+STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024,
+                  l2dist=((1, "float32"), (16, "float32"), (16, "bfloat16"), (256, "float32")),
+                  crossover_ms=(16, 32, 48, 64, 80, 96, 112, 128), calls=5)
 #: phase 6: phase 3's GIST data in pinned host shards, streamed
 STREAMED = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
                 depths=(1, 2), triggers=(0.0, 0.5, 1.0), repeats=10)
@@ -173,8 +191,11 @@ class Smoke:
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
 
-    def ms(self, fn, repeats: int = REPEATS) -> float:
-        """Median CUDA-event time of fn over `repeats` runs after a warm-up."""
+    def ms(self, fn, repeats: int = REPEATS, calls: int = 1) -> float:
+        """Median CUDA-event time of fn over `repeats` runs after a warm-up;
+        with `calls` > 1 each run is that many calls back to back, timed
+        together and divided by `calls`, so the host's time to launch a
+        call hides behind the previous one."""
         torch = self.torch
         fn()
         self.sync()
@@ -182,10 +203,11 @@ class Smoke:
         for _ in range(repeats):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(calls):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / calls)
         return statistics.median(times)
 
     def bound(self, nbytes: float, ops: float) -> tuple[float, str]:
@@ -391,24 +413,37 @@ class Smoke:
         return cases, bad
 
     def _exact_l2dist(self, g):
+        """l2dist through its entry point and through each of its two
+        kernels, at batches on both sides of the crossover and ragged
+        against the tiles (N too), f32 and bf16."""
         torch = self.torch
         from repro_torch.kernels.l2dist import kernel as L
 
         n, d = EXACT["n"], EXACT["d"]
+        ms = EXACT["l2dist_ms"]
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
         x = torch.randint(-8, 9, (n, d), generator=g, device=self.dev).to(torch.float32)
-        q = torch.randint(-8, 9, (max(EXACT["ms"]), d), generator=g,
-                          device=self.dev).to(torch.float32)
+        q = torch.randint(-8, 9, (max(ms), d), generator=g, device=self.dev).to(torch.float32)
         q[0] = x[17]
-        cases, bad = 0, []
+        cases, bad, paths = 0, [], set()
         for dtype in (torch.float32, torch.bfloat16):
-            for m in EXACT["ms"]:
-                cases += 1
+            for m in ms:
                 qd, xd = q[:m].to(dtype), x.to(dtype)
                 qn, xn = torch.sum(q[:m] ** 2, -1), torch.sum(x * x, -1)
-                got = L.l2dist_tiles(qd, xd, qn, xn)
-                if not torch.equal(got, L.l2dist_plain(qd, xd, qn, xn)):
-                    bad.append(f"{dtype} m={m}")
-        self.sync()
+                want = L.l2dist_plain(qd, xd, qn, xn)
+                picked = L.l2dist_config(m, n, d, dtype, sms).path
+                paths.add(picked)
+                for path in (None, "stream", "tiled"):
+                    cases += 1
+                    self.K.reset_launch_counts()
+                    got = (L.l2dist_tiles(qd, xd, qn, xn) if path is None else
+                           L.l2dist_launch(qd, xd, qn, xn,
+                                           L.l2dist_config(m, n, d, dtype, sms, path)))
+                    self.sync()
+                    if not torch.equal(got, want) or self.K.LAUNCHES["l2dist"] != 1:
+                        bad.append(f"{dtype} m={m} path={path or picked}")
+        if paths != {"stream", "tiled"}:
+            bad.append(f"the entry point took only {paths} at m in {ms}")
         return cases, bad
 
     def _exact_topk(self, g):
@@ -1160,7 +1195,8 @@ class Smoke:
 
     # --------------------------------------------------- phase 7: kernels
     def phase_kernels(self) -> bool:
-        """The standalone entry points: l2dist, then topk over its matrix."""
+        """The standalone entry points: l2dist, then topk over its matrix;
+        then l2dist alone at each shape of STANDALONE["l2dist"]."""
         torch, K = self.torch, self.K
         from repro_torch.core.distance import row_norms_sq
         from repro_torch.kernels.l2dist import kernel as L
@@ -1170,7 +1206,8 @@ class Smoke:
         from repro_torch.kernels.topk.ref import topk_ref
 
         n, d, m, k = (STANDALONE[key] for key in ("n", "d", "m", "k"))
-        x, q = self._dataset(n, d, m, seed=5)
+        x, queries = self._dataset(n, d, max(mm for mm, _ in STANDALONE["l2dist"]), seed=5)
+        q = queries[:m]
         self.sync()
         K.reset_launch_counts()
         dist = LO.l2dist(q, x)
@@ -1184,9 +1221,8 @@ class Smoke:
         qn, xn = row_norms_sq(q), row_norms_sq(x)
         plain = L.l2dist_plain(q, x, qn, xn)
         tol = TOL_REL * (qn[:, None] + float(xn.max()))
-        diff = (dist - plain).abs()
-        err_l2 = float(diff.max())
-        ok_l2 = bool((diff <= tol).all()) and bool(torch.isfinite(dist).all())
+        ok_l2 = bool(((dist - plain).abs() <= tol).all()) and bool(torch.isfinite(dist).all())
+        del plain
         rv, ri = topk_ref(dist, k)
         topk_exact = torch.equal(v, rv) and torch.equal(i, ri)
         k_eff, bn = k, max(1024, k)
@@ -1196,14 +1232,9 @@ class Smoke:
         pv, pi = T.topk_scan_plain(dist, k_eff, bn, splits)
         scan_exact = torch.equal(sv, pv) and torch.equal(si, pi)
         ok &= ok_l2 and topk_exact and scan_exact
-        log(f"{label}: l2dist vs plain max|d|={err_l2:.3e} (tol {float(tol.max()):.3e}); "
-            f"topk bit-identical to the full sort={topk_exact}; topk scan bit-identical to "
-            f"plain={scan_exact}; ok={ok}")
+        log(f"{label}: l2dist within tol of plain={ok_l2}; topk bit-identical to the full "
+            f"sort={topk_exact}; topk scan bit-identical to plain={scan_exact}; ok={ok}")
 
-        l2_ms = self.ms(lambda: L.l2dist_tiles(q, x, qn, xn))
-        l2_plain_ms = self.ms(lambda: L.l2dist_plain(q, x, qn, xn))
-        l2_lib_ms = self.ms(lambda: torch.cdist(
-            q, x, compute_mode="donot_use_mm_for_euclid_dist"))
         tk_ms = self.ms(lambda: T.topk_scan(dist, k_eff, bn, splits))
         tk_fused_ms = self.ms(lambda: T.topk_fused(dist, k_eff, bn))
         tk_plain_ms = self.ms(lambda: T.topk_scan_plain(dist, k_eff, bn, splits))
@@ -1213,8 +1244,6 @@ class Smoke:
         flat = sv.reshape(m, -1)
         merge_lib_ms = self.ms(lambda: torch.topk(flat, k_eff, largest=False))
 
-        l2_bytes = (q.numel() + x.numel()) * 4 + (m + n) * 4 + m * n * 4
-        l2_ops = 2 * m * n * d
         # topk's function reads the scores once and writes the (m, k) result;
         # the design also writes S queues, and its survivor filter compares
         # every score once and sorts, searches and merges the survivors (the
@@ -1227,9 +1256,6 @@ class Smoke:
         shape = {"shape": label, "splits": splits, "blocks": [1, bn], "select": sel,
                  "topk_with_merges_ms": tk_fused_ms, "kernels": {}}
         for name, t, tp, tl, lib, (bb, by), err in (
-                ("l2dist", l2_ms, l2_plain_ms, l2_lib_ms,
-                 "torch.cdist(q, x, compute_mode='donot_use_mm_for_euclid_dist') (not squared)",
-                 self.bound(l2_bytes, l2_ops), err_l2),
                 ("topk", tk_ms, tk_plain_ms, tk_lib_ms, "torch.topk(scores, k, largest=False)",
                  self.bound(tk_bytes, tk_ops), 0.0 if scan_exact else math.inf),
                 ("knn_merge", merge_ms, merge_plain_ms, merge_lib_ms,
@@ -1245,7 +1271,84 @@ class Smoke:
         log(f"{label}: topk scan + merges ms={tk_fused_ms:.4f} (torch.topk {tk_lib_ms:.4f}); "
             f"bound over its S queues and survivor work design_bound_ms={design_ms:.4f}")
         self.shapes.append(shape)
+        del dist, sv, si, pv, pi, flat
+        for mm, dtype_name in STANDALONE["l2dist"]:
+            ok &= self._l2dist_shape(L, x, queries[:mm], getattr(torch, dtype_name))
+        self._l2dist_crossover(L, x, queries)
         return ok
+
+    def _l2dist_shape(self, L, x, q, dtype) -> bool:
+        """l2dist alone on (q, x) in `dtype`: one launch with the counters
+        at 0, held to its plain version within TOL_REL·(qn + max xn), then
+        timed beside it and beside torch.cdist's matrix-product form (one
+        call, the same function up to the square root), all three over runs
+        of STANDALONE["calls"] calls back to back (the wrapper's host work,
+        tens of microseconds, would otherwise sit inside each window)."""
+        torch = self.torch
+        from repro_torch.core.distance import row_norms_sq
+
+        q, x = q.to(dtype).contiguous(), x.to(dtype).contiguous()
+        (m, d), n = q.shape, x.shape[0]
+        qn, xn = row_norms_sq(q), row_norms_sq(x)
+        self.sync()
+        self.K.reset_launch_counts()
+        got = L.l2dist_tiles(q, x, qn, xn)
+        self.sync()
+        launches = self.K.LAUNCHES["l2dist"]
+        plain = L.l2dist_plain(q, x, qn, xn)
+        diff = (got - plain).abs()
+        err = float(diff.max())
+        ok = (launches == 1 and bool((diff <= TOL_REL * (qn[:, None] + float(xn.max()))).all())
+              and bool(torch.isfinite(got).all()))
+        del got, plain, diff
+        elem = x.element_size()
+        nbytes = (m + n) * d * elem + (m + n) * 4 + m * n * 4
+        bb, by = self.bound(nbytes, 2 * m * n * d)
+        calls = STANDALONE["calls"]
+        t = self.ms(lambda: L.l2dist_tiles(q, x, qn, xn), calls=calls)
+        tp = self.ms(lambda: L.l2dist_plain(q, x, qn, xn), calls=calls)
+        lib = "torch.cdist(q, x, compute_mode='use_mm_for_euclid_dist') (not squared)"
+        try:
+            tl = self.ms(lambda: torch.cdist(q, x, compute_mode="use_mm_for_euclid_dist"),
+                         calls=calls)
+        except RuntimeError as e:  # a yardstick only: the port never calls it
+            log(f"  torch.cdist refused {dtype}: {e}")
+            tl = None
+        label = f"l2dist_m{m}_n{n}_d{d}_{str(dtype).split('.')[-1]}"
+        shape = {"shape": label, "kernels": {"l2dist": {
+            "launches": launches, "max_abs_err": err, "ms": t, "plain_ms": tp, "bound_ms": bb,
+            "bound_by": by, "library_ms": tl, "library": lib}}}
+        if (m, dtype) == (STANDALONE["m"], torch.float32):
+            shape["cdist_direct_ms"] = self.ms(lambda: torch.cdist(
+                q, x, compute_mode="donot_use_mm_for_euclid_dist"), calls=calls)
+            log(f"{label}: cdist direct form ms={shape['cdist_direct_ms']:.4f}")
+        if hasattr(L, "l2dist_config"):
+            shape["config"] = L.l2dist_config(m, n, d, dtype)._asdict()
+        log(f"{label}: l2dist ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} bound_ms={bb:.4f} "
+            f"({by}) max|d|={err:.3e} launches={launches} ok={ok} {shape.get('config', '')} "
+            f"[{self.card}]")
+        self.shapes.append(shape)
+        return ok
+
+    def _l2dist_crossover(self, L, x, queries) -> None:
+        """Both l2dist kernels timed at the batches around the crossover
+        (f32), the measurement STREAM_MAX_M rests on."""
+        from repro_torch.core.distance import row_norms_sq
+
+        if not hasattr(L, "l2dist_config"):
+            log("l2dist crossover: this package has one l2dist kernel (no l2dist_config)")
+            return
+        sms = self.torch.cuda.get_device_properties(self.dev).multi_processor_count
+        n, d = x.shape
+        xn = row_norms_sq(x)
+        for m in STANDALONE["crossover_ms"]:
+            q = queries[:m].contiguous()
+            qn = row_norms_sq(q)
+            times = {path: self.ms(lambda: L.l2dist_launch(
+                q, x, qn, xn, L.l2dist_config(m, n, d, q.dtype, sms, path)),
+                calls=STANDALONE["calls"]) for path in ("stream", "tiled")}
+            log(f"l2dist crossover m={m}: stream_ms={times['stream']:.4f} "
+                f"tiled_ms={times['tiled']:.4f} (picked: {L.l2dist_config(m, n, d).path})")
 
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
@@ -1278,7 +1381,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES} (build always runs)")
-    wanted = ap.parse_args(argv).phases.split(",")
+    ap.add_argument("--package", type=Path, default=ROOT,
+                    help="root of the checkout whose src/repro_torch is driven (default: "
+                         "this script's)")
+    args = ap.parse_args(argv)
+    wanted = args.phases.split(",")
     if not set(wanted) <= set(PHASES):
         ap.error(f"unknown phases {sorted(set(wanted) - set(PHASES))}")
     try:
@@ -1289,7 +1396,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.package.resolve() / "src"))
     try:
         from repro_torch.kernels import build
     except ImportError as e:

@@ -103,7 +103,7 @@ def load_library() -> ctypes.CDLL:
             lib.knn_int8_scan.argtypes = [ptr] * 12 + [i32] * 10 + [ptr]
             lib.knn_merge.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.topk_scan.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-            lib.l2dist.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+            lib.l2dist.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
             for fn in (lib.knn_scan, lib.knn_int8_scan, lib.knn_merge, lib.topk_scan,
                        lib.l2dist):
                 fn.restype = i32

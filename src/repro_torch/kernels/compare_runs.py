@@ -2,17 +2,20 @@
 summarise the kernels' times.
 
     python -m repro_torch.kernels.compare_runs OTHER_ROOT [--pairs 5]
-        [--phases int8,kernels,gist,msmarco] [--out DIR]
+        [--phases int8,kernels,gist,msmarco] [--one-script] [--out DIR]
     python -m repro_torch.kernels.compare_runs --summarise-only --out DIR
 
 Each of ``--pairs`` rounds runs the other checkout, this one, this one and
 the other again (other, this, this, other), each as its own
 ``python3 chip_smoke.py --phases ...`` process, and keeps every run's log
-under ``--out``. Then it prints, per kernel and shape and per side, the
-median and [min-max] of the runs' CUDA-event times (``ms``, and the
-library call's ``library_ms`` beside), and the same for the per-shape extras chip_smoke.py reports (``search_ms``,
-``f32_scan_ms``, ``topk_with_merges_ms``), and writes them to
-``summary.json`` there. A run that fails stops the comparison;
+under ``--out``. Each checkout runs its own chip_smoke.py, or, with
+``--one-script``, this checkout's drives both packages (``--package``), so
+that shapes only this script times are timed on the other's kernels too.
+Then it prints, per kernel and shape and per side, the median and
+[min-max] of the runs' CUDA-event times (``ms``, with the plain version's
+``plain_ms`` and the library call's ``library_ms`` beside), and the same
+for the per-shape extras chip_smoke.py logs (the keys of ``MARKERS``), and
+writes them to ``summary.json`` there. A run that fails stops the comparison;
 ``--summarise-only`` summarises the logs a comparison left. Running needs
 the card, as chip_smoke.py does.
 """
@@ -27,16 +30,20 @@ from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
-EXTRAS = ("search_ms", "f32_scan_ms", "topk_with_merges_ms")
 
 
 MARKERS = {"search_ms": "search ms median=", "f32_scan_ms": "f32 knn_scan at this shape ",
-           "topk_with_merges_ms": "topk scan + merges ms="}
+           "topk_with_merges_ms": "topk scan + merges ms=",
+           "cdist_direct_ms": "cdist direct form ms=", "stream_ms": "stream_ms=",
+           "tiled_ms": "tiled_ms="}
 
 
-def run(root: Path, phases: str, log: Path) -> None:
-    """One chip_smoke.py run in `root`, its output kept in `log`."""
-    res = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phases], cwd=root,
+def run(root: Path, phases: str, log: Path, one_script: bool = False) -> None:
+    """One chip_smoke.py run in `root` (this checkout's script driving
+    root's package when `one_script`), its output kept in `log`."""
+    cmd = ([str(ROOT / "chip_smoke.py"), "--package", str(root)] if one_script
+           else ["chip_smoke.py"])
+    res = subprocess.run([sys.executable, *cmd, "--phases", phases], cwd=root,
                          capture_output=True, text=True)
     log.write_text(res.stdout + res.stderr)
     if res.returncode:
@@ -53,6 +60,7 @@ def records(log: Path) -> list[dict]:
         for per in k["shapes"]:
             rec = shapes.setdefault(per["shape"], {})
             rec[k["name"]] = per["ms"]
+            rec[k["name"] + ":plain_ms"] = per["plain_ms"]
             rec[k["name"] + ":library_ms"] = per["library_ms"]
     for ln in text:
         for key, marker in MARKERS.items():
@@ -93,6 +101,8 @@ def main(argv=None) -> int:
     ap.add_argument("other", type=Path, nargs="?", help="root of the other checkout")
     ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--phases", default="int8,kernels,gist,msmarco")
+    ap.add_argument("--one-script", action="store_true",
+                    help="run this checkout's chip_smoke.py on both packages")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "compare_runs")
     ap.add_argument("--summarise-only", action="store_true",
                     help="summarise the logs already in --out")
@@ -105,7 +115,7 @@ def main(argv=None) -> int:
                  ("other", args.other.resolve())]
         for p in range(args.pairs):
             for n, (side, root) in enumerate(order):
-                run(root, args.phases, args.out / f"pair{p}_{n}_{side}.log")
+                run(root, args.phases, args.out / f"pair{p}_{n}_{side}.log", args.one_script)
                 print(f"pair {p} run {n} ({side}) done", flush=True)
     rows = summarise(args.out)
     for row in rows:

@@ -1,5 +1,5 @@
 // Asynchronous copies from device memory to shared memory (cp.async), the
-// ring stages of the scans in knn.cu and knn_int8.cu.
+// ring stages of the scans in knn.cu and knn_int8.cu and of l2dist.cu.
 #pragma once
 
 namespace rt {
@@ -20,5 +20,10 @@ __device__ __forceinline__ void cp_async16_line(void* dst, const void* src, int 
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 }  // namespace rt

@@ -126,18 +126,40 @@ def test_int8_engine_matches_its_oracle(dev):
     assert torch.equal(res.topk.indices, want.indices)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,d", [(1, 1000, 64), (16, 5003, 96), (37, 300, 32)])
-def test_l2dist_bit_identical_to_plain(dev, dtype, m, n, d):
-    from repro_torch.kernels.l2dist import kernel as L
-
+def _l2dist_operands(m, n, d, dtype, dev):
     g = torch.Generator(device=dev).manual_seed(m + n)
     q = _ints((m, d), g, dev).to(dtype)
     x = _ints((n, d), g, dev).to(dtype)
-    qn = torch.sum(q.float() ** 2, -1)
-    xn = torch.sum(x.float() ** 2, -1)
+    return q, x, torch.sum(q.float() ** 2, -1), torch.sum(x.float() ** 2, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,d", [(1, 1000, 64), (16, 5003, 96), (37, 300, 32),
+                                   (17, 1000, 32), (130, 5003, 96), (257, 300, 960)])
+def test_l2dist_bit_identical_to_plain(dev, dtype, m, n, d):
+    from repro_torch.kernels.l2dist import kernel as L
+
+    q, x, qn, xn = _l2dist_operands(m, n, d, dtype, dev)
     K.reset_launch_counts()
     got = L.l2dist_tiles(q, x, qn, xn)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["l2dist"] == 1
+    assert torch.equal(got, L.l2dist_plain(q, x, qn, xn))
+
+
+@pytest.mark.parametrize("path", ["stream", "tiled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,d", [(1, 33, 32), (3, 4097, 64), (16, 1000, 96),
+                                   (33, 700, 32), (128, 129, 64), (200, 2000, 160)])
+def test_l2dist_each_kernel_bit_identical_to_plain(dev, path, dtype, m, n, d):
+    """Both kernels at the edges of their tiles and spans, whichever M the
+    wrapper would give them; one launch each."""
+    from repro_torch.kernels.l2dist import kernel as L
+
+    q, x, qn, xn = _l2dist_operands(m, n, d, dtype, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    K.reset_launch_counts()
+    got = L.l2dist_launch(q, x, qn, xn, L.l2dist_config(m, n, d, dtype, sms, path))
     torch.cuda.synchronize()
     assert K.LAUNCHES["l2dist"] == 1
     assert torch.equal(got, L.l2dist_plain(q, x, qn, xn))

@@ -101,7 +101,7 @@ def test_kernel_module_imports_without_nvcc():
     build = importlib.import_module("repro_torch.kernels.build")
     assert mod.LAUNCHES.keys() == {"knn_scan", "knn_merge", "knn_int8_scan", "topk", "l2dist"}
     assert build.CSRC.is_dir()
-    for src in ("knn.cu", "topk.cu", "l2dist.cu", "tile.cuh", "bitonic.cuh"):
+    for src in ("knn.cu", "topk.cu", "l2dist.cu", "ring.cuh", "bitonic.cuh"):
         assert (build.CSRC / src).is_file()
     assert build.BUILD_DIR == ROOT / "build" / "repro_torch"
 

@@ -30,6 +30,7 @@ from repro.kernels.topk.ref import topk_ref as jtopk_ref
 from repro_torch.core.topk import pair_keys, sort_pairs, topk_smallest
 from repro_torch.data.merge_cases import KINDS, merge_queues
 from repro_torch.kernels.knn import kernel as K
+from repro_torch.kernels.l2dist import kernel as L
 from repro_torch.kernels.l2dist.kernel import l2dist_plain
 from repro_torch.kernels.l2dist.ops import l2dist
 from repro_torch.kernels.l2dist.ref import l2dist_ref
@@ -214,6 +215,55 @@ def test_merge_smem_formula_matches_the_kernel(k):
     assert K.merge_smem_bytes(k) == c(k)
     assert (env["kMergeThreads"], env["kPool"]) == (K._MERGE_THREADS, K._MERGE_POOL)
     assert K.merge_smem_bytes(8192) <= K._BLOCK_SMEM_MAX < K.merge_smem_bytes(16384)
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 300])
+def test_l2dist_smem_formula_matches_the_kernel(m):
+    env = _c_constants("l2dist.cu")
+    c = _c_formula("l2dist.cu", "l2dist_smem_bytes", env)
+    for path in ("stream", "tiled"):
+        cfg = L.l2dist_config(m, 1000, 96, torch.float32, path=path)
+        args = ((env["kStageBytes"], cfg.bm, env["kQueryBytes"] * L.stream_split(cfg.bm))
+                if path == "stream" else (env["kTileN"] * env["kLine"], env["kTileM"],
+                                          env["kLine"]))
+        assert cfg.smem == L.l2dist_smem_bytes(*args) == c(*args)
+    assert (env["kStages"], env["kStageBytes"], env["kQueryBytes"], env["kTileM"],
+            env["kTileN"], env["kLine"]) == (L._STAGES, L._STAGE_BYTES, L._QUERY_BYTES,
+                                             L._TILE_M, L._TILE_N, L._LINE)
+    split = re.search(r"int split_of\(int bm\) \{ return bm <= (\d+) \? (\d+) : 1; \}",
+                      (CSRC / "l2dist.cu").read_text())
+    assert (int(split.group(1)), int(split.group(2))) == (L._SPLIT_BM, L._SPLIT)
+
+
+@pytest.mark.parametrize("n", [1, 300, 1_000_000])
+@pytest.mark.parametrize("m", [1, 3, 16, L.STREAM_MAX_M, L.STREAM_MAX_M + 1, 256,
+                               2 * 65535 * 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2dist_config_is_a_legal_launch(m, n, dtype):
+    """Both sides of the crossover and twice the old 65535·16-row limit: a
+    grid the card takes, shared memory a block may take (two stream blocks
+    an SM), every output element covered by exactly one block."""
+    cfg = L.l2dist_config(m, n, 960, dtype)
+    gx, gy = cfg.grid
+    assert 1 <= gx <= 2**31 - 1 and 1 <= gy <= 65535
+    assert L.l2dist_config(m, n, 960, dtype, path="tiled").smem <= 232_448
+    if m <= L.STREAM_MAX_M:
+        assert 2 * (cfg.smem + 1024) <= 233_472
+        assert cfg.path == "stream" and cfg.bm == min(16, 1 << (m - 1).bit_length())
+        assert gy == -(-m // cfg.bm) and gx * gy <= 2 * 132  # one wave
+        assert cfg.span % 32 == 0 and (gx - 1) * cfg.span < n <= gx * cfg.span
+    else:
+        assert cfg.path == "tiled" and (cfg.bm, cfg.span) == (128, 128)
+        assert gy == 1 and gx == -(-m // 128) * -(-n // 128)
+
+
+def test_l2dist_config_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="multiple of 32"):
+        L.l2dist_config(4, 10, 48)
+    with pytest.raises(ValueError, match="dtype"):
+        L.l2dist_config(4, 10, 64, torch.float16)
+    with pytest.raises(ValueError, match="path"):
+        L.l2dist_config(4, 10, 64, path="gemm")
 
 
 # ---------------------------------------------------------------- merge
