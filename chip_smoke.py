@@ -72,18 +72,36 @@ Phases, in order (any failure makes the run exit non-zero):
              knn_int8_scan_plain + knn_merge_plain) on one shard; (d) the
              results at spec_trigger 0.0, 0.5 and 1.0 are bit-identical;
              (e) the card is the H100 the bounds are stated for.
-7. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+7. mmap    — phase 6's data written as a store in files under build/
+             (DatasetStore.from_array(x, rows_per_shard=65,536,
+             directory=...) + its int8 tier quantised on the card, about
+             5.4 GB), reopened with DatasetStore.open(verify=True) and
+             searched through fit_store(store, resident=False):
+             fqsd-mmap-streamed and fqsd-int8-mmap-streamed at
+             prefetch_depth 1 and 2, each result (values, indices,
+             certificates, transfers, bytes_scanned) bit-identical to the
+             same rows in a pinned host-RAM store, then one f32 search with
+             verify_on_read. Prints, as measurements: the filesystem, the
+             read rate of one shard file after a page-cache drop
+             (posix_fadvise) and warm, the mapping -> page-locked staging
+             rate (the double buffer's own copy, at 1 thread and at its
+             default), the page-locked -> card rate, and per search the
+             cold time (after a cache drop) and the warm median beside the
+             staging-only bound (bytes shipped over the staging rate); then
+             check (c) of phase 6 on two shards read from the mapping. The
+             directory is deleted at the end, whatever the outcome.
+8. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024; then
              l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
              (bf16) and 256 (f32), each one launch with the counters at 0,
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-7 are the main path. The launch counters are set to 0 just before
-each search (phase 7: before l2dist + topk, and before each l2dist shape)
+Phases 3-8 are the main path. The launch counters are set to 0 just before
+each search (phase 8: before l2dist + topk, and before each l2dist shape)
 and read just after; every
-kernel of the path must have launched, knn_merge exactly once (phase 6:
-once a shard, beside knn_scan or knn_int8_scan once a shard). Each result
+kernel of the path must have launched, knn_merge exactly once (phases 6
+and 7: once a shard, beside knn_scan or knn_int8_scan once a shard). Each result
 is held against the plain version on the same padded operands within
 TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in another
 order), with indices equal wherever the plain scores around them are more
@@ -114,8 +132,8 @@ before it measures.
 Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
 library_ms and bound_ms summed over the main path's runs, one of each shape,
-with the per-shape numbers under "shapes"; phase 6's shapes give one
-shard's launch), and as the last line
+with the per-shape numbers under "shapes"; phase 6's and 7's shapes give
+one shard's launch), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -166,6 +184,10 @@ STANDALONE = dict(n=1_000_000, d=960, m=16, k=1024,
 #: phase 6: phase 3's GIST data in pinned host shards, streamed
 STREAMED = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
                 depths=(1, 2), triggers=(0.0, 0.5, 1.0), repeats=10)
+#: phase 7: phase 6's data as a store in files under build/, streamed from
+#: its mappings
+MMAP = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
+            depths=(1, 2), repeats=5)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -1082,10 +1104,12 @@ class Smoke:
         torch.cuda.empty_cache()
         return ok and check_a and check_b and check_c and check_d
 
-    def _streamed_kernels(self, eng, qv, f32_parts, int8_parts, r, results) -> bool:
+    def _streamed_kernels(self, eng, qv, f32_parts, int8_parts, r, results,
+                          label: str = "streamed") -> bool:
         """One shard's step on the kernels against the plain step (scan plain +
         knn_merge_plain), with the running queue of the shards before it; the
-        per-launch times and bounds of the three kernels at the shard shape."""
+        per-launch times and bounds of the three kernels at the shard shape
+        (shard 1 of the parts given, after shard 0)."""
         torch, K, ops = self.torch, self.K, self.ops
         cfg = STREAMED
         m, k, d = cfg["m"], cfg["k"], cfg["d"]
@@ -1135,7 +1159,7 @@ class Smoke:
         scan8_exact = torch.equal(sv8, pv8) and torch.equal(si8, pi8)
         self.sync()
         ok = f32_ok and int8_ok and scan_exact and scan8_exact and merge_exact
-        log(f"streamed check (c): f32 shard step bit-identical to its plain step={f32_ok} "
+        log(f"{label} check (c): f32 shard step bit-identical to its plain step={f32_ok} "
             f"(scan {scan_exact}, merge {merge_exact}); int8 shard step={int8_ok} "
             f"(scan {scan8_exact}); S={splits} / {splits8}, q_len={q_len}")
 
@@ -1180,20 +1204,273 @@ class Smoke:
         for tier, names, merge in (("f32", ("knn_scan", "knn_merge"), numbers["knn_merge"]),
                                    ("int8", ("knn_int8_scan", "knn_merge"), int8_merge)):
             launches = results[tier][1]
-            shape = {"shape": f"streamed_gist_{tier}_m{m}_k{k}_one_shard_of_{rows}_rows",
+            shape = {"shape": f"{label}_gist_{tier}_m{m}_k{k}_one_shard_of_{rows}_rows",
                      "per": "one launch on one shard", "kernels": {}}
             for name in names:
                 t, tp, tl, lib, (bb, by), err = merge if name == "knn_merge" else numbers[name]
                 shape["kernels"][name] = {
                     "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
                     "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
-                log(f"streamed {tier}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
+                log(f"{label} {tier}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
                     f"bound_ms={bb:.6f} ({by}) per shard; launches a search={launches[name]} "
                     f"[{self.card}]")
             self.shapes.append(shape)
         return ok
 
-    # --------------------------------------------------- phase 7: kernels
+    # ------------------------------------------------------ phase 7: mmap
+    @staticmethod
+    def _filesystem(path: Path) -> str:
+        """The mount point and type of the filesystem `path` lies on."""
+        best = ("?", "?")
+        for line in Path("/proc/mounts").read_text().splitlines():
+            parts = line.split()
+            if len(parts) > 2 and str(path).startswith(parts[1]) and len(parts[1]) >= len(best[0]):
+                best = (parts[1], parts[2])
+        return f"{best[0]} ({best[1]})"
+
+    @staticmethod
+    def _drop_cache(directory: Path) -> str:
+        """Ask the kernel to drop the page cache of every file of the store
+        (posix_fadvise DONTNEED, advisory), after an fsync; returns the
+        host's Cached line after, so the reader can see what it did."""
+        import os
+
+        for f in directory.iterdir():
+            fd = os.open(f, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("Cached:"):
+                return line.split(":", 1)[1].strip()
+        return "?"
+
+    def mmap_rates(self, directory: Path, store, pinned_shard) -> dict:
+        """Measurements, not gates: the read rate of one shard's file from a
+        dropped cache and again warm; the mapping -> page-locked staging
+        copy of one shard (the double buffer's own routine, median of
+        repeats, at 1 thread and at its default); the page-locked -> card
+        copy of one shard (CUDA events)."""
+        import os
+        from concurrent.futures import ThreadPoolExecutor
+
+        from repro_torch.core import streaming
+
+        torch, cfg = self.torch, MMAP
+        path = directory / "shard_00001.f32.bin"
+        nbytes = path.stat().st_size
+        buf = bytearray(16 << 20)
+
+        def read_file() -> float:
+            t0 = time.perf_counter()
+            with open(path, "rb", buffering=0) as f:
+                while f.readinto(buf):
+                    pass
+            return time.perf_counter() - t0
+
+        cached = self._drop_cache(directory)
+        cold_s = read_file()
+        warm_s = read_file()
+        src = store.read_shard(1).vectors
+        bank = torch.empty(tuple(src.shape), dtype=torch.float32, pin_memory=True)
+        threads = streaming.stage_threads()
+        stage_ms = {}
+        for n_threads in sorted({1, threads}):
+            pool = ThreadPoolExecutor(n_threads) if n_threads > 1 else None
+            try:
+                times = []
+                for _ in range(cfg["repeats"] + 1):
+                    t0 = time.perf_counter()
+                    streaming.stage(bank, src, pool)
+                    times.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                if pool is not None:
+                    pool.shutdown()
+            stage_ms[n_threads] = statistics.median(times[1:])
+        copy_ms, copy_rate = self.copy_rate(pinned_shard)
+        rates = {"shard_file_bytes": nbytes, "cached_after_drop": cached,
+                 "disk_read_GBps": nbytes / cold_s / 1e9, "reread_GBps": nbytes / warm_s / 1e9,
+                 "stage_threads": threads,
+                 "stage_ms": {str(t): v for t, v in stage_ms.items()},
+                 "stage_GBps": {str(t): nbytes / (v * 1e-3) / 1e9 for t, v in stage_ms.items()},
+                 "pinned_copy_ms": copy_ms, "pinned_copy_GBps": copy_rate / 1e9}
+        log(f"mmap rates: read of one shard's file ({nbytes} B) after a cache drop "
+            f"{rates['disk_read_GBps']:.3f} GB/s (Cached after the drop {cached}), read again "
+            f"{rates['reread_GBps']:.3f} GB/s; mapping -> page-locked staging "
+            + ", ".join(f"{rates['stage_GBps'][str(t)]:.3f} GB/s at {t} thread(s)"
+                        for t in stage_ms)
+            + f" (median of {cfg['repeats']}); page-locked -> card {copy_rate / 1e9:.3f} GB/s "
+            f"({copy_ms:.4f} ms, CUDA events) [{self.card}]")
+        return rates
+
+    def phase_mmap(self) -> bool:
+        """The GIST data of phase 6 written as a store in files, reopened
+        with verify=True, and streamed from its mappings at depths 1 and 2;
+        every result bit-identical to the same data in a pinned host-RAM
+        store. The directory is deleted at the end, whatever the outcome."""
+        import shutil
+
+        directory = ROOT / "build" / "mmap_store"
+        shutil.rmtree(directory, ignore_errors=True)
+        try:
+            return self._mmap(directory)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+
+    def _mmap(self, directory: Path) -> bool:
+        import shutil
+
+        torch, K = self.torch, self.K
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core.streaming import device_put_partition
+        from repro_torch.store import DatasetStore
+
+        cfg = MMAP
+        n, d, m, k = cfg["n"], cfg["d"], cfg["m"], cfg["k"]
+        x, q = self._dataset(n, d, m, seed=cfg["seed"])
+        t0 = time.perf_counter()
+        ram = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"], pin_memory=True)
+        ram.ensure_tier("int8", device=self.dev)
+        self.sync()
+        ram_s = time.perf_counter() - t0
+        directory.parent.mkdir(parents=True, exist_ok=True)
+        free = shutil.disk_usage(directory.parent).free
+        t0 = time.perf_counter()
+        written = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"],
+                                          directory=str(directory))
+        write_s = time.perf_counter() - t0
+        del x
+        t0 = time.perf_counter()
+        written.ensure_tier("int8", device=self.dev)
+        int8_s = time.perf_counter() - t0
+        written.close()
+        disk_bytes = sum(f.stat().st_size for f in directory.iterdir())
+        cached = self._drop_cache(directory)
+        t0 = time.perf_counter()
+        store = DatasetStore.open(str(directory), verify=True)
+        open_s = time.perf_counter() - t0
+        n_shards = store.n_shards
+        log(f"mmap: store in {directory} on {self._filesystem(directory)}, {free} B free before; "
+            f"{n_shards} shards x {store.rows_per_shard} rows x {store.padded_dim} "
+            f"({store.n_main} valid), {disk_bytes} B on disk; f32 written in {write_s:.2f} s, "
+            f"int8 tier quantised on the card and written in {int8_s:.2f} s; "
+            f"open(verify=True) from a dropped cache (Cached {cached}) {open_s:.2f} s "
+            f"({disk_bytes / open_s / 1e9:.3f} GB/s CRC32 over every file); the pinned "
+            f"host-RAM store of the same rows built in {ram_s:.2f} s; host RAM {self.host_ram()}")
+        ok = store.is_mmap and store.tiers == ("f32", "int8") and not store.is_pinned
+        rates = self.mmap_rates(directory, store, ram.read_shard(0))
+
+        engines = {}
+        for name, st in (("ram", ram), ("mmap", store)):
+            engines[name] = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(
+                st, resident=False).enable_int8()
+        ok &= not store.is_pinned  # fit_store never pins a store in files
+        qv = engines["mmap"]._pad_queries(q)
+        shipped = {"f32": n_shards * store.rows_per_shard * (store.padded_dim + 1) * 4,
+                   "int8": sum(store.read_shard(i, "int8").scan_bytes()
+                               for i in range(n_shards))}
+        stage_rate = rates["stage_GBps"][str(rates["stage_threads"])] * 1e9
+        timing = {"card": self.card, "rates": rates, "write_s": write_s, "int8_write_s": int8_s,
+                  "verify_open_s": open_s, "disk_bytes": disk_bytes}
+        results = {}
+        for tier, kernels, want_exec in (
+                ("f32", ("knn_scan", "knn_merge"), "fqsd-mmap-streamed"),
+                ("int8", ("knn_int8_scan", "knn_merge"), "fqsd-int8-mmap-streamed")):
+            per_tier = {"bytes_shipped": shipped[tier],
+                        "staging_bound_ms": shipped[tier] / stage_rate * 1e3,
+                        "disk_bound_ms": shipped[tier] / (rates["disk_read_GBps"] * 1e9) * 1e3}
+            for depth in cfg["depths"]:
+                req = SearchRequest(queries=q, k=k, tier=tier, prefetch_depth=depth)
+                want = engines["ram"].search(req)
+                # a store opened anew maps nothing of its files yet: its first
+                # search is what a process that just opened the store sees
+                fresh = DatasetStore.open(str(directory))
+                eng = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(
+                    fresh, resident=False).enable_int8()
+                cached = self._drop_cache(directory)
+                self.sync()
+                K.reset_launch_counts()  # the path: counters at 0 around one search
+                t0 = time.perf_counter()
+                got = eng.search(req)
+                self.sync()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                launches = dict(K.LAUNCHES)
+                same = (torch.equal(got.topk.scores, want.topk.scores)
+                        and torch.equal(got.topk.indices, want.topk.indices)
+                        and torch.equal(torch.as_tensor(got.certified),
+                                        torch.as_tensor(want.certified))
+                        and got.stats["transfers"] == want.stats["transfers"] == n_shards
+                        and got.stats["bytes_scanned"] == want.stats["bytes_scanned"])
+                good = (same and got.plan.executor == want_exec
+                        and all(launches[name] == n_shards for name in kernels)
+                        and sum(launches.values()) == 2 * n_shards
+                        and bool(torch.isfinite(got.topk.scores).all())
+                        and tuple(got.topk.scores.shape) == (m, k)
+                        and got.stats["health"]["retries"] == 0)
+                warm_ms, all_ms = self.host_clock_ms(lambda: eng.search(req), cfg["repeats"])
+                again = eng.search(req)
+                self.sync()
+                good &= (torch.equal(again.topk.scores, want.topk.scores)
+                         and torch.equal(again.topk.indices, want.topk.indices))
+                row = {"first_ms": first_ms, "cached_before_first": cached, "warm_ms": warm_ms,
+                       "warm_all_ms": [round(t, 3) for t in all_ms],
+                       "warm_GBps": shipped[tier] / (warm_ms * 1e-3) / 1e9,
+                       "transfers": got.stats["transfers"],
+                       "bytes_scanned": got.stats["bytes_scanned"], "launches": launches,
+                       "bit_identical_to_ram": same}
+                if tier == "int8":
+                    row["first_split"] = {key: got.stats[key] for key in ("scan_ms", "gather_ms",
+                                                                          "rescore_ms")}
+                    row.update({key: again.stats[key] for key in ("scan_ms", "gather_ms",
+                                                                  "rescore_ms")})
+                per_tier[f"depth{depth}"] = row
+                log(f"mmap {tier} depth{depth}: executor={got.plan.executor} first search on "
+                    f"fresh mappings {first_ms:.3f} ms (Cached {cached}; bound "
+                    f"{per_tier['disk_bound_ms']:.3f} ms at the disk rate), warm {warm_ms:.3f} "
+                    f"ms (median of {cfg['repeats']}; {row['warm_GBps']:.3f} GB/s) against the "
+                    f"staging-only bound {per_tier['staging_bound_ms']:.3f} ms; transfers "
+                    f"{row['transfers']}, bytes_scanned {row['bytes_scanned']}, launches "
+                    f"{launches}, health {got.stats['health']}, bit-identical to the host-RAM "
+                    f"store={same}, ok={good} [{self.card}]")
+                ok &= good
+                results[tier] = (got, launches)
+                fresh.close()
+                del eng
+            timing[tier] = per_tier
+
+        # every file's CRC re-checked on every read
+        checked = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(
+            DatasetStore.open(str(directory), verify_on_read=True), resident=False)
+        req = SearchRequest(queries=q, k=k)
+        t0 = time.perf_counter()
+        got = checked.search(req)
+        self.sync()
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        want = results["f32"][0]
+        same = (torch.equal(got.topk.scores, want.topk.scores)
+                and torch.equal(got.topk.indices, want.topk.indices)
+                and got.stats["health"]["retries"] == 0)
+        timing["verify_on_read_f32_ms"] = verify_ms
+        log(f"mmap f32 verify_on_read: {verify_ms:.3f} ms, health {got.stats['health']}, "
+            f"bit-identical={same} [{self.card}]")
+        ok &= same
+        log("mmap timings " + json.dumps(timing))
+
+        # (c) the per-shard kernel steps on two shards read from the mapping
+        f32_parts = [device_put_partition(store.read_shard(i), self.dev) for i in (0, 1)]
+        int8_parts = [device_put_partition(store.read_shard(i, "int8"), self.dev) for i in (0, 1)]
+        r_budget = max(1, min(n_shards * store.rows_per_shard, engines["mmap"].rescore_factor * k))
+        ok &= self._streamed_kernels(engines["mmap"], qv, f32_parts, int8_parts, r_budget,
+                                     results, label="mmap")
+        for st in (store, ram):
+            st.close()
+        del engines, checked, f32_parts, int8_parts
+        torch.cuda.empty_cache()
+        return bool(ok)
+
+    # --------------------------------------------------- phase 8: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix;
         then l2dist alone at each shape of STANDALONE["l2dist"]."""
@@ -1374,7 +1651,7 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "kernels")
+PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "kernels")
 
 
 def main(argv=None) -> int:

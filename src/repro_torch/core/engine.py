@@ -35,9 +35,13 @@ Usage (request-first API — every option is a per-request fact):
     res = eng.search(SearchRequest(queries=Q))   # shards stream to the card
     res.stats["transfers"], res.stats["bytes_scanned"], res.stats["health"]
 
-The port serves single-device data, resident or streamed from host RAM.
-Mutations, mmap stores and meshes raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+    store = DatasetStore.open(directory, verify=True)   # a store in files
+    eng = ExactKNN(k=10, backend="cuda").fit_store(store, resident=False)
+    res = eng.search(SearchRequest(queries=Q))   # mapped shards stream
+
+The port serves single-device data: resident, or streamed from host RAM or
+from a store's memory-mapped files. Mutations and meshes raise
+``NotImplementedError`` naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -240,11 +244,16 @@ class ExactKNN:
     def fit_store(self, store, resident: bool | None = None) -> "ExactKNN":
         """Attach a DatasetStore. Residency: the explicit `resident` flag,
         else the store's f32 bytes against ``device_budget_bytes`` (None =
-        unlimited). A resident store's rows go to the engine's device; a
-        non-resident one stays in host memory and every search streams its
-        shards (fqsd-mmap-streamed / fqsd-int8-streamed). On a CUDA device
-        the shards are pinned here, once (a store that cannot be pinned
-        raises): the double buffer overlaps copies only from pinned memory.
+        unlimited). A resident store's rows go to the engine's device (a
+        store in files is read once for that); a non-resident one stays in
+        host memory or in its files and every search streams its shards
+        (fqsd-mmap-streamed / fqsd-int8-streamed / fqsd-int8-mmap-streamed).
+        On a CUDA device a host-RAM store's shards are pinned here, once (a
+        store that cannot be pinned raises): the double buffer overlaps
+        copies only from pinned memory. A store in files is never pinned
+        (that would read every file into page-locked RAM): the double
+        buffer stages its mapped shards through page-locked banks of its
+        own.
         """
         if resident is None:
             budget = self.device_budget_bytes
@@ -256,7 +265,7 @@ class ExactKNN:
         if self._resident:
             host = store.resident()
             self._attach(host.vectors, host.norms, host.n_valid, prenormalized=False)
-        elif self.device.type == "cuda":
+        elif self.device.type == "cuda" and not store.is_mmap:
             store.pin()
         return self
 
@@ -305,10 +314,10 @@ class ExactKNN:
 
     # --------------------------------------------------- later slices
     def upsert(self, vectors):
-        raise NotImplementedError("store mutations are ported in the store slice")
+        raise NotImplementedError("store mutations are the store's write side (ROADMAP A7b)")
 
     def delete(self, ids):
-        raise NotImplementedError("store mutations are ported in the store slice")
+        raise NotImplementedError("store mutations are the store's write side (ROADMAP A7b)")
 
     # ---------------------------------------------------------- int8 tier
     def enable_int8(self) -> "ExactKNN":

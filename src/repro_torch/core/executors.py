@@ -586,6 +586,7 @@ def _fqsd_int8_streamed(plan, queries, store, ctx) -> TopK:
 
 @register_executor("fqsd-int8-mmap-streamed")
 def _fqsd_int8_mmap_streamed(plan, queries, store, ctx) -> TopK:
-    """Streamed quantised FQ-SD over mmap shards (the store slice): the
-    same body as fqsd-int8-streamed (see :func:`_int8_streamed`)."""
+    """Streamed quantised FQ-SD over the mapped shards of a store in files:
+    the same body as fqsd-int8-streamed (see :func:`_int8_streamed`); the
+    candidate gather reads its rows through the store's ``gather_rows``."""
     return _int8_streamed(plan, queries, store, ctx)

@@ -18,18 +18,28 @@ them. For each slot:
 ``depth=2`` keeps one partition in flight while the consumer computes on
 the other (two banks); ``depth=1`` copies and computes in turn. The slots
 belong to the stream for its lifetime, so the caching allocator never hands
-one back while a copy into it is pending. The copies overlap compute only
-from pinned host memory: a copy from pageable memory is synchronous, which
-is why the engine pins a non-resident store once at ``fit_store``.
+one back while a copy into it is pending.
+
+A copy overlaps compute only from page-locked host memory: from pageable
+memory it is synchronous. A pinned store's shards go to their slot
+directly. Pageable fields (a memory-mapped shard of a store in files, a
+store that was never pinned) are staged: the stream owns ``depth``
+page-locked host banks beside its device slots, fills bank ``i % depth``
+from the source on a pool of host threads, then copies the bank to the
+slot asynchronously. A bank is refilled only after the copy out of it has
+completed ("copy done" of the same slot). A mapping is never pinned.
 
 On the CPU (``device="cpu"``) a partition is handed over as it is: the
-structure (order, transfer counts, retries, restarts) is the same.
+structure (order, transfer counts, retries, restarts, fault hooks) is the
+same.
 """
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, TypeVar
 
 import numpy as np
@@ -52,7 +62,12 @@ def _is_array(v) -> bool:
 
 
 def _as_tensor(v) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+    """A tensor as it is; a numpy array shared, or copied when it is
+    read-only (a mapping): a tensor over a read-only mapping would fault on
+    any write."""
+    if not isinstance(v, np.ndarray):
+        return v
+    return torch.from_numpy(np.ascontiguousarray(v) if v.flags.writeable else np.array(v))
 
 
 def _array_fields(p) -> dict:
@@ -61,15 +76,18 @@ def _array_fields(p) -> dict:
     return {name: v for name, v in zip(type(p)._fields, p) if _is_array(v)}
 
 
-def device_put_partition(p, device=None):
-    """Every array field of a partition record on `device`, host scalar
-    metadata (n_valid, base_index) untouched; a bare array is moved as it
-    is. ``device=None`` means CUDA, which must exist. Works for any
-    NamedTuple partition: ``PaddedDataset`` and the int8 tier's multi-array
-    ``Int8Partition`` alike."""
-    from repro_torch.core.engine import resolve_device
+def _on_device_put(p) -> None:
+    """The process-wide fault injector's hook, once per partition transfer."""
+    from repro_torch import faults
 
-    dev = resolve_device(device)
+    inj = faults.active()
+    if inj is not None:
+        inj.on_device_put(getattr(p, "base_index", -1))
+
+
+def _move(p, dev: torch.device):
+    """Every array field of a partition record on `dev` (a bare array moved
+    as it is), host scalars untouched."""
     if not isinstance(p, tuple) or not hasattr(p, "_fields"):
         return _as_tensor(p).to(dev) if _is_array(p) else p
     arrays = _array_fields(p)
@@ -78,13 +96,75 @@ def device_put_partition(p, device=None):
     return p._replace(**{name: _as_tensor(v).to(dev) for name, v in arrays.items()})
 
 
+def device_put_partition(p, device=None):
+    """Every array field of a partition record on `device`, host scalar
+    metadata (n_valid, base_index) untouched; a bare array is moved as it
+    is. ``device=None`` means CUDA, which must exist. Works for any
+    NamedTuple partition: ``PaddedDataset`` and the int8 tier's multi-array
+    ``Int8Partition`` alike. The active fault injector's ``on_device_put``
+    fires first, as for every streamed transfer."""
+    from repro_torch.core.engine import resolve_device
+
+    dev = resolve_device(device)
+    _on_device_put(p)
+    return _move(p, dev)
+
+
+#: staging copies split into pieces of at least this many bytes, one a
+#: host thread
+STAGE_PIECE_BYTES = 4 << 20
+
+
+def stage_threads() -> int:
+    """Host threads that fill a staging bank: the cores this process may
+    run on, at most 8 (the copy out of a mapping is bound by page faults,
+    which threads overlap)."""
+    return max(1, min(8, len(os.sched_getaffinity(0))))
+
+
+def stage(dst: torch.Tensor, src, pool: ThreadPoolExecutor | None) -> None:
+    """Copy host array `src` (a numpy array or mapping, or a host tensor)
+    into host tensor `dst` of its shape, in row pieces of at least
+    STAGE_PIECE_BYTES spread over `pool`'s stage_threads() threads (numpy
+    and torch copies release the interpreter lock); in one piece without a
+    pool."""
+    if isinstance(src, np.ndarray):
+        d = dst.numpy()
+
+        def piece(a, b):
+            np.copyto(d[a:b], src[a:b])
+    else:
+        def piece(a, b):
+            dst[a:b].copy_(src[a:b])
+
+    rows = int(dst.shape[0])
+    n = min(rows, dst.numel() * dst.element_size() // STAGE_PIECE_BYTES,
+            stage_threads() if pool is not None else 1)
+    if n <= 1:
+        piece(0, rows)
+        return
+    cuts = [rows * j // n for j in range(n + 1)]
+    for f in [pool.submit(piece, a, b) for a, b in zip(cuts, cuts[1:])]:
+        f.result()
+
+
+def _dtype(v) -> torch.dtype:
+    """The torch dtype of a tensor or numpy array (without reading it)."""
+    return v.dtype if isinstance(v, torch.Tensor) else torch.from_numpy(
+        np.empty(0, v.dtype)).dtype
+
+
+def _pinned_or_device(v) -> bool:
+    return isinstance(v, torch.Tensor) and (v.device.type != "cpu" or v.is_pinned())
+
+
 class _Banks:
-    """``depth`` device slots for one partition layout, with their events."""
+    """``depth`` device slots for one partition layout, with their events,
+    and the page-locked host banks that stage its pageable fields."""
 
     def __init__(self, template: dict, depth: int, device: torch.device):
         compute = torch.cuda.current_stream(device)
-        self.slots = [{name: torch.empty(tuple(v.shape), dtype=_as_tensor(v).dtype,
-                                         device=device)
+        self.slots = [{name: torch.empty(tuple(v.shape), dtype=_dtype(v), device=device)
                        for name, v in template.items()} for _ in range(depth)]
         self.ready = [torch.cuda.Event() for _ in range(depth)]
         # the slots' memory may have served tensors the compute stream still
@@ -92,7 +172,16 @@ class _Banks:
         allocated = torch.cuda.Event()
         allocated.record(compute)
         self.consumed = [allocated] * depth
+        self.staging: list[dict] = [{} for _ in range(depth)]  # made at first use
         self.next = 0
+
+    def bank(self, i: int, name: str, like: torch.Tensor) -> torch.Tensor:
+        """Staging bank `i`'s page-locked tensor for field `name`."""
+        t = self.staging[i].get(name)
+        if t is None:
+            t = self.staging[i][name] = torch.empty(tuple(like.shape), dtype=like.dtype,
+                                                    pin_memory=True)
+        return t
 
 
 class DoubleBufferedStream:
@@ -100,7 +189,10 @@ class DoubleBufferedStream:
     flight (``depth`` slots, see the module docstring).
 
     ``put_fn`` replaces the slot copy by the caller's own transfer (it gets
-    the host item and returns the item to yield). ``device=None`` means
+    the host item and returns the item to yield). Without one, every
+    transfer first fires the active fault injector's ``on_device_put``, and
+    pageable fields go through the stream's page-locked staging banks (see
+    the module docstring). ``device=None`` means
     CUDA, which must exist; on ``device="cpu"`` items pass unchanged (numpy
     arrays become tensors).
 
@@ -142,6 +234,7 @@ class DoubleBufferedStream:
         self._buf: collections.deque = collections.deque()
         self._banks: dict = {}
         self._copy_stream = None
+        self._pool: ThreadPoolExecutor | None = None  # staging threads, one pass
         self._started = False
         self._next_i = 0  # stream position of the next item the source yields
         self.transfers = 0  # observability: number of partitions delivered
@@ -160,8 +253,9 @@ class DoubleBufferedStream:
         where slot is (banks, i) for a slot copy, else None."""
         if self._put_fn is not None:
             return self._put_fn(item), None
+        _on_device_put(item)
         if self._device.type != "cuda":
-            return device_put_partition(item, self._device), None
+            return _move(item, self._device), None
         named = isinstance(item, tuple) and hasattr(item, "_fields")
         arrays = _array_fields(item) if named else {"": item}
         if not arrays:
@@ -176,10 +270,23 @@ class DoubleBufferedStream:
         i = banks.next
         banks.next = (i + 1) % self._depth
         slot = banks.slots[i]
+        sources = {}
+        for name, v in arrays.items():
+            if _pinned_or_device(v):
+                sources[name] = v
+                continue
+            # pageable: fill page-locked bank i once the copy out of it (the
+            # slot's previous "copy done") has completed
+            banks.ready[i].synchronize()
+            if self._pool is None and stage_threads() > 1:
+                self._pool = ThreadPoolExecutor(stage_threads(),
+                                                thread_name_prefix="stream-stage")
+            sources[name] = banks.bank(i, name, slot[name])
+            stage(sources[name], v, self._pool)
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(banks.consumed[i])
-            for name, v in arrays.items():
-                slot[name].copy_(_as_tensor(v), non_blocking=True)
+            for name, v in sources.items():
+                slot[name].copy_(v, non_blocking=True)
             banks.ready[i].record(self._copy_stream)
         out = item._replace(**slot) if named else slot[""]
         return out, (banks, i)
@@ -246,6 +353,9 @@ class DoubleBufferedStream:
                 # copies still in flight finish before the compute stream
                 # (and the allocator, in its order) moves on
                 compute.wait_stream(self._copy_stream)
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
 
 
 def prefetch_to_device(host_iter: Iterable[T], depth: int = 2, put_fn=None, device=None):

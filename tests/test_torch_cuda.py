@@ -391,6 +391,46 @@ def test_pinned_store_streams_the_resident_answer(dev, depth):
     assert torch.equal(got8.topk.indices, oracle.indices)
 
 
+@pytest.mark.parametrize("depth", [1, 2])
+def test_store_in_files_streams_through_pinned_staging(dev, depth, tmp_path):
+    """A store written to files and reopened streams its mapped shards
+    through the stream's page-locked banks: never pinned itself, and
+    bit-identical to the same rows in a pinned host store."""
+    import numpy as np
+
+    from repro_torch.core.streaming import DoubleBufferedStream
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(50_000, 200, generator=g, device=dev)
+    q = x[:16] + 0.1 * torch.randn(16, 200, generator=g, device=dev)
+    ram = DatasetStore.from_array(x, rows_per_shard=8192, pin_memory=True)
+    DatasetStore.from_array(x, rows_per_shard=8192, directory=str(tmp_path))
+    files = DatasetStore.open(str(tmp_path), verify=True)
+    for store in (ram, files):
+        store.ensure_tier("int8", device=dev)
+    engines = [ExactKNN(k=50, backend="cuda", prefetch_depth=depth).fit_store(
+        store, resident=False).enable_int8() for store in (ram, files)]
+    assert files.is_mmap and not files.is_pinned
+    for tier, want_exec in (("f32", "fqsd-mmap-streamed"), ("int8", "fqsd-int8-mmap-streamed")):
+        want = engines[0].search(SearchRequest(queries=q, tier=tier))
+        K.reset_launch_counts()
+        got = engines[1].search(SearchRequest(queries=q, tier=tier))
+        torch.cuda.synchronize()
+        assert got.plan.executor == want_exec and got.stats["transfers"] == 7
+        assert K.LAUNCHES["knn_merge"] == 7
+        assert torch.equal(got.topk.scores, want.topk.scores)
+        assert torch.equal(got.topk.indices, want.topk.indices)
+        assert torch.equal(torch.as_tensor(got.certified), torch.as_tensor(want.certified))
+    stream = DoubleBufferedStream(files.shard_source("int8"), depth=depth)
+    for p, host in zip(stream, files.shard_source("int8")):
+        assert p.q.is_cuda and torch.equal(p.q.cpu(), torch.from_numpy(np.array(host.q)))
+        assert torch.equal(p.qnorm.cpu(), host.qnorm)
+    banks = next(iter(stream._banks.values()))
+    staged = [t for bank in banks.staging for t in bank.values()]
+    assert staged and all(t.is_pinned() for t in staged)
+
+
 def test_speculation_snapshot_equals_a_synchronous_copy(dev):
     from repro_torch.core.streaming import SpeculativeGather
     from repro_torch.store import DatasetStore

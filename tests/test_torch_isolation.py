@@ -162,3 +162,19 @@ def test_streamed_search_without_device_needs_cuda():
     res = eng.search(SearchRequest(queries=x[:2]))
     assert res.plan.executor == "fqsd-mmap-streamed" and res.topk.indices.tolist() == [[0, 1],
                                                                                       [1, 0]]
+
+
+@pytest.mark.parametrize("rel", ["faults.py", "store/manifest.py"])
+def test_store_read_side_keeps_its_own_copies(rel):
+    """The fault layer and the manifest are the port's own copies of
+    modules the reference also keeps free of JAX: stdlib and numpy only,
+    and not the reference's objects."""
+    tree = ast.parse((PORT / rel).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+    assert {m.split(".")[0] for m in names} <= {"__future__", "contextlib", "dataclasses",
+                                                 "json", "os", "threading", "time",
+                                                 "collections", "zlib", "numpy"}, rel
+    port = importlib.import_module("repro_torch." + rel.removesuffix(".py").replace("/", "."))
+    assert "repro." not in port.__name__ and port.__file__.startswith(str(PORT))
