@@ -90,18 +90,47 @@ Phases, in order (any failure makes the run exit non-zero):
              staging-only bound (bytes shipped over the staging rate); then
              check (c) of phase 6 on two shards read from the mapping. The
              directory is deleted at the end, whatever the outcome.
-8. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+8. mutate  — the store's write side at the GIST shape (phase 3's data, seed
+             3): 16,128 rows upserted in batches of 1, 127 and 16,000 (3 full
+             delta shards of 4,096 rows and a partial one of 3,840), then
+             10,000 main rows and 100 delta rows deleted, (a) on a resident
+             engine whose one shard (1,048,576 rows, room for the live rows
+             after the fold) lives on the card: FD-SQ m = 1, k = 72 and FQ-SD
+             m = 16, k = 1024 (knn_scan + knn_merge on the main shard, then on
+             every delta shard, one queue finished once), then the int8 tier
+             at m = 16, k = 1024 (delta rows merged in the direct form); then
+             compact() and the same searches; (b) on phase 6's pinned host
+             store, streamed at depth 2 (f32 and int8); (c) on phase 7's store
+             in files under build/ (journaled, fsync'd): searched, closed,
+             reopened (the journal replayed), searched, compacted to
+             gen_000001 with its int8 tier quantised again, the old
+             generation's files gone, reopened with verify=True, searched.
+             Checks: every f32 result bit-identical in values to a fresh
+             fdsq-cuda engine fitted on the live rows in external-id order
+             and equal in indices once its positions are mapped to ids;
+             every int8 result so against the port's knn_exact_direct over
+             those rows; the launch counts; f32 streamed transfers = main +
+             delta shards; no executable-cache entry added after the first
+             search of each tier that met a delta shard (printed before and
+             after). Measurements, not gates: upsert ms a batch (card, pinned
+             host, journaled in files), delete ms, search ms with 0, 1 and 4
+             delta shards, compact() s (card, files), open() + replay s; and
+             knn_scan and knn_merge on one delta shard (4,096 x 1024, m = 1
+             and 16) beside their plain versions, library calls and bounds.
+             The directory is deleted at the end, whatever the outcome.
+9. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024; then
              l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
              (bf16) and 256 (f32), each one launch with the counters at 0,
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-8 are the main path. The launch counters are set to 0 just before
-each search (phase 8: before l2dist + topk, and before each l2dist shape)
+Phases 3-9 are the main path. The launch counters are set to 0 just before
+each search (phase 9: before l2dist + topk, and before each l2dist shape)
 and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phases 6
-and 7: once a shard, beside knn_scan or knn_int8_scan once a shard). Each result
+and 7: once a shard, beside knn_scan or knn_int8_scan once a shard; phase
+8: once for the main shard and once a delta shard). Each result
 is held against the plain version on the same padded operands within
 TOL_REL·(qn + max xn) per score (f32 sums over d terms taken in another
 order), with indices equal wherever the plain scores around them are more
@@ -174,7 +203,7 @@ EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1
 GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
-#: phase 7: the main path at (m, n, d), then l2dist alone at each (M, dtype)
+#: phase 9: the main path at (m, n, d), then l2dist alone at each (M, dtype)
 #: of "l2dist" and both of its kernels at the batches of "crossover_ms",
 #: each timed (beside its plain version and library call) over runs of
 #: "calls" calls back to back
@@ -188,6 +217,15 @@ STREAMED = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
 #: its mappings
 MMAP = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
             depths=(1, 2), repeats=5)
+#: phase 8: phase 3's GIST data mutated (upsert batches, deletes of main and
+#: delta rows), searched at the FD-SQ (m, k) and the FQ-SD (m, k) of the
+#: paper's shapes, the int8 tier at the FQ-SD one; the resident store is one
+#: shard of resident_rows (room for the live rows after the fold, so the
+#: compaction keeps its shape), the streamed and on-disk ones phase 6's and
+#: phase 7's shards
+MUTATE = dict(n=1_000_000, d=960, seed=3, upserts=(1, 127, 16_000), delete_main=10_000,
+              delete_delta=100, fdsq=(1, 72), fqsd=(16, 1024), resident_rows=1 << 20,
+              rows_per_shard=65_536, oracle_chunk=1024, repeats=5)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -1470,7 +1508,323 @@ class Smoke:
         torch.cuda.empty_cache()
         return bool(ok)
 
-    # --------------------------------------------------- phase 8: kernels
+    # ---------------------------------------------------- phase 8: mutate
+    def phase_mutate(self) -> bool:
+        """The store's write side at the GIST shape: resident on the card,
+        streamed from pinned host RAM, and in files under build/ (deleted at
+        the end, whatever the outcome)."""
+        import shutil
+
+        directory = ROOT / "build" / "mutate_store"
+        shutil.rmtree(directory, ignore_errors=True)
+        try:
+            return self._mutate(directory)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+
+    def _timed(self, fn) -> tuple[object, float]:
+        """fn() and its host-clock ms, synchronised on both sides."""
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def _mutated(self, eng, u, dead_main, dead_delta) -> dict:
+        """The phase's history on an engine: the upsert batches, then the
+        two deletes; returns each call's host-clock ms."""
+        ms, start = {}, 0
+        for b in MUTATE["upserts"]:
+            _, ms[f"upsert_{b}"] = self._timed(lambda: eng.upsert(u[start: start + b]))
+            start += b
+        _, ms["delete_main"] = self._timed(lambda: eng.delete(dead_main))
+        _, ms["delete_delta"] = self._timed(lambda: eng.delete(dead_delta))
+        return ms
+
+    def _same_as_fresh(self, got, want, live) -> bool:
+        """Values bit-identical, indices equal once the fresh engine's
+        positions are mapped to external ids."""
+        torch = self.torch
+        wi = want.indices
+        mapped = torch.where(wi >= 0, live[wi.clamp(min=0).to(torch.int64)], -1)
+        return (torch.equal(got.scores, want.scores)
+                and torch.equal(got.indices.to(torch.int64), mapped))
+
+    def _mutated_search(self, label, eng, req, want, live, kernels, n_shards=None) -> bool:
+        """One search of the mutated engine, counters at 0 around it: its
+        executor, launches (each kernel of `kernels` that many times) and
+        transfers, against the fresh engine's answer. Returns (ok, the
+        result, the launch counts read)."""
+        K = self.K
+        self.sync()
+        K.reset_launch_counts()
+        res = eng.search(req)
+        self.sync()
+        launches = dict(K.LAUNCHES)
+        ok = all(launches[name] == n for name, n in kernels.items())
+        ok &= sum(launches.values()) == sum(kernels.values())
+        if n_shards is not None:
+            ok &= res.stats.get("transfers") == n_shards
+        same = self._same_as_fresh(res.topk, want, live)
+        log(f"mutate {label}: executor={res.plan.executor} launches={launches} "
+            f"transfers={res.stats.get('transfers')} health={res.stats['health']} "
+            f"bit-identical to the fresh fit on the live rows={same} ok={ok and same}")
+        return bool(ok and same), res, launches
+
+    def _mutate(self, directory: Path) -> bool:
+        import shutil
+
+        torch, ops = self.torch, self.ops
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core.executors import cache_info
+        from repro_torch.store import DatasetStore, read_current
+
+        cfg = MUTATE
+        n, d = cfg["n"], cfg["d"]
+        (m1, k1), (m16, k16) = cfg["fdsq"], cfg["fqsd"]
+        x, q = self._dataset(n, d, m16, seed=cfg["seed"])
+        g = torch.Generator(device=self.dev).manual_seed(31)
+        n_up = sum(cfg["upserts"])
+        u = torch.randn(n_up, d, generator=g, device=self.dev)
+        dead_main = torch.randperm(n, generator=g, device=self.dev)[: cfg["delete_main"]]
+        dead_delta = n + torch.randperm(n_up, generator=g, device=self.dev)[: cfg["delete_delta"]]
+        keep = torch.ones(n + n_up, dtype=torch.bool, device=self.dev)
+        keep[dead_main], keep[dead_delta] = False, False
+        live = torch.nonzero(keep).reshape(-1)  # external ids, in order
+        dead_main, dead_delta = dead_main.cpu().numpy(), dead_delta.cpu().numpy()
+        n_delta = -(-n_up // 4096)
+
+        # the oracle: a fresh fdsq-cuda engine fitted on the live rows
+        t0 = time.perf_counter()
+        fresh = ExactKNN(k=k16, backend="cuda", device=self.dev).fit(torch.cat([x, u])[live])
+        reqs = {"fdsq": SearchRequest(queries=q[:m1], k=k1, mode_hint="fdsq"),
+                "fqsd": SearchRequest(queries=q, k=k16, mode_hint="fqsd")}
+        want = {mode: fresh.search(r).topk for mode, r in reqs.items()}
+        oracle8 = ops.knn_exact_direct(fresh._pad_queries(q), fresh._ds.vectors,
+                                       fresh._ds.norms, k16, cfg["oracle_chunk"])
+        self.sync()
+        log(f"mutate: {n} rows + {n_up} upserted - {len(dead_main)} main - {len(dead_delta)} "
+            f"delta deleted = {live.numel()} live; the fresh engine on them and its answers "
+            f"(f32 m={m1} k={k1}, m={m16} k={k16}; knn_exact_direct m={m16} k={k16}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del fresh
+        torch.cuda.empty_cache()
+        req8 = SearchRequest(queries=q, k=k16, tier="int8")
+        ok = True
+        timing = {"card": self.card}
+
+        # ---- (a) resident: one shard on the card, room for the fold
+        store = DatasetStore.from_array(x, row_mult=cfg["resident_rows"])
+        del x
+        eng = ExactKNN(k=k16, backend="cuda", device=self.dev).fit_store(store)
+        reps = cfg["repeats"]
+        search_ms = {}
+
+        def time_searches(n_shards_delta):
+            for mode, r in reqs.items():
+                search_ms[f"{mode}_{n_shards_delta}_delta"] = self.host_clock_ms(
+                    lambda: eng.search(r), reps)[0]
+
+        time_searches(0)
+        eng.enable_int8()
+        eng.search(req8)
+        self.sync()
+        cache0 = cache_info()
+        ms, start = {}, 0
+        for b in cfg["upserts"]:
+            _, ms[f"upsert_{b}"] = self._timed(lambda: eng.upsert(u[start: start + b]))
+            start += b
+            if start == 1:
+                time_searches(1)
+        _, ms["delete_main"] = self._timed(lambda: eng.delete(dead_main))
+        _, ms["delete_delta"] = self._timed(lambda: eng.delete(dead_delta))
+        timing["resident"] = ms
+        ok &= len(store.delta_shards()) == n_delta and store.delta_shards()[0].vectors.is_cuda
+        kernels = {"knn_scan": 1 + n_delta, "knn_merge": 1 + n_delta}
+        delta_launches = {}  # each mode's launches on its delta shards
+        for mode, r in reqs.items():
+            good, _, launches = self._mutated_search(f"resident f32 {mode}", eng, r,
+                                                     want[mode], live, kernels)
+            delta_launches[mode] = {name: launches[name] - 1 for name in kernels}
+            ok &= good
+        good, res8, _ = self._mutated_search("resident int8", eng, req8, oracle8, live,
+                                          {"knn_int8_scan": 1, "knn_merge": 1})
+        ok &= good
+        cache1 = cache_info()
+        time_searches(n_delta)
+        timing["search_ms"] = search_ms
+        log(f"mutate resident: upsert/delete ms {ms}; search ms (median of {reps}) with 0, 1 "
+            f"and {n_delta} delta shards {search_ms}; certified share "
+            f"{float(res8.certified.float().mean()):.4f} [{self.card}]")
+
+        # the delta-shard kernels at their shape, merging into the queue the
+        # main scan of that search gives (the resident view, tombstones in)
+        qv = eng._pad_queries(q)
+        for mode, (m, k) in (("fdsq", cfg["fdsq"]), ("fqsd", cfg["fqsd"])):
+            call = ops.prepare(qv[:m], eng._ds.vectors, k, "l2", eng._ds.norms)
+            v, i, _ = self.K.knn_fused(call.q, call.x, call.xn, call.k_eff, call.metric,
+                                       *call.blocks, True)
+            ok &= self._delta_kernels(f"mutate_delta_shard_m{m}_k{k}", qv[:m],
+                                      eng._delta_dev[0], (v[:m], i[:m]), k,
+                                      delta_launches[mode])
+
+        # fold, swap, and the same answers with no new executable
+        stats, compact_ms = self._timed(store.compact)
+        timing["compact_card_s"] = compact_ms / 1e3
+        for mode, r in reqs.items():
+            good, _, _ = self._mutated_search(f"resident f32 {mode} after compact()", eng, r,
+                                              want[mode], live, {"knn_scan": 1, "knn_merge": 1})
+            ok &= good
+        good, _, _ = self._mutated_search("resident int8 after compact()", eng, req8, oracle8,
+                                          live, {"knn_int8_scan": 1, "knn_merge": 1})
+        ok &= good
+        cache2 = cache_info()
+        flat = (cache2["misses"], cache2["size"]) == (cache1["misses"], cache1["size"])
+        ok &= flat and store.generation == 1 and store.n_shards == 1
+        log(f"mutate resident: compact() {compact_ms / 1e3:.3f} s on the card {stats}; "
+            f"cache_info before the mutations {cache0}, after the first delta searches "
+            f"{cache1}, after compact() and its searches {cache2}: no entry added={flat} "
+            f"[{self.card}]")
+        del eng, store
+        torch.cuda.empty_cache()
+
+        # ---- (b) streamed: phase 6's pinned host store, depth 2
+        x, _ = self._dataset(n, d, m16, seed=cfg["seed"])
+        host = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"], pin_memory=True)
+        host.ensure_tier("int8", device=self.dev)
+        n_main = host.n_shards
+        seng = ExactKNN(k=k16, backend="cuda", device=self.dev, prefetch_depth=2).fit_store(
+            host, resident=False).enable_int8()
+        timing["pinned_host"] = self._mutated(seng, u, dead_main, dead_delta)
+        ok &= (len(host.delta_shards()) == n_delta and host.delta_shards()[0].vectors.is_pinned())
+        for mode, r in reqs.items():
+            good, _, _ = self._mutated_search(
+                f"streamed f32 {mode}", seng, r, want[mode], live,
+                {"knn_scan": n_main + n_delta, "knn_merge": n_main + n_delta}, n_main + n_delta)
+            ok &= good
+        # the int8 stream carries the main shards' codes; the delta rows merge
+        # in the rescore, through a double buffer of their own
+        good, _, _ = self._mutated_search("streamed int8", seng, req8, oracle8, live,
+                                          {"knn_int8_scan": n_main, "knn_merge": n_main}, n_main)
+        ok &= good
+        log(f"mutate streamed: upsert/delete ms {timing['pinned_host']} [{self.card}]")
+        del seng, host
+        torch.cuda.empty_cache()
+
+        # ---- (c) files: journaled, reopened, compacted to gen_000001
+        directory.parent.mkdir(parents=True, exist_ok=True)
+        log(f"mutate files: {shutil.disk_usage(directory.parent).free} B free under "
+            f"{directory.parent} on {self._filesystem(directory.parent)} before writing")
+        written = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"],
+                                          directory=str(directory))
+        written.ensure_tier("int8", device=self.dev)
+        del x
+
+        def engine(st):
+            return ExactKNN(k=k16, backend="cuda", device=self.dev).fit_store(
+                st, resident=False).enable_int8()
+
+        def searches(label, eng, n_m=n_main, n_d=n_delta) -> tuple[bool, dict]:
+            good, got = True, {}
+            for mode, r in reqs.items():
+                g_, got[mode], _ = self._mutated_search(
+                    f"files f32 {mode} {label}", eng, r, want[mode], live,
+                    {"knn_scan": n_m + n_d, "knn_merge": n_m + n_d}, n_m + n_d)
+                good &= g_
+            g_, got["int8"], _ = self._mutated_search(f"files int8 {label}", eng, req8, oracle8,
+                                                      live, {"knn_int8_scan": n_m,
+                                                             "knn_merge": n_m}, n_m)
+            return good and g_, got
+
+        timing["journaled"] = self._mutated(engine(written), u, dead_main, dead_delta)
+        good, before = searches("before close()", engine(written))
+        ok &= good
+        written.close()
+        reopened, open_ms = self._timed(lambda: DatasetStore.open(str(directory)))
+        ok &= reopened.n_delta == n_up and reopened.n_live == live.numel()
+        feng = engine(reopened)
+        good, after = searches("after open() + replay", feng)
+        ok &= good and all(torch.equal(before[key].topk.scores, after[key].topk.scores)
+                           and torch.equal(before[key].topk.indices, after[key].topk.indices)
+                           for key in before)
+        stats, compact_ms = self._timed(reopened.compact)
+        gone = (read_current(str(directory)) == "gen_000001"
+                and not (directory / "manifest.json").exists()
+                and not (directory / "shard_00000.f32.bin").exists()
+                and (directory / "gen_000001" / "shard_00000.int8.bin").exists()
+                and reopened.tiers == ("f32", "int8"))
+        ok &= gone
+        n_folded = reopened.n_shards
+        good, _ = searches("after compact()", feng, n_folded, 0)  # the engine refits on the swap
+        ok &= good
+        reopened.close()
+        verified, verify_ms = self._timed(lambda: DatasetStore.open(str(directory), verify=True))
+        good, _ = searches("after a verified reopen", engine(verified), n_folded, 0)
+        ok &= good and verified.generation == 1 and verified.n_delta == 0
+        verified.close()
+        timing.update({"open_replay_s": open_ms / 1e3, "compact_files_s": compact_ms / 1e3,
+                       "verify_open_s": verify_ms / 1e3})
+        log(f"mutate files: journaled upsert/delete ms {timing['journaled']}; open() + replay "
+            f"{open_ms / 1e3:.3f} s; compact() {compact_ms / 1e3:.3f} s {stats}; old generation "
+            f"gone, gen_000001 with int8={gone}; open(verify=True) {verify_ms / 1e3:.3f} s "
+            f"[{self.card}]")
+        log("mutate timings " + json.dumps(timing))
+        return bool(ok)
+
+    def _delta_kernels(self, label, q, shard, queue, k, launches) -> bool:
+        """knn_scan and knn_merge at one delta shard's shape, as the step of
+        a resident search runs them (the main shard's queue running):
+        against their plain versions (the scan within TOL_REL, the merge bit
+        for bit), timed beside them, the library calls and the bounds.
+        `launches` are the delta-shard launches of the resident search at
+        this shape, read from the counters."""
+        torch, K, ops = self.torch, self.K, self.ops
+        m, d = q.shape[0], MUTATE["d"]
+        call = ops.prepare(q, shard.vectors, k, "l2", shard.norms)
+        bm, bn, _ = call.blocks
+        qn = torch.sum(call.q * call.q, dim=-1)
+        m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
+        splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        args = (call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
+        sv, si, _ = K.knn_scan(*args)
+        pv, pi, _ = K.knn_scan_plain(*args)
+        xmax = float(call.xn[torch.isfinite(call.xn)].max())
+        ok_scan, err_scan, _ = self._close(sv, si, pv, pi, TOL_REL * (qn[:, None, None] + xmax))
+        v, i = queue
+        qv_all = torch.cat([sv[:m], v[:, None]], 1)
+        qi_all = torch.cat([torch.where(torch.isfinite(sv[:m]), si[:m] + shard.base_index, -1),
+                            i[:, None]], 1)
+        mv, mi = K.knn_merge(qv_all, qi_all)
+        pmv, pmi = K.knn_merge_plain(qv_all, qi_all)
+        merge_exact = torch.equal(mv, pmv) and torch.equal(mi, pmi)
+        self.sync()
+        rows = shard.n_valid
+        numbers = {
+            "knn_scan": (self.ms(lambda: K.knn_scan(*args)), self.ms(lambda: K.knn_scan_plain(*args)),
+                         self._library_scan_ms(label, q[:, :d], shard.vectors[:rows, :d], k)[0],
+                         "torch.topk(torch.cdist(q, shard)**2)",
+                         self.bound((rows + m) * d * 4 + (rows + m) * 4 + m * k * 8,
+                                    m * rows * (2 * d + L2_EPILOGUE_OPS)), err_scan),
+            "knn_merge": (self.ms(lambda: K.knn_merge(qv_all, qi_all)),
+                          self.ms(lambda: K.knn_merge_plain(qv_all, qi_all)),
+                          self.ms(lambda: torch.topk(qv_all.reshape(m, -1), call.k_eff,
+                                                     largest=False)),
+                          "torch.topk(queues.reshape(m, -1))",
+                          self.bound(*self.merge_work(qv_all, qi_all, mv, mi)),
+                          0.0 if merge_exact else math.inf)}
+        shape = {"shape": label, "per": "one launch on one delta shard of "
+                 f"{tuple(shard.vectors.shape)}", "splits": splits, "kernels": {}}
+        for name, (t, tp, tl, lib, (bb, by), err) in numbers.items():
+            shape["kernels"][name] = {
+                "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
+                "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
+            log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
+                f"bound_ms={bb:.6f} ({by}) per delta shard; launches a search={launches[name]} "
+                f"max|d|={err:.3e} [{self.card}]")
+        self.shapes.append(shape)
+        return bool(ok_scan and merge_exact)
+
+    # --------------------------------------------------- phase 9: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix;
         then l2dist alone at each shape of STANDALONE["l2dist"]."""
@@ -1496,6 +1850,7 @@ class Smoke:
         log(f"{label}: launches={launches}")
 
         qn, xn = row_norms_sq(q), row_norms_sq(x)
+        self._row_norms_cost(x, row_norms_sq)
         plain = L.l2dist_plain(q, x, qn, xn)
         tol = TOL_REL * (qn[:, None] + float(xn.max()))
         ok_l2 = bool(((dist - plain).abs() <= tol).all()) and bool(torch.isfinite(dist).all())
@@ -1553,6 +1908,25 @@ class Smoke:
             ok &= self._l2dist_shape(L, x, queries[:mm], getattr(torch, dtype_name))
         self._l2dist_crossover(L, x, queries)
         return ok
+
+    def _row_norms_cost(self, x, row_norms_sq) -> None:
+        """The cost of row_norms_sq's fixed summation order
+        (sum_last_fixed, a row's bits independent of its neighbours) at a
+        fit's shape, beside the torch.sum order it replaced, chunked alike."""
+        torch = self.torch
+        from repro_torch.core.distance import _NORM_CHUNK_ROWS as chunk
+
+        def torch_sum_order():
+            out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+            for s in range(0, x.shape[0], chunk):
+                c = x[s: s + chunk].to(torch.float32)
+                out[s: s + chunk] = torch.sum(c * c, dim=-1)
+            return out
+
+        fixed_ms = self.ms(lambda: row_norms_sq(x))
+        sum_ms = self.ms(torch_sum_order)
+        log(f"row_norms_sq {tuple(x.shape)} f32: fixed order ms={fixed_ms:.4f} torch.sum "
+            f"order ms={sum_ms:.4f} [{self.card}]")
 
     def _l2dist_shape(self, L, x, q, dtype) -> bool:
         """l2dist alone on (q, x) in `dtype`: one launch with the counters
@@ -1651,7 +2025,7 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "kernels")
+PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "kernels")
 
 
 def main(argv=None) -> int:

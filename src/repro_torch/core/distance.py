@@ -28,12 +28,17 @@ def validate_metric(metric: str) -> None:
 
 
 def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
-    """||x_i||^2 per row, in f32, computed a chunk of rows at a time."""
-    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    """||x_i||^2 per row, in f32, computed a chunk of rows at a time and
+    summed by :func:`sum_last_fixed`: a row's norm has the same bits on
+    the host and on the card, whatever rows are computed beside it (a row
+    upserted alone and the same row in a fresh fit)."""
+    out = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if x.shape[-1] == 0:
+        return out
     flat, res = x.reshape(-1, x.shape[-1]), out.reshape(-1)
     for s in range(0, flat.shape[0], _NORM_CHUNK_ROWS):
         c = flat[s: s + _NORM_CHUNK_ROWS].to(torch.float32)
-        res[s: s + _NORM_CHUNK_ROWS] = torch.sum(c * c, dim=-1)
+        res[s: s + _NORM_CHUNK_ROWS] = sum_last_fixed(c * c)
     return out
 
 

@@ -39,9 +39,16 @@ Usage (request-first API — every option is a per-request fact):
     eng = ExactKNN(k=10, backend="cuda").fit_store(store, resident=False)
     res = eng.search(SearchRequest(queries=Q))   # mapped shards stream
 
+    ids = eng.upsert(new_rows)               # visible to the next request
+    eng.delete(ids[:1])                      # ditto; still exact
+    eng.store.compact()                      # the next search refits
+
 The port serves single-device data: resident, or streamed from host RAM or
-from a store's memory-mapped files. Mutations and meshes raise
-``NotImplementedError`` naming the slice of the port that brings them.
+from a store's memory-mapped files. Mutations ride the store's delta shards
+and tombstones (+inf norms), so they change no shape; a resident engine
+merges its delta shards on the kernels of its backend (``knn_scan`` +
+``knn_merge`` a shard on ``cuda``). Meshes raise ``NotImplementedError``
+naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -54,7 +61,13 @@ import torch
 from repro_torch.api.types import AUTO_FDSQ_MAX_BATCH, SearchRequest, SearchResult
 from repro_torch.core import partition as part
 from repro_torch.core.distance import Metric, row_norms_sq, validate_metric
-from repro_torch.core.executors import ExecContext, TieredResident, execute
+from repro_torch.core.executors import (
+    ExecContext,
+    TieredResident,
+    cached_direct_step,
+    cached_partition_step,
+    execute,
+)
 from repro_torch.core.planner import (
     Backend,
     DatasetMeta,
@@ -223,6 +236,9 @@ class ExactKNN:
         self._cos_prenormalized = metric == "cos" and backend == "cuda"
         self._ds: part.PaddedDataset | None = None  # device f32 view
         self._int8: QuantizedDataset | None = None  # device int8 view
+        self._delta_dev: list[part.PaddedDataset] = []  # device delta shards
+        self._seen_mutations = 0
+        self._seen_generation = 0  # store generation the device views mirror
         self._plans: list[ExecutionPlan] = []
         self._last_ctx: ExecContext | None = None
 
@@ -253,7 +269,9 @@ class ExactKNN:
         copies only from pinned memory. A store in files is never pinned
         (that would read every file into page-locked RAM): the double
         buffer stages its mapped shards through page-locked banks of its
-        own.
+        own. A resident engine on a store with the int8 tier (l2) puts the
+        tier on its device too, and every resident engine puts the store's
+        delta shards there.
         """
         if resident is None:
             budget = self.device_budget_bytes
@@ -262,11 +280,17 @@ class ExactKNN:
         self._resident = bool(resident)
         self._ds = None
         self._int8 = None
+        self._delta_dev = []
+        self._seen_generation = store.generation
+        self._seen_mutations = store.mutation_count
         if self._resident:
             host = store.resident()
             self._attach(host.vectors, host.norms, host.n_valid, prenormalized=False)
+            if store.has_tier("int8") and self.metric == "l2":
+                self._put_int8()
         elif self.device.type == "cuda" and not store.is_mmap:
             store.pin()
+        self._put_delta_shards()
         return self
 
     def _attach(self, vectors: torch.Tensor, norms: torch.Tensor, n_valid: int,
@@ -302,6 +326,13 @@ class ExactKNN:
         if not self.is_fitted:
             raise RuntimeError("call .fit(dataset) first")
 
+    def _require_store(self, what: str):
+        """A store is attached (every fit; not a view carried in by
+        ``convert.engine_state_from_jax``)."""
+        self._require_fit()
+        if self._store is None:
+            raise RuntimeError(f"{what} requires a DatasetStore-backed fit")
+
     def _padded_dim(self) -> int:
         return (int(self._ds.vectors.shape[1]) if self._ds is not None
                 else self._store.padded_dim)
@@ -312,12 +343,99 @@ class ExactKNN:
             q = q[None, :]
         return part.pad_dim(q, self._padded_dim())
 
-    # --------------------------------------------------- later slices
-    def upsert(self, vectors):
-        raise NotImplementedError("store mutations are the store's write side (ROADMAP A7b)")
+    # ----------------------------------------------------------- mutation
+    def upsert(self, vectors) -> np.ndarray:
+        """Append rows under live traffic; returns their external ids. The
+        rows land in the store's fixed-geometry delta shards, so the next
+        search sees them exactly and no shape changes."""
+        self._require_store("mutations")
+        ids = self._store.upsert(vectors)
+        self._sync_mutations()
+        return ids
 
-    def delete(self, ids):
-        raise NotImplementedError("store mutations are the store's write side (ROADMAP A7b)")
+    def delete(self, ids) -> None:
+        """Tombstone rows by external id; searches exclude them at once. A
+        tombstone is a +inf norm: data, not a shape."""
+        self._require_store("mutations")
+        self._store.delete(ids)
+        self._sync_mutations()
+
+    def _sync_mutations(self) -> None:
+        """Bring the device views up to the store. A moved generation (a
+        compaction folded the delta into new shards) is a full re-put through
+        :meth:`fit_store`: geometry is kept across generations, so nothing
+        new is built. Otherwise, after mutations, the norms (tombstones)
+        are refreshed in place, with the same shape, and the delta shards
+        re-put; the resident vectors are untouched."""
+        if self._store is None:
+            return
+        if self._store.generation != self._seen_generation:
+            self.fit_store(self._store, resident=self._resident)
+            return
+        if self._store.mutation_count == self._seen_mutations:
+            return
+        self._seen_mutations = self._store.mutation_count
+        if self._resident:
+            self._ds = self._ds._replace(norms=self._store.resident_norms().to(self.device))
+            if self._int8 is not None:
+                # only the validity channel moves on a mutation; the codes,
+                # scales and errors went to the device once
+                self._int8 = self._int8._replace(
+                    norms_sq=self._store.int8_resident_norms().to(self.device))
+        self._put_delta_shards()
+
+    def _put_delta_shards(self) -> None:
+        """The store's delta shards on the device, for a resident engine
+        (a streamed search reads them from the store with its shards). A
+        full shard's rows never change: its device vectors are reused and
+        only its norms (tombstones) put again. Rows are cast to the view's
+        dtype, and L2-normalised for cos on the fused backend as the
+        resident rows were at fit."""
+        if not self._resident:
+            self._delta_dev = []
+            return
+        prev, fresh = self._delta_dev, []
+        for i, p in enumerate(self._store.delta_shards()):
+            rows = int(p.vectors.shape[0])
+            if i < len(prev) and prev[i].n_valid == rows == p.n_valid:
+                vec = prev[i].vectors
+            else:
+                vec = p.vectors.to(device=self.device, dtype=self.dtype)
+                if self._cos_prenormalized:
+                    vec = _normalize_rows(vec, self.dtype)
+            fresh.append(part.PaddedDataset(vec, p.norms.to(self.device), p.n_valid,
+                                            p.base_index))
+        self._delta_dev = fresh
+
+    def _masked_delta(self, mask: torch.Tensor | None) -> tuple[part.PaddedDataset, ...]:
+        """The device delta shards under a filter mask (+inf norm =
+        excluded), as :meth:`_masked_resident` folds it on the main view."""
+        if mask is None:
+            return tuple(self._delta_dev)
+        return tuple(p._replace(norms=torch.where(
+            _keep_rows(mask, p.base_index, p.n_valid, int(p.vectors.shape[0])),
+            p.norms, torch.inf)) for p in self._delta_dev)
+
+    def _merge_delta(self, out: TopK, queries: torch.Tensor, k: int, metric: str,
+                     tier: str, deltas: tuple[part.PaddedDataset, ...]) -> TopK:
+        """Fold the device delta shards into a resident result whose
+        executor left them out, exactly (fdsq-cuda merges them itself, one
+        ``knn_scan`` + ``knn_merge`` a shard into its kernel queue).
+
+        * an int8 result merges them through the direct-form step, the form
+          of every int8 answer (``knn_exact_direct``'s bits);
+        * a plain f32 result steps the (m, k) result through the cached
+          partition step on ``torch``, as the reference does."""
+        if tier == "int8":
+            step = cached_direct_step(k)
+            s, i = out.scores, out.indices
+            for p in deltas:
+                s, i = step(s, i, queries, p.vectors, p.norms, p.base_index)
+            return TopK(s, torch.where(torch.isfinite(s), i, -1))
+        step = cached_partition_step(k, metric, "torch")
+        for p in deltas:
+            out = step(out, queries, p.vectors, p.norms, p.base_index, p.n_valid)
+        return out
 
     # ---------------------------------------------------------- int8 tier
     def enable_int8(self) -> "ExactKNN":
@@ -326,18 +444,19 @@ class ExactKNN:
         non-resident one streams the per-shard codes through the
         fqsd-int8-streamed executor (quantised on the engine's device, kept
         in host memory beside the f32 shards)."""
-        self._require_fit()
-        if self._store is None:
-            raise RuntimeError("int8 tier requires a DatasetStore-backed fit")
+        self._require_store("int8 tier")
         if self.metric != "l2":
             raise ValueError("int8 tier supports the l2 metric only")
         if not self._resident:
             self._store.ensure_tier("int8", device=self.device)
             return self
         self._store.ensure_tier("int8")
+        self._put_int8()
+        return self
+
+    def _put_int8(self) -> None:
         self._int8 = QuantizedDataset(
             *(t.to(self.device) for t in self._store.int8_resident()))
-        return self
 
     @property
     def has_int8(self) -> bool:
@@ -388,14 +507,16 @@ class ExactKNN:
 
     def _run(self, p: ExecutionPlan, queries: torch.Tensor, dataset,
              prefetch_depth: int | None = None, spec_trigger: float | None = None,
-             max_retries: int | None = None, allow_partial: bool = False) -> TopK:
+             max_retries: int | None = None, allow_partial: bool = False,
+             delta: tuple[part.PaddedDataset, ...] = ()) -> TopK:
         self._plans.append(p)
         ctx = ExecContext(
             cos_prenormalized=self._cos_prenormalized,
             prefetch_depth=self.prefetch_depth if prefetch_depth is None else prefetch_depth,
             spec_trigger=spec_trigger,
             max_retries=self.max_retries if max_retries is None else int(max_retries),
-            retry_backoff_s=self.retry_backoff_s, allow_partial=bool(allow_partial))
+            retry_backoff_s=self.retry_backoff_s, allow_partial=bool(allow_partial),
+            delta=delta)
         self._last_ctx = ctx
         return execute(p, queries, dataset, ctx)
 
@@ -407,8 +528,9 @@ class ExactKNN:
     # ------------------------------------------------------------ request API
     @property
     def n_ids(self) -> int:
-        """Size of the row-id space; ``SearchRequest.filter_mask`` must have
-        exactly this length."""
+        """Size of the external row-id space (every id ever allocated,
+        deleted and compacted-away ids included: ids are never reused);
+        ``SearchRequest.filter_mask`` must have exactly this length."""
         self._require_fit()
         return self._store.n_ids if self._store is not None else int(self._ds.n_valid)
 
@@ -462,12 +584,33 @@ class ExactKNN:
                 raise RuntimeError("int8 tier not enabled; call enable_int8() first")
             if metric != "l2":
                 raise ValueError("int8 tier supports the l2 metric only")
-        return self._search_pinned(request, k, metric, tier)
+        self._sync_mutations()
+        if not hasattr(self._store, "snapshot"):
+            # no store (a resident view carried in by engine_state_from_jax)
+            # or a store wrapper without generations: nothing to pin
+            return self._search_pinned(request, k, metric, tier, None)
+        # pin the generation this search reads: a concurrent compaction may
+        # swap the store's live generation, and the pin keeps the pinned
+        # shards (and the id tables that read their positions) alive until
+        # the search ends. Re-sync until the pinned generation is the one
+        # the device views mirror.
+        view = self._store.snapshot()
+        while view.generation != self._seen_generation:
+            view.release()
+            self._sync_mutations()
+            view = self._store.snapshot()
+        try:
+            return self._search_pinned(request, k, metric, tier, view)
+        finally:
+            view.release()
 
     def _search_pinned(self, request: SearchRequest, k: int, metric: str,
-                       tier: str) -> SearchResult:
-        """The body of :meth:`search`: the resident view, or the streamed
-        shards of a non-resident store."""
+                       tier: str, view) -> SearchResult:
+        """The body of :meth:`search`, with `view` pinning the generation the
+        device views mirror: the resident view plus its delta shards, or the
+        streamed shards of a non-resident store. A filter mask comes in
+        external ids and is translated to the generation's positions here;
+        result indices go back to external ids at the end."""
         qv = self._pad_queries(request.queries)
         m = int(qv.shape[0])
         mode = request.mode_hint
@@ -477,21 +620,27 @@ class ExactKNN:
             mode = "fdsq" if m <= AUTO_FDSQ_MAX_BATCH else "fqsd"
         mask = request.filter_mask
         if mask is not None:
-            # streamed shards live on the host: so does their mask
-            mask = torch.as_tensor(mask).to(
-                device=self.device if self._resident else "cpu", dtype=torch.bool).reshape(-1)
+            mask = torch.as_tensor(mask).to(dtype=torch.bool).reshape(-1)
             if mask.shape[0] != self.n_ids:
                 raise ValueError(
                     "filter_mask must cover the engine's global id space "
                     f"({self.n_ids} rows), got {mask.shape[0]}")
+            if view is not None:
+                mask = torch.from_numpy(view.positional_mask(mask.cpu().numpy()))
+            # streamed shards live on the host: so does their mask
+            mask = mask.to(self.device if self._resident else "cpu")
         t0 = time.perf_counter()
+        meta = (view.meta(device_resident=self._resident, tier=tier) if view is not None
+                else self.dataset_meta(tier=tier))
         if not self._resident:
             # tier="int8" survives planning here: the out-of-core scan
-            # streams 1 B/element codes and rescores candidate rows only
-            p = plan_fn(qv.shape, self.dataset_meta(tier=tier), self.config(),
-                        "fqsd-streamed", stream_rows=self._store.rows_per_shard,
-                        k=k, metric=metric)
-            source = self._store if mask is None else _MaskedShardSource(self._store, mask)
+            # streams 1 B/element codes and rescores candidate rows only.
+            # Every read goes through the pinned view when there is one, so a
+            # generation swap mid-search cannot mix shards of two epochs
+            src = view if view is not None else self._store
+            p = plan_fn(qv.shape, meta, self.config(), "fqsd-streamed",
+                        stream_rows=src.rows_per_shard, k=k, metric=metric)
+            source = src if mask is None else _MaskedShardSource(src, mask)
             # pipeline knobs: the request's value, else the engine's (the
             # executor resolves a None trigger against its default)
             out = self._run(
@@ -500,13 +649,22 @@ class ExactKNN:
                               else self.spec_trigger),
                 max_retries=request.max_retries, allow_partial=request.allow_partial)
         else:
-            p = plan_fn((m, self._padded_dim()), self.dataset_meta(tier=tier),
-                        self.config(), mode, k=k, metric=metric)
+            p = plan_fn((m, self._padded_dim()), meta, self.config(), mode, k=k, metric=metric)
             dataset = self._masked_resident(mask)
             if p.tier == "int8":
                 dataset = TieredResident(dataset, self._masked_int8(mask))
+            deltas = self._masked_delta(mask)
             out = self._run(p, qv, dataset, max_retries=request.max_retries,
-                            allow_partial=request.allow_partial)
+                            allow_partial=request.allow_partial, delta=deltas)
+            if deltas and not self._last_ctx.delta_folded:
+                out = self._merge_delta(out, qv, k, metric, p.tier, deltas)
+        if view is not None and not view.identity:
+            # positions within a compacted generation are internal: the
+            # caller gets the stable external ids back (a relabelling of the
+            # indices; scores and order are untouched)
+            ext = view.external_ids(out.indices.cpu().numpy())
+            out = TopK(out.scores, torch.from_numpy(ext).to(out.indices.device,
+                                                            out.indices.dtype))
         dispatch_ms = (time.perf_counter() - t0) * 1e3
         ctx = self._last_ctx
         elem = 4 if self._ds is None else self._ds.vectors.element_size()

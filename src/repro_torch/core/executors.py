@@ -48,7 +48,6 @@ from repro_torch.core.streaming import (
     ResilientShardSource,
     SpeculativeGather,
     _fresh_health,
-    device_put_partition,
 )
 from repro_torch.core.topk import TopK, sort_pairs
 
@@ -92,8 +91,13 @@ class ExecContext:
     #: "rows_topped_up", "rows_wasted", "failed"}; wasted speculative
     #: fetches are also charged to bytes_scanned
     speculation: dict | None = None
-    #: set by executors that merge the store's delta shards themselves (the
-    #: int8 rescore tail does), so the engine never scores them twice
+    #: a resident engine's delta shards on the device (PaddedDataset, a
+    #: filter mask folded into their norms); fdsq-cuda merges them into its
+    #: kernel queue, and the engine merges them after any other executor
+    delta: tuple = ()
+    #: set by executors that merge the delta shards themselves (fdsq-cuda
+    #: merges ``delta``; the streamed int8 rescore tail merges the store's),
+    #: so the engine never scores them twice
     delta_folded: bool = False
     #: bounded-retry budget for shard reads, candidate gathers and
     #: transfers (exponential backoff from retry_backoff_s)
@@ -212,9 +216,17 @@ def _arr_key(a: torch.Tensor) -> tuple:
 def cached_partition_step(k: int, metric: str, backend: str = "torch") -> PartitionStep:
     """The shared streamed-scan step (one partition into the queues) of
     (k, metric) on `backend`; PyTorch compiles nothing per shape, so one
-    entry serves every shard shape."""
+    entry serves every shard shape, streamed shards and the engine's delta
+    shards alike."""
     return _cached(("partition-step", k, metric, backend),
                    lambda: PartitionStep(k, metric, backend))
+
+
+def cached_direct_step(k: int):
+    """The shared direct-form step (:func:`make_direct_partition_step`) of
+    width k: the streamed int8 oracle and fallback, and the exact merge of
+    delta rows into an int8 result."""
+    return _cached(("direct-step", k), lambda: make_direct_partition_step(k))
 
 
 # ------------------------------------------------------------- executors
@@ -248,8 +260,10 @@ def _plan_blocks(plan) -> tuple[int, int, int]:
 @register_executor("fdsq-cuda")
 def _fdsq_cuda(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
     """The fused distance + queue kernel; one entry serves both logical
-    modes. The pruning skip rate and the resolved tile shapes land on
-    ctx.kernel_stats."""
+    modes. A resident engine's delta shards (ctx.delta) merge into the
+    kernel's queue, one ``knn_scan`` + ``knn_merge`` each, before it is
+    finished once. The pruning skip rate (of the main scan) and the
+    resolved tile shapes land on ctx.kernel_stats."""
     from repro_torch.kernels.knn import ops as knn_ops
 
     bm, bn, bd = _plan_blocks(plan)
@@ -258,7 +272,9 @@ def _fdsq_cuda(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
     fn = _cached(key, lambda: functools.partial(
         knn_ops.knn, k=plan.k, metric=plan.metric, block_m=bm, block_n=bn,
         block_d=bd, return_stats=True, x_prenormalized=pre))
-    out, skip_rate = fn(queries, dataset.vectors, x_norms=dataset.norms)
+    out, skip_rate = fn(queries, dataset.vectors, x_norms=dataset.norms,
+                        shards=[(p.vectors, p.norms, p.base_index) for p in ctx.delta])
+    ctx.delta_folded = bool(ctx.delta)
     ctx.kernel_stats = {
         "prune_skip_rate": skip_rate,
         "blocks": knn_ops.resolved_blocks(plan.k, plan.padded_dim, bm, bn, bd,
@@ -421,7 +437,7 @@ def _rescore_certify(plan, queries, store, ctx, lb, li, scan_bytes, spec=None,
     m = int(queries.shape[0])
     r = _rescore_budget(plan)
     dev = queries.device
-    direct_step = _cached(("direct-step", plan.k), lambda: make_direct_partition_step(plan.k))
+    direct_step = cached_direct_step(plan.k)
     if ctx.stream_stats is None:
         ctx.stream_stats = {"transfers": 0, "restarts": 0}
 
@@ -469,11 +485,17 @@ def _rescore_certify(plan, queries, store, ctx, lb, li, scan_bytes, spec=None,
     s, i = s[:, :plan.k], i[:, :plan.k]
 
     # live delta rows have no int8 representation: merge them exactly
-    # through the direct-form step the oracle uses (order-invariant)
-    for p in store.delta_shards():
-        dp = _with_retries(lambda: device_put_partition(p, dev), ctx)
-        s, i = direct_step(s, i, queries, dp.vectors, dp.norms, p.base_index)
-        scan_bytes += int(p.vectors.shape[0]) * int(p.vectors.shape[1]) * 4
+    # through the direct-form step the oracle uses (order-invariant). They
+    # reach the card through a double buffer of their own, whose
+    # page-locked banks stage a pageable delta block: a copy from pageable
+    # memory is not asynchronous, and no block is pinned for a search
+    deltas = DoubleBufferedStream(store.delta_shards(), depth=ctx.prefetch_depth,
+                                  put_retries=ctx.max_retries,
+                                  retry_backoff_s=ctx.retry_backoff_s,
+                                  health=_ctx_health(ctx), device=dev)
+    for dp in deltas:
+        s, i = direct_step(s, i, queries, dp.vectors, dp.norms, dp.base_index)
+        scan_bytes += int(dp.vectors.shape[0]) * int(dp.vectors.shape[1]) * 4
     ctx.delta_folded = True
 
     cert = (lb_r1 > s[:, plan.k - 1]) | ~torch.isfinite(lb_r1)
@@ -561,8 +583,7 @@ def _int8_streamed(plan, queries, store, ctx) -> TopK:
             # them through the direct-form step keeps the certificate sound
             # and the result bit-identical to the f32 oracle
             if direct_r1 is None:
-                direct_r1 = _cached(("direct-step", r + 1),
-                                    lambda: make_direct_partition_step(r + 1))
+                direct_r1 = cached_direct_step(r + 1)
             lb, li = direct_r1(lb, li, queries, p.vectors, p.norms, p.base_index)
             scan_bytes += int(p.vectors.shape[0]) * int(p.vectors.shape[1]) * 4
         else:

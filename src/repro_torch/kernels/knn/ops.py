@@ -179,6 +179,7 @@ def knn(
     prune: bool = True,
     return_stats: bool = False,
     x_prenormalized: bool = False,
+    shards=(),
 ):
     """Exact kNN of (M, d) queries over an (N, d) dataset -> TopK((M,k),(M,k)).
 
@@ -189,13 +190,23 @@ def knn(
     rows are already L2-normalised for cos (done once at fit time);
     ``x_norms`` stays the raw-norm validity channel either way. With
     ``return_stats=True`` returns (TopK, skip_rate), skip_rate = pruned
-    tile merges / (m_tiles·n_tiles), a 0-d tensor.
+    tile merges / (m_tiles·n_tiles) of the main scan, a 0-d tensor.
+
+    ``shards`` are more (vectors, norms, base_index) blocks of x's width
+    (norms +inf on padded and excluded rows, rows normalised alike under
+    ``x_prenormalized``): each merges into the kernel's queue through
+    :func:`knn_shard` (one ``knn_scan`` + one ``knn_merge``), its indices
+    offset by base_index, and the queue is finished once, so cos scores get
+    their +1 once.
     """
     call = prepare(q, x, k, metric, x_norms, block_m, block_n, block_d, x_prenormalized)
     bm, bn, bd = call.blocks
     v, i, skips = knn_fused(call.q, call.x, call.xn, call.k_eff, call.metric, bm, bn, bd,
                             prune)
-    out = finish(call, v, i)
+    v, i = v[: call.m], i[: call.m]
+    for sx, sn, base in shards:
+        v, i = knn_shard(v, i, q, sx, sn, k, metric, int(base), x_prenormalized)
+    out = finish_queue(v, i, k, call.cos)
     if not return_stats:
         return out
     return out, skips.sum().to(torch.float32) / call.merges
@@ -336,16 +347,16 @@ def merge_shard(v: torch.Tensor, i: torch.Tensor, sv: torch.Tensor, si: torch.Te
 
 
 def knn_shard(v: torch.Tensor, i: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
-              x_norms: torch.Tensor, k: int, metric: str, base_index: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+              x_norms: torch.Tensor, k: int, metric: str, base_index: int,
+              x_prenormalized: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One shard of a streamed f32 scan on the kernels: ``knn_scan`` over
-    the shard (its rows normalised by :func:`prepare` for cos), then
-    :func:`merge_shard` into the running (m, next_pow2(k)) queue of kernel
-    scores (ip form for cos: :func:`finish_queue` adds the 1). Two
-    launches a shard; the same kernel scores every pair as a resident
-    search does, and merging sorted queues is exact, so the streamed result
-    is the resident one bit for bit."""
-    call = prepare(q.to(x.dtype), x, k, metric, x_norms)
+    the shard (its rows normalised by :func:`prepare` for cos, unless
+    ``x_prenormalized``), then :func:`merge_shard` into the running (m,
+    next_pow2(k)) queue of kernel scores (ip form for cos:
+    :func:`finish_queue` adds the 1). Two launches a shard; the same kernel
+    scores every pair as a resident search does, and merging sorted queues
+    is exact, so the streamed result is the resident one bit for bit."""
+    call = prepare(q.to(x.dtype), x, k, metric, x_norms, x_prenormalized=x_prenormalized)
     bm, bn, _ = call.blocks
     qn = torch.sum(call.q.to(torch.float32) ** 2, dim=-1)
     sv, si, _ = knn_scan(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)

@@ -450,3 +450,126 @@ def test_speculation_snapshot_equals_a_synchronous_copy(dev):
     want = torch.unique(expected.cpu().to(torch.int64))  # a synchronous copy
     assert torch.equal(got_ids, want)
     assert torch.equal(rows, store.gather_rows(want))
+
+
+# ------------------------------------------------ the store's write side
+def _live_fresh(rows, live, metric, dev):
+    """A fresh fdsq-cuda engine fitted on the live rows, in external-id order."""
+    return ExactKNN(k=50, metric=metric, backend="cuda").fit(rows[torch.as_tensor(live, device=dev)])
+
+
+def _same_as_fresh(got, want, live):
+    wi = want.topk.indices.cpu().numpy()
+    import numpy as np
+
+    mapped = np.where(wi >= 0, np.asarray(live)[np.maximum(wi, 0)], -1)
+    return (torch.equal(got.topk.scores, want.topk.scores)
+            and bool((got.topk.indices.cpu().numpy() == mapped).all()))
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_resident_delta_merge_equals_a_fresh_fit(dev, metric):
+    """Upserts (one row, a batch, enough for two full delta shards and a
+    partial one) and deletes on a resident engine on the card: each search
+    runs knn_scan + knn_merge on every delta shard and finishes the queue
+    once, bit-identical to a fresh fit on the live rows, before and after a
+    compaction."""
+    import numpy as np
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(20_000, 96, generator=g, device=dev)
+    extra = torch.randn(9_000, 96, generator=g, device=dev)
+    q = extra[:16] + 0.1 * torch.randn(16, 96, generator=g, device=dev)
+    eng = ExactKNN(k=50, metric=metric, backend="cuda").fit(x)
+    ids = np.concatenate([eng.upsert(extra[:1]), eng.upsert(extra[1:127]),
+                          eng.upsert(extra[127:])])
+    dead = [3, 19_999, int(ids[0]), int(ids[5000])]
+    eng.delete(dead)
+    rows = torch.cat([x, extra])
+    live = np.setdiff1d(np.arange(rows.shape[0]), dead)
+    fresh = _live_fresh(rows, live, metric, dev)
+    n_delta = len(eng.store.delta_shards())
+    assert n_delta == 3 and eng.store.delta_shards()[0].vectors.is_cuda
+    for mode, m in (("fdsq", 1), ("fqsd", 16)):
+        K.reset_launch_counts()
+        got = eng.search(SearchRequest(queries=q[:m], mode_hint=mode))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["knn_scan"] == 1 + n_delta and K.LAUNCHES["knn_merge"] == 1 + n_delta
+        assert _same_as_fresh(got, fresh.search(SearchRequest(queries=q[:m], mode_hint=mode)),
+                              live)
+    eng.store.compact()
+    got = eng.search(SearchRequest(queries=q, mode_hint="fqsd"))
+    assert eng.store.generation == 1 and not eng.store.delta_shards()
+    assert _same_as_fresh(got, fresh.search(SearchRequest(queries=q, mode_hint="fqsd")), live)
+
+
+def test_streamed_delta_shards_are_staged_not_pinned(dev, tmp_path, monkeypatch):
+    """A store in files is never pinned, nor are its delta blocks: f32 and
+    int8 streamed searches copy them through the streams' page-locked banks
+    (no pin_memory() a search), and answer as a resident engine does over
+    the same live rows."""
+    import numpy as np
+
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(30_000, 64, generator=g, device=dev)
+    extra = torch.randn(5_000, 64, generator=g, device=dev)
+    q = extra[:16] + 0.1 * torch.randn(16, 64, generator=g, device=dev)
+    DatasetStore.from_array(x, rows_per_shard=8192, directory=str(tmp_path))
+    store = DatasetStore.open(str(tmp_path))
+    store.ensure_tier("int8", device=dev)
+    eng = ExactKNN(k=50, backend="cuda").fit_store(store, resident=False).enable_int8()
+    ids = eng.upsert(extra)
+    eng.delete([7, int(ids[3])])
+    assert not any(p.vectors.is_pinned() for p in store.delta_shards())
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a, **kw: pytest.fail("a search pinned a tensor"))
+    live = np.setdiff1d(np.arange(35_000), [7, int(ids[3])])
+    rows = torch.cat([x, extra])
+    fresh = _live_fresh(rows, live, "l2", dev)
+    got = eng.search(SearchRequest(queries=q))
+    assert got.stats["transfers"] == 4 + 2  # main shards, then delta shards
+    assert _same_as_fresh(got, fresh.search(SearchRequest(queries=q, mode_hint="fqsd")), live)
+    got8 = eng.search(SearchRequest(queries=q, tier="int8"))
+    oracle = ops.knn_exact_direct(fresh._pad_queries(q), fresh._ds.vectors, fresh._ds.norms,
+                                  50, 1024)
+    assert torch.equal(got8.topk.scores, oracle.scores)
+    assert bool((got8.topk.indices.cpu().numpy()
+                 == np.asarray(live)[oracle.indices.cpu().numpy()]).all())
+
+
+def test_compaction_of_a_device_store_on_a_thread(dev):
+    """A store whose one shard lives on the card: tombstones flip its norms
+    there, and compact_async gathers the live rows and builds the new
+    generation on the card, ordered by an event before the swap; a view
+    pinned before keeps its generation."""
+    import numpy as np
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    x = torch.randn(10_000, 128, generator=g, device=dev)
+    extra = torch.randn(3_000, 128, generator=g, device=dev)
+    q = x[:16] + 0.1 * torch.randn(16, 128, generator=g, device=dev)
+    eng = ExactKNN(k=50, backend="cuda").fit(x).enable_int8()
+    store = eng.store
+    ids = eng.upsert(extra)
+    eng.delete([0, 5, int(ids[1])])
+    assert store.read_shard(0).norms.is_cuda and torch.isinf(store.read_shard(0).norms[5])
+    view = store.snapshot()
+    t = store.compact_async()
+    try:
+        t.join(timeout=120)
+    finally:
+        assert not t.is_alive()
+    assert store.compaction_status()["error"] is None and store.generation == 1
+    assert store.read_shard(0).vectors.is_cuda and view.generation == 0
+    assert view.read_shard(0).vectors.is_cuda
+    view.release()
+    live = np.setdiff1d(np.arange(13_000), [0, 5, int(ids[1])])
+    fresh = _live_fresh(torch.cat([x, extra]), live, "l2", dev)
+    got = eng.search(SearchRequest(queries=q, mode_hint="fqsd"))
+    assert _same_as_fresh(got, fresh.search(SearchRequest(queries=q, mode_hint="fqsd")), live)
+    got8 = eng.search(SearchRequest(queries=q, tier="int8"))
+    oracle = ops.knn_exact_direct(fresh._pad_queries(q), fresh._ds.vectors, fresh._ds.norms,
+                                  50, 1024)
+    assert torch.equal(got8.topk.scores, oracle.scores)

@@ -175,8 +175,11 @@ def test_engine_refuses_what_this_slice_lacks(data):
     eng = ExactKNN(k=3, device="cpu").fit(x)
     with pytest.raises(RuntimeError, match="enable_int8"):
         eng.search(SearchRequest(queries=q, tier="int8"))
-    with pytest.raises(NotImplementedError, match="store"):
-        eng.upsert(x[:2])
+    # store mutations are ported: upserted rows are searched at once
+    ids = eng.upsert(x[:2] + 0.5)
+    assert ids.tolist() == [x.shape[0], x.shape[0] + 1] and eng.n_ids == x.shape[0] + 2
+    got = eng.search(SearchRequest(queries=x[:1] + 0.5, k=1))
+    assert int(got.topk.indices[0, 0]) == x.shape[0]
     # out-of-core stores are ported now (tests/test_torch_streaming.py)
     streamed = ExactKNN(k=3, device="cpu").fit_store(eng.store, resident=False)
     assert streamed.search(SearchRequest(queries=q)).plan.executor == "fqsd-mmap-streamed"

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import crash_child as cc
 from repro.api.types import SearchRequest as JRequest
 from repro.core.engine import ExactKNN as JExactKNN
 from repro.store import DatasetStore as JStore
@@ -424,40 +425,64 @@ def test_mid_scan_candidate_row_corruption_fails_the_gather(data, tmp_path):
         jeng.search(JRequest(queries=q, tier="int8", spec_trigger=1.0))
 
 
-# ------------------------------------------------- what open refuses
+# ------------------------------------- what open once refused, replayed
 def test_open_refuses_a_journal_with_records(data, tmp_path):
-    x, _ = data
+    """Refused before the store's write side was ported: a reference store
+    whose journal holds mutation records now opens in the port and replays
+    them to the reference's digest and answers."""
+    x, q = data
     jstore = _write_ref(x, tmp_path)
-    jstore.upsert(x[:2])  # one durable record in the journal
-    with pytest.raises(NotImplementedError, match="1 mutation record.*A7b"):
-        DatasetStore.open(str(tmp_path))
+    jstore.upsert(x[:2] + 1)  # durable records in the journal
+    jstore.delete([5, N])
+    jstore.close()
+    want = JStore.open(str(tmp_path))
+    store = DatasetStore.open(str(tmp_path))
+    assert cc.digest(store) == cc.digest(want)
+    assert (store.n_delta, store.n_live, store.n_ids) == (2, N, N + 2)
+    got, exp = _search_both(*_engines(store, want), q, "f32")
+    _same_result(got, exp)
 
 
 def test_open_reads_past_a_torn_journal_tail(data, tmp_path):
-    """A torn tail is no record (the reference's replay discards it): the
-    store opens as written, and the port leaves the file as it found it."""
+    """A torn tail is no record: the store opens as written and replay
+    truncates the tail away, as the reference's does; a whole record
+    after it replays."""
     x, q = data
     _write_port(x, tmp_path)
     payload = b'{"op":"delete","ids":[3]}'
     frame = struct.pack("<4sII", b"KJNL", len(payload), zlib.crc32(payload)) + payload
     (tmp_path / "journal.wal").write_bytes(frame[:10])
     store = DatasetStore.open(str(tmp_path))
-    assert (tmp_path / "journal.wal").read_bytes() == frame[:10]
-    (tmp_path / "journal.wal").write_bytes(frame)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        DatasetStore.open(str(tmp_path))
+    assert (tmp_path / "journal.wal").read_bytes() == b""
     got = ExactKNN(k=K_, device="cpu").fit_store(store, resident=False).search(
         SearchRequest(queries=x[3:4]))
     assert int(got.topk.indices[0, 0]) == 3  # the torn delete never happened
+    store.close()
+    (tmp_path / "journal.wal").write_bytes(frame)
+    store = DatasetStore.open(str(tmp_path))
+    assert store.n_live == N - 1
+    got = ExactKNN(k=K_, device="cpu").fit_store(store, resident=False).search(
+        SearchRequest(queries=x[3:4]))
+    assert 3 not in got.topk.indices[0].tolist()
 
 
 def test_open_refuses_remapped_row_ids(data, tmp_path):
-    x, _ = data
+    """Refused before: a compacted reference generation whose rows carry
+    remapped ids (rowids.npy) opens in the port with the reference's
+    digest, and both answer in external ids."""
+    x, q = data
     jstore = _write_ref(x, tmp_path)
     jstore.delete([5])
     jstore.compact()
-    with pytest.raises(NotImplementedError, match="remaps row ids.*A7b"):
-        DatasetStore.open(str(tmp_path))
+    jstore.close()
+    store = DatasetStore.open(str(tmp_path))
+    want = JStore.open(str(tmp_path))
+    assert store.generation == 1 and store.manifest.row_ids_file == "rowids.npy"
+    with store.snapshot() as view:
+        assert not view.identity and view.external_ids([4, 5]).tolist() == [4, 6]
+    assert cc.digest(store) == cc.digest(want)
+    got, exp = _search_both(*_engines(store, want), q, "f32")
+    _same_result(got, exp)
 
 
 # ------------------------------------------------------------- surface
@@ -475,8 +500,8 @@ def test_read_surface_and_close(data, tmp_path):
     with pytest.raises(ValueError, match="never pinned"):
         DatasetStore.from_array(x, rows_per_shard=ROWS, directory=str(tmp_path / "b"),
                                 pin_memory=True)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        store.upsert(x[:1])
+    assert store.upsert(x[:1]).tolist() == [N] and store.n_delta == 1
+    assert (tmp_path / "journal.wal").stat().st_size > 0  # journaled first
     store.close()
     with pytest.raises(ValueError, match="closed"):
         store.read_shard(0)
