@@ -44,8 +44,11 @@ Phases, in order (any failure makes the run exit non-zero):
              MS-MARCO at k = 72 (q_len 1024) on phase 4's resident dataset,
              then GIST at k = 1024 (q_len 8192). Every returned row must be
              bit-identical to the port's knn_exact_direct (certified rows come
-             from the rescore, the others from the fallback); the certified
-             share, the scan, merge, rescore and fallback times are printed.
+             from the rescore, the others from the fallback, knn_exact_rescored:
+             the f32 kernel's 2·k_eff candidates rescored in the direct form,
+             one knn_scan + one knn_merge more, timed as a shape of its own);
+             the certified share, the scan, merge, rescore and fallback times
+             are printed, the fallback beside knn_exact_direct alone.
 6. streamed — out-of-core FQ-SD at the GIST shape (phase 3's data, seed 3):
              the rows made on the card, then kept in a pinned host store of
              16 shards of 65,536 rows (1,048,576 padded, 4.29 GB of f32 a
@@ -118,15 +121,42 @@ Phases, in order (any failure makes the run exit non-zero):
              knn_scan and knn_merge on one delta shard (4,096 x 1024, m = 1
              and 16) beside their plain versions, library calls and bounds.
              The directory is deleted at the end, whatever the outcome.
-9. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+9. serve   — the serving path at the paper's GIST shape, read from
+             repro_torch.configs.knn_paper (gist_fqsd: N = 1,000,000, d = 960,
+             k = 1024), nothing cut: the collection built by
+             repro_torch.launch.serve's construction path (vector_dataset(n,
+             d, seed=0) -> Router.create(backend="cuda") -> enable_int8()),
+             the kernels timed at one dispatch of each plan as in phases 3
+             and 5 (FD-SQ m = 4, FQ-SD m = 64, int8 m = 64), then
+             bursty_requests(query_stream(x, 512, seed=1), burst_size=64,
+             trickle=8) replayed twice through AdaptiveScheduler(router=...)
+             under each policy: latency, throughput without the int8 hook,
+             adaptive with int8_min_depth=64; before the second and third
+             policy 16 query rows are upserted and the nearest rows of 16
+             other queries deleted through the Router, then
+             compact(wait=True). Checks: (a) every served answer, by rid,
+             within the tolerance below of the engine's direct search of the
+             same rows, no deleted id served, every upserted query finding
+             its row; (b) every dispatch launched the kernels of its label
+             (knn_scan + one knn_merge; knn_int8_scan + knn_merge, and one
+             knn_scan + knn_merge more when a row falls back), read
+             from the counters reset before it; (c) the second replay adds
+             no executable-cache miss; (d) 512 served a replay, modes
+             switched under adaptive. Printed: the serve CLI's report of
+             each replay (per plan: count, p50/p99 ms, q/s, executors,
+             tier, certified share), upsert/delete/compact times, and per
+             plan the scheduler's service time against engine.search + the
+             same copy to the host at the same padded batch.
+10. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024; then
              l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
              (bf16) and 256 (f32), each one launch with the counters at 0,
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-9 are the main path. The launch counters are set to 0 just before
-each search (phase 9: before l2dist + topk, and before each l2dist shape)
+Phases 3-10 are the main path. The launch counters are set to 0 just before
+each search (phase 9: before each dispatch; phase 10: before l2dist + topk,
+and before each l2dist shape)
 and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phases 6
 and 7: once a shard, beside knn_scan or knn_int8_scan once a shard; phase
@@ -162,7 +192,9 @@ Output: progress lines, the card's name and power limit as nvidia-smi gives
 them, one {"kernels": [...]} line (per kernel: launches, ms, plain_ms,
 library_ms and bound_ms summed over the main path's runs, one of each shape,
 with the per-shape numbers under "shapes"; phase 6's and 7's shapes give
-one shard's launch), and as the last line
+one shard's launch; phase 9's shapes time one dispatch of their plan and
+carry the launches of every dispatch of that plan in the replays), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -226,6 +258,15 @@ MMAP = dict(n=1_000_000, d=960, m=16, k=1024, rows_per_shard=65_536, seed=3,
 MUTATE = dict(n=1_000_000, d=960, seed=3, upserts=(1, 127, 16_000), delete_main=10_000,
               delete_delta=100, fdsq=(1, 72), fqsd=(16, 1024), resident_rows=1 << 20,
               rows_per_shard=65_536, oracle_chunk=1024, repeats=5)
+#: phase 9: the serving path at the paper's GIST shape (read from
+#: repro_torch.configs.knn_paper): the bursty trace of "queries" requests
+#: under each (policy, int8_min_depth), "upserts" rows upserted and
+#: "deletes" ids deleted through the Router (then compacted) before each
+#: policy after the first; the kernels timed at a dispatch of "fdsq_m" and
+#: of "fqsd_m" rows
+SERVE = dict(shape="gist_fqsd", queries=512, burst_size=64, trickle=8, int8_min_depth=64,
+             policies=(("latency", None), ("throughput", None), ("adaptive", 64)),
+             upserts=16, deletes=16, fdsq_m=4, fqsd_m=64)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -814,8 +855,11 @@ class Smoke:
         cert = res.certified
         m = q.shape[0]
         v, i = res.topk.scores, res.topk.indices
+        # rows the int8 certificate leaves are recomputed through the f32
+        # kernel (knn_exact_rescored: one knn_scan + one knn_merge more)
+        refit = int(not bool(cert.all()))
         ok = (res.plan.executor == "fqsd-int8-cuda" and launches["knn_int8_scan"] >= 1
-              and launches["knn_merge"] == 1)
+              and launches["knn_merge"] == 1 + refit and launches["knn_scan"] == refit)
         ok &= tuple(v.shape) == (m, k) and bool(torch.isfinite(v).all())
         ok &= bool(((i >= 0) & (i < eng.n)).all())
         share = float(cert.to(torch.float32).mean())
@@ -872,9 +916,11 @@ class Smoke:
         rescore_ms = self.ms(lambda: ops.rescore_certify(qv, lb[:m], li[:m], ds.vectors, k,
                                                          call.r))
         bad = ~cert
-        fallback_ms = (self.ms(lambda: ops.knn_exact_direct(qv[bad], ds.vectors, ds.norms, k,
-                                                            chunk), repeats=1)
+        fallback_ms = (self.ms(lambda: ops.knn_exact_rescored(qv[bad], ds.vectors, ds.norms,
+                                                              k, chunk))
                        if bool(bad.any()) else 0.0)
+        direct_fallback_ms = (self.ms(lambda: ops.knn_exact_direct(
+            qv[bad], ds.vectors, ds.norms, k, chunk), repeats=1) if bool(bad.any()) else 0.0)
         plain_scan_ms = self.ms(lambda: K.knn_int8_scan_plain(*args, True, splits))
         plain_merge_ms = self.ms(lambda: K.knn_merge_plain(sv, si))
         flat = sv.reshape(sv.shape[0], -1)
@@ -906,8 +952,12 @@ class Smoke:
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "q_len": call.q_len, "search_ms": statistics.median(e2e),
                  "certified_share": share, "rescore_ms": rescore_ms,
-                 "fallback_ms": fallback_ms, "f32_scan_ms": f32_scan_ms,
+                 "fallback_ms": fallback_ms, "direct_fallback_ms": direct_fallback_ms,
+                 "f32_scan_ms": f32_scan_ms,
                  "quantize_s": quantize_s, "select": sel, "kernels": {}}
+        # the fallback's knn() launches one knn_scan and one knn_merge per
+        # call; its merges are counted in the fallback's own entry below
+        launches["knn_merge"] -= launches["knn_scan"]
         for name, t, tp, tl, lib, (bb, by), err in (
                 ("knn_int8_scan", scan_ms, plain_scan_ms, None, None,
                  self.bound(scan_bytes, scan_ops), err_scan),
@@ -923,15 +973,74 @@ class Smoke:
         bb_ops, _ = self.bound(0, scan_ops)
         design_ms, _ = self.bound(design_bytes, design_ops)
         shape["kernels"]["knn_int8_scan"]["design_bound_ms"] = design_ms
+        fallback = None
+        if refit:
+            fallback = self._fallback_kernels(label, qv[bad], ds, k, d, launches["knn_scan"])
+            ok &= fallback.pop("ok")
         log(f"{label}: knn_int8_scan survivor filter {sel}")
         log(f"{label}: knn_int8_scan bound by bytes {bb_bytes:.4f} ms, by operations "
             f"{bb_ops:.4f} ms (padded operands, queues and survivor work: {design_ms:.4f} ms); "
             f"f32 knn_scan at this shape {f32_scan_ms:.4f} ms; rescore "
-            f"{rescore_ms:.4f} ms; fallback {fallback_ms:.4f} ms ({int(bad.sum())} rows)")
+            f"{rescore_ms:.4f} ms; fallback {fallback_ms:.4f} ms ({int(bad.sum())} rows, "
+            f"knn_exact_rescored; knn_exact_direct alone {direct_fallback_ms:.4f} ms)")
         log(f"{label}: search ms median={statistics.median(e2e):.3f} "
             f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
         self.shapes.append(shape)
+        if fallback is not None:
+            self.shapes.append(fallback)
         return ok
+
+    def _fallback_kernels(self, label, qb, ds, k, d, launches) -> dict:
+        """knn_scan and knn_merge as knn_exact_rescored runs them on the
+        uncertified rows qb (queue 2·k_eff wide, the queries' first d columns
+        real), each against its plain version, timed beside its library call
+        and its bound; the rows its certificate leaves to knn_exact_direct.
+        Returns the fallback's shape entry, with "ok"."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch.core.partition import next_pow2
+
+        w = 2 * next_pow2(k)
+        call = ops.prepare(qb, ds.vectors, w, "l2", ds.norms)
+        bm, bn, _ = call.blocks
+        qn = torch.sum(call.q * call.q, dim=-1)
+        splits = K.scan_config(call.q.shape[0] // bm, call.x.shape[0] // bn, bm, self.dev)[0]
+        args = (call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
+        sv, si, _ = K.knn_scan(*args)
+        pv, pi, _ = K.knn_scan_plain(*args)
+        mv, mi = K.knn_merge(sv, si)
+        mpv, mpi = K.knn_merge_plain(sv, si)
+        _, cert = ops.certify_candidates(qb, ds.vectors, ds.norms, k, ops.finish(call, mv, mi))
+        self.sync()
+        xmax = float(call.xn[torch.isfinite(call.xn)].max())
+        ok_scan, err, _ = self._close(sv, si, pv, pi, TOL_REL * (qn[:, None, None] + xmax))
+        merge_exact = torch.equal(mv, mpv) and torch.equal(mi, mpi)
+        m, n = qb.shape[0], ds.n_valid
+        flat = sv.reshape(sv.shape[0], -1)
+        entries = {}
+        for name, fn, plain, lib, lib_fn, (bb, by), e in (
+                ("knn_scan", lambda: K.knn_scan(*args), lambda: K.knn_scan_plain(*args),
+                 "torch.topk(torch.cdist(q, x)**2)",
+                 lambda: self._library_scan_ms(label, call.q[:m], call.x[:n], w)[0],
+                 self.bound((n + m) * d * 4 + (n + m) * 4 + m * w * 8,
+                            m * n * (2 * d + L2_EPILOGUE_OPS)), err if ok_scan else math.inf),
+                ("knn_merge", lambda: K.knn_merge(sv, si), lambda: K.knn_merge_plain(sv, si),
+                 "torch.topk(queues.reshape(m, -1))",
+                 lambda: self.ms(lambda: torch.topk(flat, call.k_eff, largest=False)),
+                 self.bound(*self.merge_work(sv, si, mv, mi)),
+                 0.0 if merge_exact else math.inf)):
+            entries[name] = {"launches": launches, "max_abs_err": e, "ms": self.ms(fn),
+                             "plain_ms": self.ms(plain), "bound_ms": bb, "bound_by": by,
+                             "library_ms": lib_fn(), "library": lib}
+            log(f"{label}: fallback {name} ({m} rows, queue {w}, S={splits}) "
+                f"ms={entries[name]['ms']:.4f} plain_ms={entries[name]['plain_ms']:.4f} "
+                f"library_ms={entries[name]['library_ms']} bound_ms={bb:.4f} ({by}) "
+                f"max|d|={e:.3e} launches={launches} [{self.card}]")
+        left = int((~cert).sum())
+        log(f"{label}: fallback scan within tolerance={ok_scan}, merge bit-identical="
+            f"{merge_exact}; {m - left}/{m} rows certified, {left} left to knn_exact_direct")
+        return {"shape": f"{label}_fallback", "fallback_of": label, "ok": ok_scan and merge_exact,
+                "per": f"the int8 fallback's f32 scan and merge of {m} rows, queue {w}",
+                "rows_left_to_direct": left, "kernels": entries}
 
     # -------------------------------------------------- phase 6: streamed
     def host_clock_ms(self, fn, repeats: int) -> tuple[float, list[float]]:
@@ -1824,7 +1933,223 @@ class Smoke:
         self.shapes.append(shape)
         return bool(ok_scan and merge_exact)
 
-    # --------------------------------------------------- phase 9: kernels
+    # ---------------------------------------------------- phase 9: serve
+    def phase_serve(self) -> bool:
+        """The serving path at the paper's GIST shape: the collection built
+        by launch/serve.py's construction path, the kernels timed at one
+        dispatch of each plan, then the bursty trace replayed twice under
+        each policy through Router + AdaptiveScheduler, with upserts,
+        deletes and a compaction through the Router between the policies."""
+        torch, K = self.torch, self.K
+        from repro_torch.configs import get_config
+        from repro_torch.data import query_stream
+        from repro_torch.launch import serve
+        from repro_torch.serving import AdaptiveScheduler, bursty_requests
+
+        shape = get_config("knn-search").shape(SERVE["shape"])
+        n, d, k = shape["n"], shape["d"], shape["k"]
+        args = serve.parser().parse_args(
+            ["--mode", "knn", "--n", str(n), "--d", str(d), "--k", str(k),
+             "--int8-depth", str(SERVE["int8_min_depth"]), "--collection", SERVE["shape"]])
+        t0 = time.perf_counter()
+        router, x = serve._build_router(args)
+        eng = router.engine(args.collection)
+        self.sync()
+        log(f"serve: set-up {time.perf_counter() - t0:.2f} s: vector_dataset({n}, {d}, seed=0) "
+            f"-> Router.create -> fit -> enable_int8; padded {tuple(eng._ds.vectors.shape)}, "
+            f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB [{self.card}]")
+        q = query_stream(x, SERVE["queries"], seed=1)
+        qt = torch.from_numpy(q).to(self.dev)
+
+        # the kernels at one dispatch of each plan, before any mutation
+        # (main_path's plain versions read positions, which are the ids here)
+        first = len(self.shapes)
+        m4, m64 = SERVE["fdsq_m"], SERVE["fqsd_m"]
+        ok = self.main_path(f"serve_fdsq_m{m4}_k{k}", eng, qt[:m4], k, "fdsq")
+        ok &= self.main_path(f"serve_fqsd_m{m64}_k{k}", eng, qt[:m64], k, "fqsd")
+        ok &= self.main_path_int8(f"serve_fqsd_int8_m{m64}_k{k}", eng, qt[:m64], k)
+        plans = ("fdsq", "fqsd", "fqsd-int8", "fqsd-int8-fallback")  # the last if a row refit
+        timed = dict(zip(plans, self.shapes[first:]))
+
+        class Counted(AdaptiveScheduler):
+            """Reads the launch counters around every dispatch and keeps
+            each dispatch's label, padded rows and service time."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.log = []
+
+            def _search(self, request):
+                K.reset_launch_counts()
+                res = super()._search(request)
+                label = "fqsd-int8" if request.tier == "int8" else request.mode_hint
+                self.log.append([label, int(request.queries.shape[0]), dict(K.LAUNCHES)])
+                return res
+
+            def _execute(self, reqs, mode, clock_s, tier="f32"):
+                results, dt_s = super()._execute(reqs, mode, clock_s, tier=tier)
+                self.log[-1].append(dt_s)
+                return results, dt_s
+
+        totals = {label: {"knn_scan": 0, "knn_merge": 0, "knn_int8_scan": 0}
+                  for label in plans}
+        dispatches = []
+        deleted, upserted = set(), {}
+        for round_, (policy, int8_depth) in enumerate(SERVE["policies"]):
+            if round_:  # mutations through the Router between the policies
+                ok &= self._serve_mutate(router, args.collection, q, round_, deleted, upserted)
+            ref = self._serve_reference(eng, qt, k)
+            for rep in (1, 2):
+                misses = router.cache_info()["misses"]
+                sched = Counted(policy=policy, fdsq_max_batch=args.fdsq_max_batch,
+                                fqsd_min_depth=args.fqsd_min_depth, int8_min_depth=int8_depth,
+                                router=router, collection=args.collection)
+                trace = bursty_requests(q, SERVE["burst_size"], SERVE["trickle"])
+                t1 = time.perf_counter()
+                served = {r.rid: r for r in sched.serve(trace)}
+                wall = time.perf_counter() - t1
+                added = router.cache_info()["misses"] - misses
+                st = sched.stats()
+                label = f"serve {policy} int8_min_depth={int8_depth} replay {rep}"
+                log(f"{label}:")
+                serve.report(sched, router, args, wall)
+                good = self._serve_gates(label, served, ref, eng, qt, sched, st, deleted,
+                                         upserted, policy)
+                if rep == 2:
+                    good &= added == 0
+                    log(f"{label}: executable-cache misses added by the second replay: {added}")
+                ok &= good
+                for lab, rows, launches, dt_s in sched.log:
+                    if lab == "fqsd-int8":  # the fallback's knn() pairs a scan and a merge
+                        refits = launches["knn_scan"]
+                        totals["fqsd-int8-fallback"]["knn_scan"] += refits
+                        totals["fqsd-int8-fallback"]["knn_merge"] += refits
+                        launches = launches | {"knn_scan": 0,
+                                               "knn_merge": launches["knn_merge"] - refits}
+                    for name in totals[lab]:
+                        totals[lab][name] += launches[name]
+                    dispatches.append((lab, rows, dt_s))
+        ok &= self._serve_overhead(eng, qt, dispatches)
+        # a refit in the replays whose shape was not timed would lose its launches
+        ok &= "fqsd-int8-fallback" in timed or totals["fqsd-int8-fallback"]["knn_scan"] == 0
+        # the serve shapes carry the replays' launches: every dispatch of the
+        # label, read from the counters (ms and bounds: one dispatch above)
+        for label, s in timed.items():
+            s["per"] = ("ms and bounds at one dispatch; launches summed over every "
+                        f"{label} dispatch of the replays")
+            for name, entry in s["kernels"].items():
+                entry["launches_one_dispatch"] = entry["launches"]
+                entry["launches"] = totals[label][name]
+        log(f"serve: launches by plan over the replays {totals} [{self.card}]")
+        return ok
+
+    def _serve_reference(self, eng, qt, k):
+        """The engine's direct search of every query row, in batches of 64,
+        at the store's current state: (scores, ids) on the card."""
+        from repro_torch import SearchRequest
+
+        out = [eng.search(SearchRequest(queries=qt[i: i + 64], k=k, mode_hint="fqsd"))
+               for i in range(0, qt.shape[0], 64)]
+        return (self.torch.cat([r.topk.scores for r in out]),
+                self.torch.cat([r.topk.indices for r in out]))
+
+    def _serve_gates(self, label, served, ref, eng, qt, sched, st, deleted, upserted,
+                     policy) -> bool:
+        """(a) every answer by rid within _close of the direct search, no
+        deleted id served and every upserted query finding its own row;
+        (b) each dispatch launched the kernels of its label; (d) every
+        request served, modes switched under adaptive."""
+        torch = self.torch
+        m = qt.shape[0]
+        ok = len(served) == st["served"] == m
+        scores = torch.stack([served[rid].topk.scores for rid in range(m)]).to(self.dev)
+        ids = torch.stack([served[rid].topk.indices for rid in range(m)]).to(self.dev)
+        qn = torch.sum(qt * qt, dim=-1)
+        norms = eng._ds.norms
+        tol = TOL_REL * (qn[:, None] + float(norms[torch.isfinite(norms)].max()))
+        ok_a, err, checked = self._close(scores, ids, ref[0], ref[1], tol)
+        gone = sorted(set(ids.flatten().tolist()) & deleted)
+        found = all(int(served[row].topk.indices[0]) == new_id
+                    for row, new_id in upserted.items() if new_id not in deleted)
+        ok_b, bad = True, []
+        for lab, rows, launches, _ in sched.log:
+            if lab == "fqsd-int8":  # + knn_scan and knn_merge when a row refits
+                good = (launches["knn_int8_scan"] >= 1 and launches["knn_scan"] in (0, 1)
+                        and launches["knn_merge"] == 1 + launches["knn_scan"])
+            else:
+                good = (launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
+                        and launches["knn_int8_scan"] == 0)
+            if not good:
+                bad.append((lab, rows, launches))
+            ok_b &= good
+        ok_d = st["served"] == m and (policy != "adaptive" or st["mode_switches"] > 0)
+        ok &= ok_a and not gone and found and ok_b and ok_d
+        log(f"{label}: (a) served vs direct search max|d|={err:.3e} (tol "
+            f"{float(tol.max()):.3e}), indices checked {checked}/{ids.numel()}, deleted ids "
+            f"served {gone}, upserted rows found {found} ({len(upserted)}); (b) "
+            f"{len(sched.log)} dispatches, kernels of the label launched by all={ok_b} "
+            f"{bad[:3]}; (d) served={st['served']} mode_switches={st['mode_switches']}; "
+            f"ok={ok}")
+        return ok
+
+    def _serve_mutate(self, router, name, q, round_, deleted, upserted) -> bool:
+        """Upsert SERVE["upserts"] query rows (each must then be its query's
+        nearest row) and delete the ids of SERVE["deletes"] other queries'
+        nearest rows, through the Router; then compact(wait=True)."""
+        from repro_torch import SearchRequest
+
+        u, dl = SERVE["upserts"], SERVE["deletes"]
+        rows = list(range(2 * u * round_, 2 * u * round_ + u))
+        doomed = list(range(rows[-1] + 1, rows[-1] + 1 + dl))
+        eng = router.engine(name)
+        top = eng.search(SearchRequest(queries=q[doomed], mode_hint="fqsd")).topk.indices[:, 0]
+        ids = [int(t) for t in top.cpu()]
+        t0 = time.perf_counter()
+        new = router.upsert(name, q[rows])
+        self.sync()
+        t1 = time.perf_counter()
+        router.delete(name, ids)
+        self.sync()
+        t2 = time.perf_counter()
+        status = router.compact(name, wait=True)
+        eng.search(SearchRequest(queries=q[:1]))  # the engine re-fits the new generation
+        self.sync()
+        t3 = time.perf_counter()
+        upserted.update(zip(rows, (int(v) for v in new)))
+        deleted.update(ids)
+        ok = status["generation"] == round_ and status["error"] is None
+        log(f"serve: round {round_}: upsert {u} rows {(t1 - t0) * 1e3:.3f} ms, delete {dl} ids "
+            f"{(t2 - t1) * 1e3:.3f} ms, compact(wait=True) + refit {t3 - t2:.3f} s -> "
+            f"generation {status['generation']}, n_rows {eng.n}; ok={ok} [{self.card}]")
+        return ok
+
+    def _serve_overhead(self, eng, qt, dispatches) -> bool:
+        """The scheduler's host overhead per dispatch: for each plan, the
+        median service time of its dispatches at their most common padded
+        size, against engine.search of a batch of that size with the same
+        copy of the answers to the host (host clock, median of 5)."""
+        from repro_torch import SearchRequest
+
+        for label in ("fdsq", "fqsd", "fqsd-int8"):
+            sizes = [rows for lab, rows, _ in dispatches if lab == label]
+            if not sizes:
+                continue
+            rows = statistics.mode(sizes)
+            svc = statistics.median(dt for lab, r, dt in dispatches if lab == label and r == rows)
+            req = SearchRequest(queries=qt[:rows], mode_hint="fdsq" if label == "fdsq" else "fqsd",
+                                tier="int8" if label == "fqsd-int8" else "f32")
+
+            def direct():
+                res = eng.search(req)
+                res.topk.scores.cpu(), res.topk.indices.cpu()
+
+            direct_ms, _ = self.host_clock_ms(direct, 5)
+            log(f"serve: {label} dispatch of {rows} rows: scheduler service ms={svc * 1e3:.3f} "
+                f"(median of {sizes.count(rows)}), engine.search + copy ms={direct_ms:.3f}, "
+                f"host overhead ms={svc * 1e3 - direct_ms:.3f} [{self.card}]")
+        return True
+
+    # --------------------------------------------------- phase 10: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix;
         then l2dist alone at each shape of STANDALONE["l2dist"]."""
@@ -2025,7 +2350,8 @@ class Smoke:
         return {"kernels": out}
 
 
-PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "kernels")
+PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
+          "kernels")
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,39 @@
+"""Config schema: an architecture and its input shapes.
+
+Each architecture module exports ``ARCH: ArchConfig`` with its
+hyperparameters, a reduced smoke config for CPU tests, and its family's
+shape set. The port carries the kNN paper's workloads only.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # knn_fqsd | knn_fdsq | knn_ring | knn_ring_q
+    dims: Mapping[str, int]
+
+    def __getitem__(self, k: str) -> int:
+        return self.dims[k]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str  # knn
+    model: Any
+    smoke_model: Any
+    shapes: tuple[ShapeSpec, ...]
+    source: str = ""
+    notes: str = ""
+    train_moment_dtype: str = "f32"  # optimizer moment precision for train cells
+    train_microbatches: int = 1  # gradient-accumulation chunks per step
+
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r}; has {[s.name for s in self.shapes]}")

@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -78,6 +79,12 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK
+
+
+def _deprecated_shim(old: str, new: str) -> None:
+    warnings.warn(
+        f"ExactKNN.{old} is deprecated; use ExactKNN.search("
+        f"SearchRequest({new})) instead", DeprecationWarning, stacklevel=3)
 
 
 def resolve_device(device) -> torch.device:
@@ -702,12 +709,28 @@ class ExactKNN:
                             kernel_stats=ctx.kernel_stats, stats=stats,
                             rid=request.rid)
 
+    # ------------------------------------------- deprecated query_* shims
+    def query(self, q) -> TopK:
+        """Deprecated low-latency path; delegates to :meth:`search`."""
+        _deprecated_shim("query(q)", "queries=q, mode_hint='fdsq'")
+        return self.search(SearchRequest(queries=q, mode_hint="fdsq")).topk
+
+    def query_stream(self, queries_iter: Iterable) -> Iterator[TopK]:
+        """Deprecated streamed-queries path; delegates to :meth:`search`,
+        yielding one (k,) TopK per query."""
+        _deprecated_shim("query_stream(qs)", "queries=q, mode_hint='fdsq'")
+        for q in queries_iter:
+            out = self.search(SearchRequest(queries=q, mode_hint="fdsq")).topk
+            yield TopK(out.scores[0], out.indices[0])
+
+    def query_batch(self, queries) -> TopK:
+        """Deprecated throughput path; delegates to :meth:`search`."""
+        _deprecated_shim("query_batch(Q)", "queries=Q, mode_hint='fqsd'")
+        return self.search(SearchRequest(queries=queries, mode_hint="fqsd")).topk
+
     def query_batch_int8(self, queries) -> TopK:
         """Deprecated int8-tier path; delegates to :meth:`search`."""
-        warnings.warn(
-            "ExactKNN.query_batch_int8(Q) is deprecated; use ExactKNN.search("
-            "SearchRequest(queries=Q, tier='int8')) instead",
-            DeprecationWarning, stacklevel=2)
+        _deprecated_shim("query_batch_int8(Q)", "queries=Q, tier='int8'")
         return self.search(SearchRequest(queries=queries, tier="int8",
                                          mode_hint="fqsd")).topk
 

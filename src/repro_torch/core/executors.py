@@ -284,19 +284,18 @@ def _fdsq_cuda(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
 
 
 def _exact_uncertified(plan, queries, dataset: TieredResident, out: TopK,
-                       cert: torch.Tensor) -> TopK:
-    """Recompute the rows the certificate cannot cover with the direct-form
-    exact scan over the f32 tier (the same bits the rescore gives a pair),
-    so every returned row is exact. Only those query rows are rescanned:
-    each row's answer is independent of the others."""
-    from repro_torch.kernels.knn.ops import knn_exact_direct
-
+                       cert: torch.Tensor, exact_fn) -> TopK:
+    """Recompute the rows the certificate cannot cover over the f32 tier
+    with ``exact_fn`` (``knn_exact_direct``, or ``knn_exact_rescored``: the
+    same bits through the f32 kernel), so every returned row is exact and
+    carries the bits the rescore gives a pair. Only those query rows are
+    rescanned: each row's answer is independent of the others."""
     bad = ~cert
     if not bool(bad.any()):
         return out
     f32 = dataset.f32
-    key = ("int8-fallback", plan.cache_key(), _arr_key(f32.vectors))
-    fn = _cached(key, lambda: functools.partial(knn_exact_direct, k=plan.k,
+    key = ("int8-fallback", exact_fn.__name__, plan.cache_key(), _arr_key(f32.vectors))
+    fn = _cached(key, lambda: functools.partial(exact_fn, k=plan.k,
                                                 chunk_rows=plan.chunk_rows))
     exact = fn(queries[bad], f32.vectors, f32.norms)
     scores, indices = out.scores.clone(), out.indices.clone()
@@ -312,13 +311,15 @@ def _fqsd_int8_torch(plan, queries, dataset: TieredResident, ctx) -> TopK:
     ``fqsd-int8`` recomputes them in the cancellation form (``fqsd_scan``);
     both int8 executors here use the direct form, so every row carries the
     bits of ``knn_exact_direct``."""
+    from repro_torch.kernels.knn.ops import knn_exact_direct
+
     q8 = dataset.quant
     key = (plan.cache_key(), _arr_key(queries), _arr_key(q8.q))
     fn = _cached(key, lambda: functools.partial(
         knn_quantized, k=plan.k, rescore_factor=plan.rescore_factor))
     out, cert = fn(queries, q8, dataset.f32.vectors)
     ctx.certificate = cert
-    return _exact_uncertified(plan, queries, dataset, out, cert)
+    return _exact_uncertified(plan, queries, dataset, out, cert, knn_exact_direct)
 
 
 @register_executor("fqsd-int8-cuda")
@@ -326,8 +327,9 @@ def _fqsd_int8_cuda(plan, queries, dataset: TieredResident, ctx) -> TopK:
     """Fused quantised FQ-SD: the int8 scan kernel reads the codes at
     1 B/element and keeps the widened candidate queue on chip; the exact
     rescore reads only the candidate rows of the f32 tier. The certificate
-    lands on ctx.certificate (uncertified rows are recomputed exactly), the
-    skip rate and tile shapes on ctx.kernel_stats."""
+    lands on ctx.certificate; uncertified rows are recomputed exactly by
+    ``knn_exact_rescored`` (the f32 kernel's candidates, rescored in the
+    direct form). The skip rate and tile shapes land on ctx.kernel_stats."""
     from repro_torch.kernels.knn import ops as knn_ops
 
     q8 = dataset.quant
@@ -343,7 +345,7 @@ def _fqsd_int8_cuda(plan, queries, dataset: TieredResident, ctx) -> TopK:
         "blocks": knn_ops.resolved_blocks(plan.k, plan.padded_dim, bm, bn, bd, m=plan.m,
                                           rescore_factor=plan.rescore_factor),
     }
-    return _exact_uncertified(plan, queries, dataset, out, cert)
+    return _exact_uncertified(plan, queries, dataset, out, cert, knn_ops.knn_exact_rescored)
 
 
 # ------------------------------------------------------ streamed executors

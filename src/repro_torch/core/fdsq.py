@@ -41,3 +41,21 @@ def fdsq_search(
     ]
     return tree_merge_sorted(torch.stack([t.scores for t in locals_]),
                              torch.stack([t.indices for t in locals_]))
+
+
+def fdsq_query_stream(
+    queries_iter,
+    dataset: torch.Tensor,
+    dataset_norms: torch.Tensor,
+    k: int,
+    metric: Metric = "l2",
+    n_partitions: int = 8,
+):
+    """Answer a stream of incoming queries one at a time (paper arrows
+    3-5), yielding one TopK of shape (k,) per query."""
+    for q in queries_iter:
+        q = torch.as_tensor(q).to(device=dataset.device, dtype=dataset.dtype)
+        if q.ndim == 1:
+            q = q[None, :]
+        out = fdsq_search(q, dataset, dataset_norms, k, metric, n_partitions)
+        yield TopK(out.scores[0], out.indices[0])

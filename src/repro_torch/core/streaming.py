@@ -384,7 +384,8 @@ class ResilientShardSource:
       listed in ``health["failed_shards"]`` (the engine flags the result
       ``partial``) — never a silent wrong top-k;
     * reads slower than ``straggler_factor ×`` the EWMA of recent read
-      times are recorded in ``health["slow_shards"]``.
+      times are recorded in ``health["slow_shards"]``; reads are timed on
+      ``clock`` (seconds, ``time.perf_counter`` by default).
 
     The f32 pass also yields the store's delta shards; the int8 pass covers
     main shards only.
@@ -392,13 +393,15 @@ class ResilientShardSource:
 
     def __init__(self, store, tier: str, max_retries: int = 2,
                  backoff_s: float = 0.05, allow_partial: bool = False,
-                 health: dict | None = None, straggler_factor: float = 4.0):
+                 health: dict | None = None, straggler_factor: float = 4.0,
+                 clock: Callable[[], float] = time.perf_counter):
         self._store = store
         self._tier = tier
         self._retries = max(0, int(max_retries))
         self._backoff_s = max(0.0, float(backoff_s))
         self._allow_partial = bool(allow_partial)
         self._straggler_factor = float(straggler_factor)
+        self._clock = clock
         self._mean_read_s: float | None = None  # EWMA of shard read times
         self.health = health if health is not None else _fresh_health()
 
@@ -415,9 +418,9 @@ class ResilientShardSource:
         delay = self._backoff_s
         for attempt in range(self._retries + 1):
             try:
-                t0 = time.perf_counter()
+                t0 = self._clock()
                 p = self._store.read_shard(i, tier)
-                self._note_read_time(i, time.perf_counter() - t0)
+                self._note_read_time(i, self._clock() - t0)
                 return p
             except Exception as e:
                 self.health["retries"] += 1

@@ -93,6 +93,13 @@ def merge_topk(state: TopK, scores: torch.Tensor, indices: torch.Tensor) -> TopK
     return TopK(*topk_smallest(all_s, all_i, state.k))
 
 
+def merge_two_sorted(a: TopK, b: TopK) -> TopK:
+    """Exact merge of two sorted top-k states (associative, commutative):
+    the reduction operator of distributed FD-SQ, where each partition's
+    local queue holds every global top-k element that lies in it."""
+    return merge_topk(a, b.scores, b.indices)
+
+
 def tree_merge_sorted(parts_scores: torch.Tensor,
                       parts_indices: torch.Tensor) -> TopK:
     """Merge P per-partition results, (P, ..., k) -> (..., k), by a binary

@@ -14,12 +14,18 @@
 * :func:`knn_exact_direct` — chunked exact scan in the direct (q - x)² form:
                              the bit-exact oracle of, and the fallback for,
                              the int8 tier.
+* :func:`knn_exact_rescored` — the same answer through the f32 kernel: a
+                             2·k_eff candidate queue in the cancellation
+                             form, rescored in the direct form and
+                             certified by a rounding-error bound (rows it
+                             cannot certify take ``knn_exact_direct``).
 
 The rescore and ``knn_exact_direct`` are plain torch ops, as they are XLA
 ops outside any Pallas kernel in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -418,3 +424,58 @@ def knn_exact_direct(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor, k: i
         s, i = topk_smallest(torch.cat([s, dmat], -1),
                              torch.cat([i, (base + lanes).expand(m, chunk_rows)], -1), k)
     return TopK(s, torch.where(torch.isfinite(s), i, -1))
+
+
+#: unit roundoff of f32 (round to nearest)
+_U = 2.0 ** -24
+
+
+def knn_exact_rescored(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor, k: int,
+                       chunk_rows: int = 8192) -> TopK:
+    """:func:`knn_exact_direct`'s answer, bit for bit, through the f32 kernel.
+
+    :func:`knn` keeps the w = 2·next_pow2(k) nearest rows by the kernel's
+    cancellation-form score c = qn - 2·q·x + xn (ties to the smaller index);
+    the first w - 1 are rescored in the direct form by
+    :func:`rescore_certify` (the bits :func:`knn_exact_direct` gives each
+    pair). Every row outside them has c >= c_w, the queue's last score. The
+    rounding of c is at most E = 3·(d + 2)·u·(qn + max xn) from the exact
+    distance (Higham's bound for dot products and sums in any order,
+    γ_{d+1} on each norm and on |q·x| <= (qn + xn)/2, and two roundings in
+    the epilogue, with slack), and the direct form rounds at most
+    (2·ceil(log2 d) + 3)·u relatively below it (the square, the
+    subtraction, the halving adds and the odd folds of ``sum_last_fixed``).
+    So every outside row's direct-form score is at least
+    (c_w - E)·(1 - (2·ceil(log2 d) + 4)·u), worked in float64; a row is
+    certified when that exceeds its k-th rescored score (strictly, so no
+    outside row ties into the answer), or when c_w is +inf (every valid row
+    is a candidate). Rows left uncertified are recomputed by
+    :func:`knn_exact_direct`. ``norms`` carries validity (+inf excluded);
+    f32 rows only.
+    """
+    cand = knn(q, x, 2 * next_pow2(k), "l2", norms)
+    out, cert = certify_candidates(q, x, norms, k, cand)
+    bad = ~cert
+    if bool(bad.any()):
+        exact = knn_exact_direct(q[bad], x, norms, k, chunk_rows)
+        scores, indices = out.scores.clone(), out.indices.clone()
+        scores[bad], indices[bad] = exact.scores, exact.indices
+        out = TopK(scores, indices)
+    return out
+
+
+def certify_candidates(q: torch.Tensor, x: torch.Tensor, norms: torch.Tensor, k: int,
+                       cand: TopK) -> tuple[TopK, torch.Tensor]:
+    """The rescore and certificate of :func:`knn_exact_rescored` on its
+    candidates ``cand``, the w = 2·next_pow2(k) wide (m, w) answer of
+    :func:`knn`: (TopK, certificate (m,) bool)."""
+    d, w = q.shape[1], cand.scores.shape[1]
+    qn = torch.sum(q.to(torch.float32) ** 2, dim=-1).double()
+    finite = norms[torch.isfinite(norms)]
+    xmax = float(finite.max()) if finite.numel() else 0.0
+    err = 3.0 * (d + 2) * _U * (qn + xmax)
+    depth = 2 * math.ceil(math.log2(max(d, 2))) + 4
+    c = cand.scores.double()
+    lb = torch.where(torch.isfinite(c), (c - err[:, None]).clamp_min(0.0) * (1.0 - depth * _U),
+                     math.inf)
+    return rescore_certify(q, lb, cand.indices, x, k, w - 1)

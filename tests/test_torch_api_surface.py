@@ -1,0 +1,181 @@
+"""The port's public surface, held to the reference's snapshot.
+
+``tests/test_api_surface.py`` pins ``repro.api``: its ``__all__``, the
+request and result fields and defaults, and the deprecated shims, which
+must warn and keep working. The port's ``api`` must match it name for
+name, ``core.__all__`` must be the reference's less the seven mesh names
+(they come with the mesh slice), and ``serving``/``data`` export the
+reference's names less those of the LM and data-pipeline substrate.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import repro.api as japi
+import repro.core as jcore
+import repro.data as jdata
+import repro.serving as jserving
+import repro_torch.api as api
+import repro_torch.core as core
+import repro_torch.data as data
+import repro_torch.serving as serving
+from repro.configs import get_config as jget_config
+from repro_torch.api import SearchRequest, SearchResult
+from repro_torch.core import ExactKNN
+
+API_ALL = ("SearchRequest", "SearchResult", "Router")
+MESH_NAMES = {"MeshTiered", "fdsq_sharded", "fdsq_sharded_int8", "fqsd_sharded", "fqsd_ring",
+              "shard_dataset", "make_ring_put"}
+
+SEARCH_REQUEST_FIELDS = (
+    "queries", "k", "metric", "tier", "mode_hint", "deadline_ms",
+    "filter_mask", "prefetch_depth", "spec_trigger", "allow_partial",
+    "max_retries", "rid", "arrival_s",
+)
+
+SEARCH_RESULT_FIELDS = (
+    "topk", "plan", "tier", "certified", "kernel_stats", "stats", "rid",
+)
+
+
+def test_api_all_snapshot():
+    assert api.__all__ == tuple(japi.__all__) == API_ALL
+    for name in API_ALL:
+        assert hasattr(api, name)
+    from repro_torch.api.types import AUTO_FDSQ_MAX_BATCH
+    from repro.api.types import AUTO_FDSQ_MAX_BATCH as J_AUTO
+
+    assert AUTO_FDSQ_MAX_BATCH == J_AUTO
+
+
+def test_core_all_is_the_reference_less_the_mesh():
+    assert list(core.__all__) == [n for n in jcore.__all__ if n not in MESH_NAMES]
+    assert MESH_NAMES <= set(jcore.__all__)
+    for name in core.__all__:
+        obj = getattr(core, name)
+        assert obj.__module__.startswith("repro_torch."), name
+
+
+@pytest.mark.parametrize("port,ref,left_out", [
+    (serving, jserving, {"DecodeServer"}),
+    (data, jdata, {"token_stream", "click_log_stream", "DataPipeline"}),
+])
+def test_serving_and_data_all(port, ref, left_out):
+    assert list(port.__all__) == [n for n in ref.__all__ if n not in left_out]
+    assert left_out <= set(ref.__all__)
+
+
+def test_request_and_result_field_snapshot():
+    assert tuple(f.name for f in dataclasses.fields(SearchRequest)) == SEARCH_REQUEST_FIELDS
+    assert tuple(f.name for f in dataclasses.fields(SearchResult)) == SEARCH_RESULT_FIELDS
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        SearchRequest(queries=np.zeros(4)).k = 3
+
+
+def test_request_defaults_snapshot():
+    r = SearchRequest(queries=np.zeros(4, np.float32))
+    assert (r.k, r.metric, r.tier, r.mode_hint) == (None, None, "auto", "auto")
+    assert (r.deadline_ms, r.filter_mask, r.rid, r.arrival_s) == (None, None, None, 0.0)
+    assert (r.prefetch_depth, r.spec_trigger) == (None, None)
+    assert (r.allow_partial, r.max_retries) == (False, None)
+
+
+def test_knn_paper_config_matches_the_reference():
+    from repro_torch.configs import get_config
+
+    got, want = get_config("knn-search"), jget_config("knn-search")
+    assert [(s.name, s.kind, dict(s.dims)) for s in got.shapes] == \
+        [(s.name, s.kind, dict(s.dims)) for s in want.shapes]
+    for a, b in ((got.model, want.model), (got.smoke_model, want.smoke_model)):
+        assert (a.name, a.n_vectors, a.dim, a.n_queries) == (b.name, b.n_vectors, b.dim,
+                                                             b.n_queries)
+        assert a.dtype is torch.float32
+    assert got.shape("gist_fqsd")["n"] == 1_000_000
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("minicpm-2b")
+
+
+class TestShimDeprecations:
+    """Every legacy entry point warns DeprecationWarning ("deprecated") and
+    returns what ``search`` returns."""
+
+    @pytest.fixture
+    def engine(self):
+        rng = np.random.default_rng(0)
+        x = rng.integers(-4, 5, (640, 16)).astype(np.float32)
+        return ExactKNN(k=3, n_partitions=2, device="cpu").fit(x).enable_int8()
+
+    @pytest.mark.parametrize("name,call,request_kw", [
+        ("query", lambda e, q: e.query(q[0]), dict(mode_hint="fdsq")),
+        ("query_batch", lambda e, q: e.query_batch(q), dict(mode_hint="fqsd")),
+        ("query_batch_int8", lambda e, q: e.query_batch_int8(q), dict(tier="int8")),
+        ("query_stream", lambda e, q: list(e.query_stream([q[0], q[1]])),
+         dict(mode_hint="fdsq")),
+    ])
+    def test_engine_shims_warn_and_delegate(self, engine, name, call, request_kw):
+        q = np.random.default_rng(1).integers(-4, 5, (5, 16)).astype(np.float32)
+        with pytest.warns(DeprecationWarning, match="deprecated"):
+            got = call(engine, q)
+        if name == "query_stream":
+            for row, out in enumerate(got):
+                want = engine.search(SearchRequest(queries=q[row], **request_kw)).topk
+                assert out.scores.shape == (3,)
+                assert torch.equal(out.scores, want.scores[0])
+                assert torch.equal(out.indices, want.indices[0])
+            return
+        want = engine.search(SearchRequest(queries=q[0] if name == "query" else q,
+                                           **request_kw)).topk
+        assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+
+    def test_search_streamed_shim_warns(self, engine):
+        with pytest.warns(DeprecationWarning, match="deprecated"):
+            engine.search_streamed(np.zeros((5, 16), np.float32),
+                                   np.zeros((256, 16), np.float32), rows_per_partition=128)
+
+    def test_serving_request_shim_warns(self):
+        from repro_torch.serving import Request, Result
+
+        with pytest.warns(DeprecationWarning, match="SearchRequest"):
+            r = Request(1, np.zeros(8, np.float32), arrival_s=2.0)
+        assert isinstance(r, SearchRequest)
+        assert (r.rid, r.arrival_s) == (1, 2.0)
+        assert Result is SearchResult
+
+    def test_search_itself_does_not_warn(self, engine):
+        q = np.zeros((5, 16), np.float32)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", DeprecationWarning)
+            engine.search(SearchRequest(queries=q))
+            engine.search(SearchRequest(queries=q, tier="int8"))
+
+
+def test_fdsq_query_stream_and_merge_two_sorted_match_the_reference():
+    """The two building blocks this surface adds, against the reference's on
+    the same integer rows."""
+    import jax.numpy as jnp
+
+    from repro.core import TopK as JTopK
+
+    rng = np.random.default_rng(3)
+    x = rng.integers(-4, 5, (512, 16)).astype(np.float32)
+    xn = (x * x).sum(-1)
+    qs = [rng.integers(-4, 5, 16).astype(np.float32) for _ in range(3)]
+    got = list(core.fdsq_query_stream(qs, torch.from_numpy(x), torch.from_numpy(xn), 7,
+                                      n_partitions=4))
+    want = list(jcore.fdsq_query_stream(qs, jnp.asarray(x), jnp.asarray(xn), 7, n_partitions=4))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.scores.numpy(), np.asarray(w.scores))
+        np.testing.assert_array_equal(g.indices.numpy(), np.asarray(w.indices))
+    a_s, b_s = np.sort(rng.integers(0, 50, (2, 4, 6)).astype(np.float32), -1)
+    a_i, b_i = rng.permutation(48).astype(np.int32).reshape(2, 4, 6)
+    got = core.merge_two_sorted(core.TopK(torch.from_numpy(a_s), torch.from_numpy(a_i)),
+                                core.TopK(torch.from_numpy(b_s), torch.from_numpy(b_i)))
+    want = jcore.merge_two_sorted(JTopK(jnp.asarray(a_s), jnp.asarray(a_i)),
+                                  JTopK(jnp.asarray(b_s), jnp.asarray(b_i)))
+    np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))

@@ -573,3 +573,98 @@ def test_compaction_of_a_device_store_on_a_thread(dev):
     oracle = ops.knn_exact_direct(fresh._pad_queries(q), fresh._ds.vectors, fresh._ds.norms,
                                   50, 1024)
     assert torch.equal(got8.topk.scores, oracle.scores)
+
+
+def _pow2_rows(n, d, g, dev):
+    """Integer rows whose norms are powers of two (1, 4, 16 or 64 unit
+    entries), so their L2-normalised form is exact (cos)."""
+    counts = torch.tensor([1, 4, 16, 64], device=dev)[
+        torch.randint(0, 4, (n,), generator=g, device=dev)]
+    ranks = torch.rand(n, d, generator=g, device=dev).argsort(1).argsort(1)
+    signs = torch.randint(0, 2, (n, d), generator=g, device=dev) * 2 - 1
+    return ((ranks < counts[:, None]) * signs).to(torch.float32)
+
+
+@pytest.mark.parametrize("metric,tier", [("l2", "f32"), ("ip", "f32"), ("cos", "f32"),
+                                         ("l2", "int8")])
+def test_scheduler_padding_rows_leave_real_answers_unchanged(dev, metric, tier):
+    """The scheduler pads a batch of 5 to 8 with zero rows (a zero row
+    under cos normalises to a zero vector). On fdsq-cuda and fqsd-int8-cuda,
+    where knn_scan filters per block of bm queries, each real row's answer
+    must equal the plain engine's on the same row and the kernel engine's
+    on the unpadded batch."""
+    from repro_torch.serving import AdaptiveScheduler
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    if tier == "int8":
+        x = _unit_scale_rows(8192, 128, g, dev)
+    elif metric == "cos":
+        x = _pow2_rows(8192, 128, g, dev)
+    else:
+        x = _ints((8192, 128), g, dev)
+    q = x[torch.randint(0, 8192, (5,), generator=g, device=dev)].clone()
+    fused = ExactKNN(k=64, metric=metric, backend="cuda").fit(x)
+    plain = ExactKNN(k=64, metric=metric, backend="torch").fit(x)
+    if tier == "int8":
+        fused.enable_int8()
+        plain.enable_int8()
+    kw = dict(policy="throughput", int8_min_depth=1 if tier == "int8" else None)
+    served = {r.rid: r for r in AdaptiveScheduler(fused, **kw).serve(
+        iter([SearchRequest(queries=q[i], rid=i) for i in range(5)]))}
+    assert fused.plans[-1].m == 8
+    assert fused.plans[-1].executor == ("fqsd-int8-cuda" if tier == "int8" else "fdsq-cuda")
+    unpadded = fused.search(SearchRequest(queries=q, mode_hint="fqsd", tier=tier))
+    want = plain.search(SearchRequest(queries=q, mode_hint="fqsd", tier=tier))
+    for i in range(5):
+        ws, wi = want.topk.scores[i].cpu(), want.topk.indices[i].cpu()
+        assert torch.equal(served[i].topk.scores, ws) and torch.equal(served[i].topk.indices, wi)
+        assert torch.equal(unpadded.topk.scores[i].cpu(), ws)
+        assert torch.equal(unpadded.topk.indices[i].cpu(), wi)
+
+
+def test_scheduler_service_time_includes_the_copy_to_the_host(dev):
+    """A dispatch's service time ends when its answers are on the host: it is
+    at least the CUDA-event time of the same search, which the time to
+    enqueue the kernels alone is not."""
+    from repro_torch.serving import AdaptiveScheduler
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    x = torch.randn(1_000_000, 256, generator=g, device=dev)
+    eng = ExactKNN(k=1024, backend="cuda").fit(x)
+    del x
+    q = torch.randn(64, 256, generator=g, device=dev).cpu().numpy()
+    sched = AdaptiveScheduler(eng, policy="throughput")
+    reqs = [SearchRequest(queries=q[i], rid=i) for i in range(64)]
+    sched._execute(reqs, "fqsd", None)  # warm-up
+    event_ms = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        eng.search(SearchRequest(queries=q, mode_hint="fqsd"))
+        b.record()
+        b.synchronize()
+        event_ms.append(a.elapsed_time(b))
+    _, dt_s = sched._execute(reqs, "fqsd", None)
+    assert dt_s * 1e3 >= min(event_ms), (dt_s * 1e3, event_ms)
+
+
+def test_int8_fallback_through_the_f32_kernel_has_the_direct_bits(dev):
+    """Clustered rows (clusters larger than the rescore budget, distances
+    concentrated at d = 960): the int8 certificate leaves rows uncertified,
+    fqsd-int8-cuda recomputes them with knn_exact_rescored (one knn_scan and
+    one knn_merge more), and every row has knn_exact_direct's bits."""
+    from repro_torch.data import query_stream, vector_dataset
+
+    x = vector_dataset(200_000, 960, seed=0)
+    q = query_stream(x, 16, seed=1)
+    eng = ExactKNN(k=256, backend="cuda").fit(x).enable_int8()
+    K.reset_launch_counts()
+    res = eng.search(SearchRequest(queries=q, tier="int8"))
+    torch.cuda.synchronize()
+    assert not bool(res.certified.all())
+    assert K.LAUNCHES["knn_int8_scan"] == 1 and K.LAUNCHES["knn_scan"] == 1
+    assert K.LAUNCHES["knn_merge"] == 2
+    ds = eng._ds
+    want = ops.knn_exact_direct(eng._pad_queries(q), ds.vectors, ds.norms, 256, 1024)
+    assert torch.equal(res.topk.scores, want.scores)
+    assert torch.equal(res.topk.indices, want.indices)

@@ -419,3 +419,85 @@ def test_engine_state_from_jax_carries_int8():
     np.testing.assert_array_equal(got.topk.scores.numpy(), _np(want.topk.scores))
     np.testing.assert_array_equal(got.topk.indices.numpy(), _np(want.topk.indices))
     np.testing.assert_array_equal(got.certified.numpy(), _np(want.certified))
+
+
+def _rescored_cases():
+    """(queries, padded rows, norms, k) where the f32 kernel's candidates
+    certify (clustered rows, integer ties, Gaussian, fewer rows than k,
+    an excluded row) and where they cannot (every row equal)."""
+    from repro_torch.core.partition import make_padded
+    from repro_torch.data import query_stream, vector_dataset
+
+    rng = np.random.default_rng(8)
+    xc = vector_dataset(20_000, 96, seed=0)
+    xi = _ints(rng, (6000, 32))
+    qi = _ints(rng, (8, 32))
+    xg = rng.standard_normal((5000, 200)).astype(np.float32)
+    raw = {"clustered": (query_stream(xc, 16, seed=1), xc, 100, 0),
+           "integer_ties": (qi, xi, 50, 0),
+           "gaussian": (xg[:5] + np.float32(0.01), xg, 7, 0),
+           "fewer_rows_than_k": (qi, xi[:30], 64, 0),
+           "all_equal": (xi[:3], np.repeat(xi[:1], 3000, 0), 40, 3)}
+    out = {}
+    for name, (q, x, k, fallback) in raw.items():
+        p = make_padded(torch.from_numpy(x), row_mult=1024)
+        norms = p.norms.clone()
+        norms[5] = torch.inf  # an excluded row
+        qv = torch.nn.functional.pad(torch.from_numpy(q), (0, p.vectors.shape[1] - q.shape[1]))
+        out[name] = (qv, p.vectors, norms, k, fallback)
+    return out
+
+
+RESCORED = _rescored_cases()
+
+
+@pytest.mark.parametrize("name", sorted(RESCORED))
+def test_rescored_fallback_has_the_direct_oracles_bits(name, monkeypatch):
+    """knn_exact_rescored (the f32 kernel's 2·k_eff candidates in the
+    cancellation form, rescored in the direct form and certified by the
+    rounding bound) gives knn_exact_direct's answer bit for bit; only rows
+    the bound cannot separate (every row equal) take knn_exact_direct."""
+    qv, x, norms, k, fallback = RESCORED[name]
+    want = tops.knn_exact_direct(qv, x, norms, k, 1024)
+    direct = tops.knn_exact_direct
+    rows = []
+
+    def counted(q, *a, **kw):
+        rows.append(q.shape[0])
+        return direct(q, *a, **kw)
+
+    monkeypatch.setattr(tops, "knn_exact_direct", counted)
+    got = tops.knn_exact_rescored(qv, x, norms, k, 1024)
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+    assert sum(rows) == fallback
+
+
+def test_rescored_fallback_matches_the_reference_oracle():
+    """On integer rows the port's rescored fallback equals the reference's
+    direct-form oracle in values and indices."""
+    qv, x, norms, k, _ = RESCORED["integer_ties"]
+    got = tops.knn_exact_rescored(qv, x, norms, k, 1024)
+    want = jops.knn_exact_direct(jnp.asarray(qv.numpy()), jnp.asarray(x.numpy()),
+                                 jnp.asarray(norms.numpy()), k, 1024)
+    np.testing.assert_array_equal(got.scores.numpy(), _np(want.scores))
+    np.testing.assert_array_equal(got.indices.numpy(), _np(want.indices))
+
+
+def test_cuda_int8_executor_recomputes_clustered_rows_exactly():
+    """Clustered rows, d = 960, k = 64: clusters hold more rows than the
+    rescore budget r = 256 and their distances concentrate, so the int8
+    certificate fails for some rows (the quantisation error exceeds the gap
+    between the k-th and the (r+1)-th neighbour); fqsd-int8-cuda recomputes
+    them through knn_exact_rescored, and every row has the direct oracle's
+    bits."""
+    from repro_torch.data import query_stream, vector_dataset
+
+    x = vector_dataset(40_000, 960, seed=0)
+    q = query_stream(x, 16, seed=1)
+    eng = ExactKNN(k=64, backend="cuda", device="cpu").fit(x).enable_int8()
+    res = eng.search(SearchRequest(queries=q, tier="int8"))
+    assert res.plan.executor == "fqsd-int8-cuda"
+    assert not bool(res.certified.all())
+    oracle = _engine_oracle(eng, q)
+    assert torch.equal(res.topk.scores, oracle.scores)
+    assert torch.equal(res.topk.indices, oracle.indices)

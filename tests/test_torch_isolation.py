@@ -1,7 +1,8 @@
 """The port stands apart from the JAX package and runs where it is asked to.
 
-* No module of ``repro_torch`` and not ``chip_smoke.py`` imports JAX or the
-  JAX package ``repro`` (only the parity tests import both).
+* No module of ``repro_torch``, no ``examples/torch_*.py`` and not
+  ``chip_smoke.py`` imports JAX or the JAX package ``repro`` (only the
+  parity tests import both).
 * Entry points run on a CUDA device unless the caller passes
   ``device="cpu"``; on a host without one they raise instead of quietly
   running on the CPU. That holds for the streamed path too: the double
@@ -25,7 +26,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _forbidden(name: str) -> bool:

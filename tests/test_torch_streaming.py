@@ -497,19 +497,22 @@ def test_dead_f32_shard_raises_or_goes_partial(int8_data):
 
 
 def test_resilient_source_notes_stragglers():
+    """Shard 4 reads 20 clock units, the others 1: only shard 4 is over
+    4x the EWMA. The source reads a fake clock that each read advances, so
+    no scheduler of the host can flag another shard."""
+    now = [0.0]
+
     class Slow:
         n_shards = 6
 
         def read_shard(self, i, tier):
-            import time
-
-            time.sleep(0.02 if i == 4 else 0.001)
+            now[0] += 20.0 if i == 4 else 1.0
             return i
 
         def delta_shards(self):
             return []
 
-    src = ResilientShardSource(Slow(), "f32")
+    src = ResilientShardSource(Slow(), "f32", straggler_factor=4.0, clock=lambda: now[0])
     assert list(src) == list(range(6))
     assert src.health["slow_shards"] == [4]
 
