@@ -147,15 +147,38 @@ Phases, in order (any failure makes the run exit non-zero):
              tier, certified share), upsert/delete/compact times, and per
              plan the scheduler's service time against engine.search + the
              same copy to the host at the same padded batch.
-10. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+10. tune   — per-device tuning (repro_torch.tuning), against a private cache
+             file under build/tune/ installed for this phase alone (every
+             other phase plans with an empty in-memory cache installed at
+             start-up, so their times stay the default blocks'):
+             probe_cuda_capability(); autotune_knn at the GIST shape (N =
+             1,000,000, d = 960, k = 1024) for the f32 scan at m = 16 and
+             the int8 scan at m = 16 and at m = 64 (the serve phase's int8
+             dispatch), and at the MS-MARCO FD-SQ shape (m = 1, k = 72:
+             bm = 1, so bn alone varies); autotune_pipeline at phase 6's
+             streamed GIST int8 shape with shards of 65,536 and 131,072
+             rows. Printed per shape: every candidate's host-clock time, the
+             winner, the default blocks' time, and the winner's and the
+             default's CUDA-event time of knn_scan / knn_int8_scan alone; at
+             m = 64 also both on the serve phase's clustered rows. Gates:
+             (a) every candidate and every pipeline combination answers
+             bit-identically to the default blocks / knobs (held inside the
+             sweeps, which raise otherwise; and the winner against the
+             default on the clustered rows); (b) after each sweep the plan
+             carries the winner, its search equals the default plan's bit
+             for bit, and two more searches add no executable-cache miss;
+             (c) the probe returns True and a plan under a persisted false
+             verdict raises.
+11. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024; then
              l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
              (bf16) and 256 (f32), each one launch with the counters at 0,
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-10 are the main path. The launch counters are set to 0 just before
-each search (phase 9: before each dispatch; phase 10: before l2dist + topk,
+Phases 3-9 and 11 are the main path (phase 10 measures tuning, and its
+launches enter no entry). The launch counters are set to 0 just before
+each search (phase 9: before each dispatch; phase 11: before l2dist + topk,
 and before each l2dist shape)
 and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phases 6
@@ -185,7 +208,9 @@ filter's sorts, rank searches and merges as the kernel counts them
 (select.cuh's counters, with the survivors and the share of lanes that
 survived printed beside). topk
 is also timed with its merges (topk_with_merges_ms) beside torch.topk. The
-bounds are stated for the H100 SXM (CARD); on any other card the run stops
+bounds are stated for the H100 SXM (repro_torch.roofline.hw.H100_SXM: its name,
+memory rate and f32 non-tensor peak, NVIDIA's data sheet at the full 700 W);
+on any other card the run stops
 before it measures.
 
 Output: progress lines, the card's name and power limit as nvidia-smi gives
@@ -200,6 +225,8 @@ the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import statistics
@@ -216,10 +243,6 @@ REPEATS = 5
 #: |q||x| <= (qn + xn) / 2; at d = 960 that is ~1e-6, so 1e-5 leaves a
 #: margin of ten.
 TOL_REL = 1e-5
-#: The card the bounds are stated for, with its memory rate (bytes/s) and
-#: f32 non-tensor peak (FLOP/s): NVIDIA's data sheet for the H100 SXM, dense
-#: rates at the full 700 W. Any other card stops the run before it measures.
-CARD, PEAK_BW, PEAK_F32 = "NVIDIA H100 80GB HBM3", 3.35e12, 67e12
 _CSRC = "src/repro_torch/kernels/csrc/"
 #: kernel -> (its CUDA source, the TPU kernel it replaces), in line order
 KERNELS = {
@@ -267,6 +290,17 @@ MUTATE = dict(n=1_000_000, d=960, seed=3, upserts=(1, 127, 16_000), delete_main=
 SERVE = dict(shape="gist_fqsd", queries=512, burst_size=64, trickle=8, int8_min_depth=64,
              policies=(("latency", None), ("throughput", None), ("adaptive", 64)),
              upserts=16, deletes=16, fdsq_m=4, fqsd_m=64)
+#: phase 10: the shapes the tuners sweep (rows from their own seeded numpy
+#: draws): the GIST scans (f32 at m = 16, int8 at m = 16 and at the serve
+#: phase's m = 64), the MS-MARCO FD-SQ scan, and the streamed int8 pipeline
+#: of phase 6 at two shard sizes. Rescore factor 8 is left out of the
+#: pipeline sweep: at k = 1024 its queue (next_pow2(8·1024 + 1) = 16,384)
+#: is wider than knn_merge takes (k <= 8192), so the sweep would raise.
+TUNE = dict(gist=dict(n=1_000_000, d=960, k=1024, seed=3), f32_ms=(16,), int8_ms=(16, 64),
+            msmarco=dict(n=8_841_823, d=769, m=1, k=72, seed=4),
+            pipeline=dict(n=1_000_000, d=960, m=16, k=1024, shards=(65_536, 131_072),
+                          rescore=(2, 4), seed=3),
+            clustered_m=64, repeats=3, searches=5)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -280,12 +314,14 @@ def log(msg: str) -> None:
 class Smoke:
     def __init__(self, torch, dev, card: str = ""):
         from repro_torch.kernels.knn import kernel as K, ops
+        from repro_torch.roofline.hw import H100_SXM
 
         self.torch, self.K, self.ops, self.dev = torch, K, ops, dev
         self.card = card  # nvidia-smi's name and power limit, beside every time
-        self.bw, self.flops = PEAK_BW, PEAK_F32
+        self.bw, self.flops = H100_SXM.hbm_bw, H100_SXM.peak_flops_f32
         self.shapes: list[dict] = []  # one per main-path search
         self.msmarco_eng = None  # phase 4's engine, quantised by phase 5
+        self.serve_rows = None  # phase 9's engine and query rows, for phase 10
 
     # ------------------------------------------------------------ helpers
     def sync(self) -> None:
@@ -2041,6 +2077,7 @@ class Smoke:
                 entry["launches_one_dispatch"] = entry["launches"]
                 entry["launches"] = totals[label][name]
         log(f"serve: launches by plan over the replays {totals} [{self.card}]")
+        self.serve_rows = (eng, qt)
         return ok
 
     def _serve_reference(self, eng, qt, k):
@@ -2149,7 +2186,260 @@ class Smoke:
                 f"host overhead ms={svc * 1e3 - direct_ms:.3f} [{self.card}]")
         return True
 
-    # --------------------------------------------------- phase 10: kernels
+
+    # ----------------------------------------------------- phase 10: tune
+    @contextlib.contextmanager
+    def _planning_with(self, cache):
+        """Plan with `cache` as the default autotune cache inside the block."""
+        from repro_torch.tuning import default_cache, set_default_cache
+
+        previous = default_cache()
+        set_default_cache(cache)
+        try:
+            yield cache
+        finally:
+            set_default_cache(previous)
+
+    def phase_tune(self) -> bool:
+        """The tuners at the phases' shapes, against a private cache file;
+        gates (a)-(c) of the module docstring."""
+        torch = self.torch
+        from repro_torch.tuning import AutotuneCache, probe_cuda_capability
+
+        path = ROOT / "build" / "tune" / "autotune.json"
+        path.unlink(missing_ok=True)
+        self.msmarco_eng = None  # the MS-MARCO sweep needs the card's memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        with self._planning_with(AutotuneCache(str(path))) as cache:
+            ok = probe_cuda_capability() is True and cache.get_capability() is True
+            log(f"tune (c): probe_cuda_capability() -> {cache.get_capability()} "
+                f"persisted in {path} [{self.card}]")
+            ok &= self._tune_gist(cache)
+            ok &= self._tune_msmarco()
+            ok &= self._tune_pipeline()
+            log(f"tune: {len(cache)} entries in {path}: {sorted(cache.keys())}")
+        return ok
+
+    def _tune_gist(self, cache) -> bool:
+        from repro_torch.tuning import AutotuneCache
+
+        cfg = TUNE["gist"]
+        x, q = self._dataset(cfg["n"], cfg["d"], max(TUNE["int8_ms"]), seed=cfg["seed"])
+        eng = self._fit("tune gist", x, cfg["k"])
+        del x
+        eng.enable_int8()
+        ok, won = True, {}
+        for tier, ms in (("f32", TUNE["f32_ms"]), ("int8", TUNE["int8_ms"])):
+            for m in ms:
+                label = f"tune gist {tier} m={m} k={cfg['k']}"
+                p = eng.plan_for("fqsd", m, tier=tier)
+                won[tier, m] = self._sweep(label, p.m, p.padded_rows, p.padded_dim, cfg["k"],
+                                           tier, eng.rescore_factor, cfg["seed"])
+                ok &= self._tune_gate(label, eng, q[:m], tier, cfg["k"], *won[tier, m])
+        # (c): a persisted false verdict makes the plan raise, never fall back
+        veto = AutotuneCache(path=None)
+        veto.put_capability(False)
+        with self._planning_with(veto):
+            try:
+                eng.plan_for("fqsd", 16)
+                raised = False
+            except RuntimeError as e:
+                raised = "capability verdict" in str(e)
+        log(f"tune (c): plan under a persisted false verdict raised={raised}")
+        del eng
+        self.torch.cuda.empty_cache()
+        return ok and raised and self._tune_clustered(*won["int8", TUNE["clustered_m"]])
+
+    def _sweep(self, label, m, n, dp, k, tier, rescore, seed) -> tuple[tuple, tuple]:
+        """autotune_knn at a planner-visible geometry, every candidate's time
+        printed; returns (winner, default blocks)."""
+        from repro_torch.tuning import autotune_knn
+
+        r = rescore if tier == "int8" else None
+        default = self.ops.resolved_blocks(k, dp, m=m, rescore_factor=r)
+        t0 = time.perf_counter()
+        best, timings = autotune_knn(m, n, dp, k=k, tier=tier, rescore_factor=rescore,
+                                     repeats=TUNE["repeats"], seed=seed)
+        name = lambda b: "x".join(map(str, b))  # noqa: E731
+        log(f"{label}: (n={n}, d={dp}) swept {len(timings)} candidates in "
+            f"{time.perf_counter() - t0:.1f} s, rows drawn included (host clock, median of "
+            f"{TUNE['repeats']} after a warm call, bm x bn x bd): "
+            + ", ".join(f"{c} {t * 1e3:.4f} ms" for c, t in timings.items())
+            + f"; winner {name(best)}, default {name(default)} "
+            f"{timings[name(default)] * 1e3:.4f} ms [{self.card}]")
+        return tuple(best), tuple(default)
+
+    def _tune_gate(self, label, eng, q, tier, k, best, default) -> bool:
+        """Gate (b) at the engine's shape, then the scan alone at the winner
+        and at the default blocks."""
+        torch = self.torch
+        from repro_torch import SearchRequest
+        from repro_torch.core import cache_info
+        from repro_torch.tuning import AutotuneCache
+
+        req = SearchRequest(queries=q, k=k, tier=tier, mode_hint="fqsd")
+        p = eng.plan_for("fqsd", q.shape[0], tier=tier)
+        got = eng.search(req)
+        first = cache_info()["misses"]
+        eng.search(req)
+        eng.search(req)
+        added = cache_info()["misses"] - first
+        with self._planning_with(AutotuneCache(path=None)):
+            want = eng.search(req)
+        same = (torch.equal(got.topk.scores, want.topk.scores)
+                and torch.equal(got.topk.indices, want.topk.indices)
+                and (tier == "f32" or torch.equal(got.certified, want.certified)))
+        ok = ((p.block_m, p.block_n, p.block_d) == best and got.kernel_stats["blocks"] == best
+              and want.kernel_stats["blocks"] == default and added == 0 and same)
+        t_best, t_default = (self._scan_ms(eng, q, tier, k, b) for b in (best, default))
+        log(f"{label} (b): {p.executor} plan blocks {(p.block_m, p.block_n, p.block_d)}; "
+            f"tuned search bit-identical to the default plan's={same}; cache misses added "
+            f"by two more searches {added}; "
+            f"{'knn_int8_scan' if tier == 'int8' else 'knn_scan'} alone (CUDA events, median "
+            f"of {REPEATS}): winner {t_best:.4f} ms, default {t_default:.4f} ms; ok={ok} "
+            f"[{self.card}]")
+        return ok
+
+    def _scan_ms(self, eng, q, tier, k, blocks) -> float:
+        """CUDA-event time of the scan kernel alone at `blocks` on the
+        engine's resident operands."""
+        torch, K, ops = self.torch, self.K, self.ops
+        qv = eng._pad_queries(q)
+        if tier == "f32":
+            call = ops.prepare(qv, eng._ds.vectors, k, "l2", eng._ds.norms, *blocks)
+            bm, bn, _ = call.blocks
+            qn = torch.sum(call.q.to(torch.float32) ** 2, dim=-1)
+            return self.ms(lambda: K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff,
+                                              call.metric, bm, bn))
+        call = ops.prepare_int8(qv, eng._int8, k, eng.rescore_factor, *blocks)
+        bm, bn, _ = call.blocks
+        return self.ms(lambda: K.knn_int8_scan(call.q, call.x8, call.qn, call.scales,
+                                               call.err, call.hn, call.q_len, bm, bn))
+
+    def _tune_clustered(self, best, default) -> bool:
+        """The m = 64 int8 winner and the default blocks on the serve
+        phase's clustered rows (vector_dataset), where the survivor filter
+        works otherwise than on Gaussian rows: the whole ops.knn_int8 call
+        and the scan alone, and their answers bit for bit."""
+        torch, ops = self.torch, self.ops
+        m = TUNE["clustered_m"]
+        if self.serve_rows is None:  # phase serve did not run: build its collection
+            from repro_torch import ExactKNN
+            from repro_torch.configs import get_config
+            from repro_torch.data import query_stream, vector_dataset
+
+            shape = get_config("knn-search").shape(SERVE["shape"])
+            x = vector_dataset(shape["n"], shape["d"], seed=0)
+            eng = ExactKNN(k=shape["k"], backend="cuda", device=self.dev).fit(x)
+            eng.enable_int8()
+            self.serve_rows = (eng, torch.from_numpy(query_stream(x, SERVE["queries"],
+                                                                  seed=1)).to(self.dev))
+            del x
+        eng, qt = self.serve_rows
+        self.serve_rows = None
+        k, q = eng.k, qt[:m]
+        qv = eng._pad_queries(q)
+        out, t_call, t_scan = {}, {}, {}
+        for label, blocks in (("winner", best), ("default", default)):
+            run = lambda b=blocks: ops.knn_int8(qv, eng._int8, eng._ds.vectors, k,  # noqa: E731
+                                                 eng.rescore_factor, *b)
+            out[label] = run()
+            t_call[label] = self.ms(run)
+            t_scan[label] = self._scan_ms(eng, q, "int8", k, blocks)
+        (a, ca), (b, cb) = out["winner"], out["default"]
+        same = (torch.equal(a.scores, b.scores) and torch.equal(a.indices, b.indices)
+                and torch.equal(ca, cb))
+        log(f"tune clustered int8 m={m}, k={k} (serve rows, vector_dataset): winner "
+            f"{'x'.join(map(str, best))}: ops.knn_int8 {t_call['winner']:.4f} ms, "
+            f"knn_int8_scan {t_scan['winner']:.4f} ms; default {'x'.join(map(str, default))}: "
+            f"ops.knn_int8 {t_call['default']:.4f} ms, knn_int8_scan {t_scan['default']:.4f} "
+            f"ms (CUDA events, median of {REPEATS}); answers and certificates bit-identical="
+            f"{same}; certified {int(ca.sum())}/{m} [{self.card}]")
+        del eng, qt
+        torch.cuda.empty_cache()
+        return same
+
+    def _tune_msmarco(self) -> bool:
+        """The FD-SQ scan at the MS-MARCO shape: the sweep first (over its
+        own 31.7 GB of rows), then an engine of the same geometry for gate
+        (b); the card holds one of the two at a time."""
+        from repro_torch import ExactKNN
+        from repro_torch.core.partition import LANE, aligned_shape
+
+        cfg = TUNE["msmarco"]
+        label = f"tune msmarco f32 m={cfg['m']} k={cfg['k']}"
+        n_parts = ExactKNN(k=cfg["k"], backend="cuda", device=self.dev).n_partitions
+        rows, dp = aligned_shape(cfg["n"], cfg["d"], LANE * n_parts)
+        won = self._sweep(label, cfg["m"], rows, dp, cfg["k"], "f32", None, cfg["seed"])
+        self.torch.cuda.empty_cache()
+        x, q = self._dataset(cfg["n"], cfg["d"], cfg["m"], seed=cfg["seed"])
+        eng = self._fit("tune msmarco", x, cfg["k"])
+        del x
+        self.torch.cuda.empty_cache()
+        ok = self._tune_gate(label, eng, q, "f32", cfg["k"], *won)
+        del eng
+        self.torch.cuda.empty_cache()
+        return ok
+
+    def _tune_pipeline(self) -> bool:
+        """autotune_pipeline at phase 6's streamed GIST int8 shape, then gate
+        (b) on a pinned store of phase 6's geometry: the plan carries the
+        winning knobs, its search equals the default knobs' bit for bit and
+        two more add no cache miss; both timed (host clock)."""
+        torch = self.torch
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core import cache_info
+        from repro_torch.store import DatasetStore
+        from repro_torch.tuning import AutotuneCache, autotune_pipeline
+
+        cfg = TUNE["pipeline"]
+        n, d, m, k = cfg["n"], cfg["d"], cfg["m"], cfg["k"]
+        t0 = time.perf_counter()
+        best, timings = autotune_pipeline(m, n, d, k=k, repeats=TUNE["repeats"],
+                                          rescore_candidates=cfg["rescore"],
+                                          shard_candidates=cfg["shards"], seed=cfg["seed"])
+        default = f"shard{cfg['shards'][0]}|pf2|tr0.5|r4"
+        log(f"tune pipeline m={m} k={k} (n={n}, d={d}): swept {len(timings)} combinations "
+            f"in {time.perf_counter() - t0:.1f} s, stores built included (host clock, median "
+            f"of {TUNE['repeats']} whole searches after a warm one; every answer "
+            "bit-identical to the default knobs', else the sweep raises): "
+            + ", ".join(f"{c} {t * 1e3:.3f} ms" for c, t in timings.items())
+            + f"; winner {tuple(best)}, default {default} {timings[default] * 1e3:.3f} ms "
+            f"[{self.card}]")
+        x, q = self._dataset(n, d, m, seed=cfg["seed"])
+        store = DatasetStore.from_array(x, rows_per_shard=cfg["shards"][0], pin_memory=True)
+        del x
+        store.ensure_tier("int8", device=self.dev)
+        eng = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(store, resident=False)
+        eng.enable_int8()
+        p = eng.plan_for("fqsd-streamed", m, tier="int8")
+        req = SearchRequest(queries=q, k=k, tier="int8")
+        got = eng.search(req)
+        first = cache_info()["misses"]
+        eng.search(req)
+        eng.search(req)
+        added = cache_info()["misses"] - first
+        tuned_ms, _ = self.host_clock_ms(lambda: eng.search(req), TUNE["searches"])
+        with self._planning_with(AutotuneCache(path=None)):
+            want = eng.search(req)
+            default_ms, _ = self.host_clock_ms(lambda: eng.search(req), TUNE["searches"])
+        same = (torch.equal(got.topk.scores, want.topk.scores)
+                and torch.equal(got.topk.indices, want.topk.indices)
+                and torch.equal(got.certified, want.certified))
+        knobs = (p.prefetch_depth, p.spec_trigger, p.rescore_factor)
+        ok = (p.executor == "fqsd-int8-streamed" and added == 0 and same
+              and knobs == (best.prefetch_depth, best.spec_trigger, best.rescore_factor))
+        log(f"tune pipeline (b): {p.executor} plan knobs (depth, trigger, rescore) {knobs}; "
+            f"tuned search bit-identical to the default knobs'={same}; cache misses added by "
+            f"two more searches {added}; search with the tuned knobs {tuned_ms:.3f} ms, with "
+            f"the default knobs {default_ms:.3f} ms (host clock, median of "
+            f"{TUNE['searches']}, shards of {cfg['shards'][0]} rows); ok={ok} [{self.card}]")
+        del eng, store
+        torch.cuda.empty_cache()
+        return ok
+
+    # --------------------------------------------------- phase 11: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix;
         then l2dist alone at each shape of STANDALONE["l2dist"]."""
@@ -2351,7 +2641,7 @@ class Smoke:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "kernels")
+          "tune", "kernels")
 
 
 def main(argv=None) -> int:
@@ -2376,15 +2666,21 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(args.package.resolve() / "src"))
     try:
         from repro_torch.kernels import build
+        from repro_torch.roofline.hw import H100_SXM
+        from repro_torch.tuning import AutotuneCache, set_default_cache
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
         return 2
-    if torch.cuda.get_device_name(0) != CARD:
-        print(f"chip_smoke: the bounds are stated for {CARD}, not for "
+    if torch.cuda.get_device_name(0) != H100_SXM.name:
+        print(f"chip_smoke: the bounds are stated for {H100_SXM.name}, not for "
               f"{torch.cuda.get_device_name(0)}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every phase plans with an empty in-memory autotune cache (the default
+    # blocks and knobs whatever the machine's artifacts/autotune/ holds);
+    # phase tune installs its own cache for itself alone
+    set_default_cache(AutotuneCache(path=None))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -80,6 +80,11 @@ from repro_torch.core.planner import (
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK
 
+#: the engine's defaults where the caller sets nothing and no tuned plan
+#: says otherwise: the int8 rescore budget (× k) and the streamed depth
+DEFAULT_RESCORE_FACTOR = 4
+DEFAULT_PREFETCH_DEPTH = 2
+
 
 def _deprecated_shim(old: str, new: str) -> None:
     warnings.warn(
@@ -220,17 +225,24 @@ class ExactKNN:
         self.n_partitions = int(n_partitions)
         self.dtype = dtype
         #: int8 rescore budget: r = next_pow2(rescore_factor·next_pow2(k))
-        #: resident, r = rescore_factor·k streamed (the reference's budgets)
-        self.rescore_factor = 4 if rescore_factor is None else int(rescore_factor)
+        #: resident, r = rescore_factor·k streamed (the reference's budgets).
+        #: None = the default, which a tuned streamed plan may override; an
+        #: explicit value is pinned: tuning never overrides a caller's budget
+        self.rescore_factor = (DEFAULT_RESCORE_FACTOR if rescore_factor is None
+                               else int(rescore_factor))
+        self._rescore_pinned = rescore_factor is not None
         #: fit_store(store) keeps a store resident when its f32 bytes fit
         #: this budget (None = unlimited)
         self.device_budget_bytes = device_budget_bytes
         #: streamed-scan double-buffer depth (2 = the paper's two memory
-        #: banks: one shard in flight); a request's own value wins
-        self.prefetch_depth = 2 if prefetch_depth is None else int(prefetch_depth)
+        #: banks: one shard in flight); a request's own value wins. None =
+        #: the default, overridable by a tuned plan; explicit = pinned
+        self.prefetch_depth = (DEFAULT_PREFETCH_DEPTH if prefetch_depth is None
+                               else int(prefetch_depth))
+        self._prefetch_pinned = prefetch_depth is not None
         #: streamed-int8 speculation trigger (shard fraction after which the
         #: candidate gather starts on a background thread; 1.0 = none);
-        #: None = the executor default
+        #: None = the tuned plan's value, else the executor default
         self.spec_trigger = spec_trigger
         #: bounded retry budget for streamed shard reads, candidate gathers
         #: and transfers (exponential backoff from retry_backoff_s)
@@ -494,6 +506,7 @@ class ExactKNN:
             chunk_rows=self.chunk_rows, n_partitions=self.n_partitions,
             rescore_factor=self.rescore_factor,
             dtype=str(self.dtype).removeprefix("torch."),
+            rescore_pinned=self._rescore_pinned,
         )
 
     def dataset_meta(self, tier: str = "f32") -> DatasetMeta:
@@ -648,10 +661,17 @@ class ExactKNN:
             p = plan_fn(qv.shape, meta, self.config(), "fqsd-streamed",
                         stream_rows=src.rows_per_shard, k=k, metric=metric)
             source = src if mask is None else _MaskedShardSource(src, mask)
-            # pipeline knobs: the request's value, else the engine's (the
-            # executor resolves a None trigger against its default)
+            # pipeline-knob precedence: request pin > engine pin > tuned plan
+            # > engine default (the executor resolves a None trigger against
+            # plan.spec_trigger, then DEFAULT_SPEC_TRIGGER)
+            if request.prefetch_depth is not None:
+                prefetch = int(request.prefetch_depth)
+            elif self._prefetch_pinned or p.prefetch_depth <= 0:
+                prefetch = self.prefetch_depth
+            else:
+                prefetch = int(p.prefetch_depth)
             out = self._run(
-                p, qv, source, prefetch_depth=request.prefetch_depth,
+                p, qv, source, prefetch_depth=prefetch,
                 spec_trigger=(request.spec_trigger if request.spec_trigger is not None
                               else self.spec_trigger),
                 max_retries=request.max_retries, allow_partial=request.allow_partial)

@@ -27,15 +27,29 @@ The streamed executors keep the reference's names ("fqsd-streamed",
 their per-shard steps run on the plan's backend. This port plans resident
 and streamed single-device search over the f32 tier and the certified int8
 tier. Sharded plans raise ``NotImplementedError`` naming the slice of the
-port that brings them. Block fields stay 0 (the kernel's
-``DEFAULT_BLOCKS``) and the pipeline knobs unset (0 / -1.0): per-device
-autotuned values come with the tuning slice, and no capability verdict ever
-swaps the kernel for a plain path.
+port that brings them.
+
+The one external fact a plan may carry is per-device tuning
+(``repro_torch.tuning``, a pure read of a JSON cache): the autotuned blocks
+of the fused executors ("fdsq-cuda", "fqsd-int8-cuda") and the pipeline
+knobs of the streamed int8 executors. A cold cache leaves blocks at 0 (the
+kernel's ``DEFAULT_BLOCKS``) and knobs unset (0 / -1.0); tuned values ride
+``cache_key()``, so a tuned plan hits the same executable forever after.
+A persisted negative CUDA capability verdict makes every ``backend="cuda"``
+plan raise: no verdict ever swaps the kernels for a plain path (the
+reference falls back to its XLA scan instead).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal, Sequence
+
+from repro_torch.tuning.autotune import (
+    default_cache,
+    lookup_blocks,
+    lookup_cuda_capability,
+    lookup_pipeline,
+)
 
 Backend = Literal["torch", "cuda"]
 ModeHint = Literal["fdsq", "fqsd", "fqsd-streamed"]
@@ -45,9 +59,11 @@ PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda", "fqsd-streamed",
                        "fqsd-mmap-streamed", "fqsd-int8-torch", "fqsd-int8-cuda",
                        "fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
 
+#: Executors whose block shapes the per-device autotuner may override.
+TUNABLE_EXECUTORS = ("fdsq-cuda", "fqsd-int8-cuda")
+
 #: Streamed executors whose pipeline knobs (prefetch depth, speculation
-#: trigger) the tuning slice's autotuner will override; until then their
-#: plans carry the unset values and the engine's defaults apply.
+#: trigger, rescore budget) the end-to-end autotuner may override.
 PIPELINE_TUNABLE_EXECUTORS = ("fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
 
 BACKENDS = ("torch", "cuda")
@@ -135,6 +151,8 @@ class EngineConfig:
     mesh_axes: Sequence[str] = ("data", "model")
     rescore_factor: int = 4
     dtype: str = "float32"
+    #: the caller set rescore_factor: a tuned pipeline budget never replaces it
+    rescore_pinned: bool = False
 
 
 def largest_divisor_at_most(n: int, cap: int) -> int:
@@ -250,6 +268,39 @@ def plan(
         executor, tier = "fqsd-torch", "f32"
         chunk = largest_divisor_at_most(rows, max(1, chunk))
 
+    if cfg.backend == "cuda" and lookup_cuda_capability() is False:
+        raise RuntimeError(
+            f"plan(): {executor} needs the card's kernels, and the CUDA capability verdict "
+            f"persisted in {default_cache().path or 'the in-memory autotune cache'} is "
+            "false (probe_cuda_capability() failed on this device); nothing falls back "
+            "to plain ops: repair the build and probe again")
+
+    # tuned end-to-end pipeline knobs for the streamed int8 executors (a
+    # pure cache read); a budget the caller pinned is never replaced
+    rescore_factor = int(cfg.rescore_factor)
+    prefetch_depth = 0
+    spec_trigger = -1.0
+    if executor in PIPELINE_TUNABLE_EXECUTORS:
+        knobs = lookup_pipeline(executor, m, rows, int(dataset_meta.padded_dim),
+                                cfg.dtype, metric, k)
+        if knobs is not None:
+            prefetch_depth = int(knobs.prefetch_depth)
+            spec_trigger = float(knobs.spec_trigger)
+            if not cfg.rescore_pinned:
+                rescore_factor = int(knobs.rescore_factor)
+
+    # per-device autotuned tile shapes of the fused kernels (0 = kernel
+    # defaults); the int8 queue width depends on the rescore budget too, so
+    # its blocks are keyed per rescore_factor
+    block_m = block_n = block_d = 0
+    if executor in TUNABLE_EXECUTORS:
+        tuned = lookup_blocks(executor, m, rows, int(dataset_meta.padded_dim), cfg.dtype,
+                              metric, k,
+                              int(cfg.rescore_factor) if executor == "fqsd-int8-cuda"
+                              else None)
+        if tuned is not None:
+            block_m, block_n, block_d = tuned
+
     return ExecutionPlan(
         mode=mode,
         backend=cfg.backend,
@@ -264,6 +315,11 @@ def plan(
         n_valid=int(dataset_meta.n_valid),
         sharded=False,
         tier=tier,
-        rescore_factor=int(cfg.rescore_factor),
+        rescore_factor=rescore_factor,
         n_shards=int(getattr(dataset_meta, "n_shards", 1)),
+        block_m=block_m,
+        block_n=block_n,
+        block_d=block_d,
+        prefetch_depth=prefetch_depth,
+        spec_trigger=spec_trigger,
     )

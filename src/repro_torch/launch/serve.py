@@ -63,7 +63,14 @@ def _build_router(args):
     (router, x)."""
     from repro_torch.api import Router
     from repro_torch.data import vector_dataset
+    from repro_torch.tuning import probe_cuda_capability
 
+    if args.device == "cuda":
+        # probe-once capability verdict, persisted in the per-device
+        # autotune cache: a failure raises here, and every later cuda plan
+        # on this device raises too (nothing falls back to plain ops). On
+        # the CPU the caller asked for the plain versions: nothing to probe
+        probe_cuda_capability()
     x = vector_dataset(args.n, args.d, seed=0)
     router = Router()
     engine_kw = dict(k=args.k, n_partitions=args.partitions, backend="cuda",
@@ -122,7 +129,7 @@ def report(sched, router, args, wall: float) -> None:
           f"breaker: open={cb['open']} trips={cb['trips']} "
           f"probes={cb['probes']}")
     if st["transfers"]:
-        depth = args.prefetch_depth if args.prefetch_depth else "default 2"
+        depth = args.prefetch_depth if args.prefetch_depth else "tuned/2"
         print(f"  streamed: transfers={st['transfers']} "
               f"restarts={st['restarts']} "
               f"(prefetch depth {depth})")
@@ -208,13 +215,14 @@ def parser() -> argparse.ArgumentParser:
                     help="streamed-scan double-buffer depth (>= 1; 2 = the "
                          "paper's two memory banks; deeper tolerates host "
                          "jitter at the cost of pinned host memory), handed "
-                         "to every streamed executor. Default: 2")
+                         "to every streamed executor. Default: the device's "
+                         "tuned value, else 2")
     ap.add_argument("--spec-trigger", type=_shard_fraction, default=None,
                     help="streamed-int8 speculation trigger: shard fraction "
                          "in [0, 1] after which the candidate gather starts "
                          "on a background thread (1 disables speculation; "
-                         "default: 0.5). Results are bit-identical at every "
-                         "setting")
+                         "default: the device's tuned value, else 0.5). "
+                         "Results are bit-identical at every setting")
     ap.add_argument("--verify-on-open", action="store_true",
                     help="round-trip the corpus through a disk store and "
                          "reopen it with a full CRC audit, arming per-read "

@@ -668,3 +668,55 @@ def test_int8_fallback_through_the_f32_kernel_has_the_direct_bits(dev):
     want = ops.knn_exact_direct(eng._pad_queries(q), ds.vectors, ds.norms, 256, 1024)
     assert torch.equal(res.topk.scores, want.scores)
     assert torch.equal(res.topk.indices, want.indices)
+
+
+@pytest.fixture
+def tuning_cache(tmp_path):
+    """A cache file under tmp_path as the planner's default, restored after."""
+    from repro_torch.tuning import AutotuneCache, set_default_cache
+
+    cache = AutotuneCache(str(tmp_path / "card.json"))
+    set_default_cache(cache)
+    try:
+        yield cache
+    finally:
+        set_default_cache(None)
+
+
+@pytest.mark.parametrize("tier", ["f32", "int8"])
+def test_autotune_persists_a_legal_winner_with_the_default_bits(dev, tuning_cache, tier):
+    """The sweep on the card persists a legal winner; the tuned plan runs it
+    and answers with the default plan's bits."""
+    from repro_torch.tuning import AutotuneCache, autotune_knn, candidate_blocks, tuning_key
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, q = _ints((20_000, 128), g, dev), _ints((16, 128), g, dev)
+    eng = ExactKNN(k=10, backend="cuda").fit(x)
+    if tier == "int8":
+        eng.enable_int8()
+    req = SearchRequest(queries=q, mode_hint="fqsd", tier=tier)
+    want = eng.search(req)
+    p = eng.plan_for("fqsd", 16, tier=tier)
+    r = eng.rescore_factor if tier == "int8" else None
+    best, timings = autotune_knn(p.m, p.padded_rows, p.padded_dim, k=10, tier=tier,
+                                 repeats=1)
+    assert len(timings) == len(candidate_blocks(p.m, p.padded_rows, p.padded_dim, 10, r))
+    assert best in candidate_blocks(p.m, p.padded_rows, p.padded_dim, 10, r)
+    key = tuning_key(p.executor, 16, p.padded_rows, p.padded_dim, "float32", "l2", 10, r)
+    assert AutotuneCache(tuning_cache.path).get(key) == best
+    got = eng.search(req)
+    torch.cuda.synchronize()
+    assert (got.plan.block_m, got.plan.block_n, got.plan.block_d) == tuple(best)
+    assert got.kernel_stats["blocks"] == tuple(best)
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert torch.equal(got.topk.indices, want.topk.indices)
+
+
+def test_probe_cuda_capability_on_the_card(dev, tuning_cache):
+    from repro_torch.roofline import HwSpec
+    from repro_torch.tuning import lookup_cuda_capability, probe_cuda_capability
+
+    assert probe_cuda_capability() is True and lookup_cuda_capability() is True
+    hw = HwSpec.from_device(dev, tdp_watts=700.0)
+    assert hw.name == torch.cuda.get_device_name(dev)
+    assert hw.hbm_bytes == torch.cuda.get_device_properties(dev).total_memory
