@@ -147,7 +147,46 @@ Phases, in order (any failure makes the run exit non-zero):
              tier, certified share), upsert/delete/compact times, and per
              plan the scheduler's service time against engine.search + the
              same copy to the host at the same padded batch.
-10. tune   — per-device tuning (repro_torch.tuning), against a private cache
+10. listen — the network front end at phase 9's GIST shape, nothing cut:
+             the collection and server built by launch/serve.py's one
+             construction path (build_server, --listen 127.0.0.1:0 --policy
+             adaptive --int8-depth 64: vector_dataset's clustered rows, seed
+             0, Router.create(backend="cuda"), enable_int8(), a KnnServer
+             not yet listening), started in process on an ephemeral port;
+             every dispatch runs on its one worker thread. Step 1: the 512
+             rows of query_stream(x, 512, seed=1), each with its rid, over
+             the wire: a stretch over 4 persistent connections, then a burst
+             of 49 and one of 129 requests, each on its own connection,
+             queued while the worker is held so that each burst's rest
+             forms one batch (FQ-SD, then the int8 tier). Step 2: 16 query
+             rows upserted and the nearest ids of 16 other queries deleted
+             over the wire, POST compact {"wait": true}, GET compact, the
+             512 again. Step 3: upsert and delete again, the 512 over 64
+             connections with POST compact {} (the store's compactor
+             thread) sent after the first 64 answers, GET compact polled
+             until the new generation stands. Step 4: the ladder: the
+             tenant rate lowered to 25 q/s under closed-loop traffic from
+             one tenant (429s with Retry-After, no hard error); a second
+             KnnServer on the same Router with a 10 ms queue timeout under a
+             burst of 128 (503 queue_timeout); then no admission slot held
+             and /healthz 200 on both. Step 5: a WebSocket stats probe rides
+             along through steps 1-4. Gates: (a) every 200 answer, by rid,
+             within the tolerance below of the engine's direct search (run
+             on the worker) and its scores, ids and certificate, decoded
+             from JSON, bit-identical to the SearchResult the batcher
+             resolved for that rid; upserted queries find their rows, no
+             deleted id served, each generation standing with error null;
+             (b) every dispatch of steps 1 and 2 launched the kernels of its
+             label, read from the counters reset before it on the worker;
+             (d) all 512 answered in each step, with fdsq, fqsd and
+             fqsd-int8 dispatches in steps 1 and 2; the ladder's and the
+             stream's checks. Printed, not gated: the port's loadgen --port
+             run as a subprocess at 1, 4, 16 and 64 connections, 5 s each
+             (its JSON summary), beside the dispatches of each run by plan
+             (count, median rows and service ms), the scheduler's per-plan
+             p50 from /stats and the medians of the server's parse and
+             encode time a request; the launches by plan.
+11. tune   — per-device tuning (repro_torch.tuning), against a private cache
              file under build/tune/ installed for this phase alone (every
              other phase plans with an empty in-memory cache installed at
              start-up, so their times stay the default blocks'):
@@ -169,16 +208,17 @@ Phases, in order (any failure makes the run exit non-zero):
              for bit, and two more searches add no executable-cache miss;
              (c) the probe returns True and a plan under a persisted false
              verdict raises.
-11. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
+12. kernels — the standalone entry points: l2dist at (16, 1,000,000, 960),
              then topk over that (16, 1,000,000) matrix at k = 1024; then
              l2dist alone at (M, 1,000,000, 960) for M = 1, 16 (f32), 16
              (bf16) and 256 (f32), each one launch with the counters at 0,
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-9 and 11 are the main path (phase 10 measures tuning, and its
-launches enter no entry). The launch counters are set to 0 just before
-each search (phase 9: before each dispatch; phase 11: before l2dist + topk,
+Phases 3-10 and 12 are the main path (phase 11 measures tuning, and its
+launches enter no entry; phase 10's launches are printed on a line of
+their own). The launch counters are set to 0 just before
+each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
 and before each l2dist shape)
 and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phases 6
@@ -232,6 +272,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -258,7 +299,7 @@ EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1
 GIST = dict(n=1_000_000, d=960, m=16, k=1024)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
-#: phase 9: the main path at (m, n, d), then l2dist alone at each (M, dtype)
+#: phase 12: the main path at (m, n, d), then l2dist alone at each (M, dtype)
 #: of "l2dist" and both of its kernels at the batches of "crossover_ms",
 #: each timed (beside its plain version and library call) over runs of
 #: "calls" calls back to back
@@ -290,7 +331,21 @@ MUTATE = dict(n=1_000_000, d=960, seed=3, upserts=(1, 127, 16_000), delete_main=
 SERVE = dict(shape="gist_fqsd", queries=512, burst_size=64, trickle=8, int8_min_depth=64,
              policies=(("latency", None), ("throughput", None), ("adaptive", 64)),
              upserts=16, deletes=16, fdsq_m=4, fqsd_m=64)
-#: phase 10: the shapes the tuners sweep (rows from their own seeded numpy
+#: phase 10: the network front end at phase 9's shape: the 512 queries in a
+#: stretch over "stretch_connections" and two bursts held until queued (one
+#: request taken alone, the rest one FQ-SD batch, then one int8 batch);
+#: "upserts" rows upserted and "deletes" ids deleted before steps 2 and 3;
+#: step 3 over "compaction_connections" with the compaction started after
+#: "compact_after" answers; the ladder's tenant rate and closed-loop run,
+#: the second server's queue timeout and burst; loadgen subprocesses at
+#: each of "loadgen_connections" for "loadgen_s"; every socket wait bounded
+#: by "wait_s", the phase's traffic by "phase_s"
+LISTEN = dict(shape="gist_fqsd", queries=512, int8_min_depth=64, stretch_connections=4,
+              bursts=(49, 129), upserts=16, deletes=16, compaction_connections=64,
+              compact_after=8, ladder_tenant_qps=25.0, ladder_connections=16, ladder_s=2.0,
+              queue_timeout_ms=10.0, timeout_burst=128, probe_s=2.0, probe_interval_ms=250.0,
+              loadgen_connections=(1, 4, 16, 64), loadgen_s=5.0, wait_s=60.0, phase_s=600.0)
+#: phase 11: the shapes the tuners sweep (rows from their own seeded numpy
 #: draws): the GIST scans (f32 at m = 16, int8 at m = 16 and at the serve
 #: phase's m = 64), the MS-MARCO FD-SQ scan, and the streamed int8 pipeline
 #: of phase 6 at two shard sizes. Rescore factor 8 is left out of the
@@ -321,7 +376,7 @@ class Smoke:
         self.bw, self.flops = H100_SXM.hbm_bw, H100_SXM.peak_flops_f32
         self.shapes: list[dict] = []  # one per main-path search
         self.msmarco_eng = None  # phase 4's engine, quantised by phase 5
-        self.serve_rows = None  # phase 9's engine and query rows, for phase 10
+        self.serve_rows = None  # phase 9's engine and query rows, for phase 11
 
     # ------------------------------------------------------------ helpers
     def sync(self) -> None:
@@ -2187,7 +2242,36 @@ class Smoke:
         return True
 
 
-    # ----------------------------------------------------- phase 10: tune
+    # --------------------------------------------------- phase 10: listen
+    def phase_listen(self) -> bool:
+        """The network front end at phase 9's GIST shape: the collection and
+        KnnServer from launch/serve.py's build_server, steps 1-5 and the
+        measurements of the module docstring (class Listen)."""
+        import asyncio
+
+        from repro_torch.configs import get_config
+        from repro_torch.data import query_stream
+        from repro_torch.launch import serve
+
+        shape = get_config("knn-search").shape(LISTEN["shape"])
+        n, d, k = shape["n"], shape["d"], shape["k"]
+        args = serve.parser().parse_args(
+            ["--mode", "knn", "--n", str(n), "--d", str(d), "--k", str(k),
+             "--listen", "127.0.0.1:0", "--policy", "adaptive",
+             "--int8-depth", str(LISTEN["int8_min_depth"]), "--collection", LISTEN["shape"]])
+        t0 = time.perf_counter()
+        server, x = serve.build_server(args)
+        eng = server.router.engine(args.collection)
+        self.sync()
+        log(f"listen: set-up {time.perf_counter() - t0:.2f} s: build_server -> vector_dataset({n}, "
+            f"{d}, seed=0) -> Router.create -> fit -> enable_int8 -> KnnServer(policy=adaptive, "
+            f"int8_min_depth={LISTEN['int8_min_depth']}); device memory "
+            f"{self.torch.cuda.memory_allocated() / 2**30:.2f} GiB [{self.card}]")
+        run = Listen(self, server, eng, query_stream(x, LISTEN["queries"], seed=1), k,
+                     args.collection)
+        return asyncio.run(asyncio.wait_for(run.phase(), LISTEN["phase_s"]))
+
+    # ----------------------------------------------------- phase 11: tune
     @contextlib.contextmanager
     def _planning_with(self, cache):
         """Plan with `cache` as the default autotune cache inside the block."""
@@ -2439,7 +2523,7 @@ class Smoke:
         torch.cuda.empty_cache()
         return ok
 
-    # --------------------------------------------------- phase 11: kernels
+    # --------------------------------------------------- phase 12: kernels
     def phase_kernels(self) -> bool:
         """The standalone entry points: l2dist, then topk over its matrix;
         then l2dist alone at each shape of STANDALONE["l2dist"]."""
@@ -2640,8 +2724,480 @@ class Smoke:
         return {"kernels": out}
 
 
+class Listen:
+    """Phase listen: one KnnServer, its scheduler instrumented on the
+    instance (the launch counters reset and read around every dispatch on
+    the worker, each dispatch's label, rows, thread and service time kept,
+    and every SearchResult the batcher resolved kept by rid), the traffic
+    of steps 1-4, the stats probe riding along, and the loadgen runs."""
+
+    LABELS = ("fdsq", "fqsd", "fqsd-int8")
+
+    def __init__(self, smoke, server, eng, q, k, name):
+        self.smoke, self.torch, self.K = smoke, smoke.torch, smoke.K
+        self.server, self.eng, self.q, self.k, self.name = server, eng, q, k, name
+        self.qt = smoke.torch.from_numpy(q).to(smoke.dev)
+        self.path = f"/v1/collections/{name}"
+        self.log = []  # [label, rows, launches, thread, service s, end] a dispatch
+        self.resolved = {}  # rid -> the SearchResult the batcher resolved
+        self.totals = {label: {"knn_scan": 0, "knn_merge": 0, "knn_int8_scan": 0}
+                       for label in self.LABELS}
+        sched = server.schedulers[name]
+        search, execute, dispatch = sched._search, sched._execute, sched.dispatch_batch
+
+        def counted_search(request):
+            self.K.reset_launch_counts()
+            res = search(request)
+            label = "fqsd-int8" if request.tier == "int8" else request.mode_hint
+            self.log.append([label, int(request.queries.shape[0]), dict(self.K.LAUNCHES),
+                             threading.current_thread().name])
+            return res
+
+        def timed_execute(reqs, mode, clock_s, tier="f32"):
+            results, dt_s = execute(reqs, mode, clock_s, tier=tier)
+            self.log[-1] += [dt_s, time.perf_counter()]
+            return results, dt_s
+
+        def kept_dispatch(reqs, clock_s=None):
+            out = dispatch(reqs, clock_s)
+            self.resolved.update((r.rid, r) for r in out)
+            return out
+
+        sched._search, sched._execute = counted_search, timed_execute
+        sched.dispatch_batch = kept_dispatch
+
+    # ----------------------------------------------------------- helpers
+    @staticmethod
+    async def request(conn, method, path, body=None, headers=None):
+        import asyncio
+
+        return await asyncio.wait_for(conn.request(method, path, body, headers=headers),
+                                      LISTEN["wait_s"])
+
+    async def raw(self, method, path, body, headers) -> tuple[int, dict, dict]:
+        """One request on a connection of its own: (status, headers, body)."""
+        import asyncio
+
+        async def go():
+            reader, writer = await asyncio.open_connection(*self.server.address)
+            data = json.dumps(body).encode()
+            head = [f"{method} {path} HTTP/1.1", "Host: t", f"Content-Length: {len(data)}"]
+            head += [f"{name}: {value}" for name, value in headers.items()]
+            writer.write(("\r\n".join(head) + "\r\n\r\n").encode() + data)
+            await writer.drain()
+            lines = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1").split("\r\n")
+            fields = dict(line.split(": ", 1) for line in lines[1:] if ": " in line)
+            n = int(fields.get("Content-Length", 0))
+            payload = json.loads(await reader.readexactly(n)) if n else {}
+            writer.close()
+            with contextlib.suppress(ConnectionError, OSError):
+                await writer.wait_closed()
+            return int(lines[0].split(" ")[1]), fields, payload
+
+        return await asyncio.wait_for(go(), LISTEN["wait_s"])
+
+    async def on_worker(self, fn, *args):
+        """Run fn on the server's dispatch worker (serialised with its
+        dispatches, as every engine call of this phase is)."""
+        import asyncio
+        import functools
+
+        return await asyncio.get_running_loop().run_in_executor(
+            self.server._executor, functools.partial(fn, *args))
+
+    async def reference(self):
+        return await self.on_worker(self.smoke._serve_reference, self.eng, self.qt, self.k)
+
+    def connection(self, server=None):
+        from repro_torch.server.loadgen import Connection, LoadReport
+
+        return Connection(*(server or self.server).address,
+                          LoadReport(mode="listen", duration_s=0.0))
+
+    async def lane(self, rids, answers, on_answer=None) -> None:
+        """Send the query rows of rids in turn on one persistent connection."""
+        conn = self.connection()
+        try:
+            for rid in rids:
+                answers[rid] = await self.request(
+                    conn, "POST", f"{self.path}/search",
+                    {"queries": self.q[rid].tolist(), "rid": rid})
+                if on_answer is not None:
+                    on_answer()
+        finally:
+            await conn.close()
+
+    async def burst(self, rids, answers) -> None:
+        """One request a rid, each on its own connection, while the dispatch
+        worker is held: the first alone until the batcher has taken it (its
+        dispatch then waits for the worker), then the rest, released once
+        all are queued, so they form one batch."""
+        import asyncio
+
+        adm, batcher = self.server.admission, self.server.batchers[self.name]
+
+        async def until(cond):
+            t_end = time.perf_counter() + LISTEN["wait_s"]
+            while not cond():
+                if time.perf_counter() > t_end:
+                    raise TimeoutError("a held burst did not queue")
+                await asyncio.sleep(0.002)
+
+        gate = threading.Event()
+        held = asyncio.get_running_loop().run_in_executor(
+            self.server._executor, gate.wait, LISTEN["wait_s"])
+        base, (plug, *rest) = adm.inflight, rids
+        tasks = [asyncio.create_task(self.lane([plug], answers))]
+        try:
+            await until(lambda: adm.inflight == base + 1 and batcher.depth() == 0)
+            tasks += [asyncio.create_task(self.lane([rid], answers)) for rid in rest]
+            await until(lambda: batcher.depth() == len(rest))
+        finally:
+            gate.set()
+            await held
+        await asyncio.gather(*tasks)
+
+    async def traffic(self) -> dict:
+        """Every query row once, by rid: a stretch over a few persistent
+        connections, then each held burst. Returns rid -> (status, body)."""
+        import asyncio
+
+        answers = {}
+        m, c = self.q.shape[0], LISTEN["stretch_connections"]
+        start = m - sum(LISTEN["bursts"])
+        await asyncio.gather(*(self.lane(range(i, start, c), answers) for i in range(c)))
+        for size in LISTEN["bursts"]:
+            await self.burst(range(start, start + size), answers)
+            start += size
+        return answers
+
+    @staticmethod
+    def wire_f32(values):
+        """JSON scores as f32 (null stands for a non-finite score)."""
+        import numpy as np
+
+        return np.array([np.inf if v is None else v for v in values], np.float32)
+
+    def same_bits(self, body, res) -> bool:
+        """The wire answer decodes to the resolved result's very bits."""
+        import numpy as np
+
+        want = res.topk.scores.numpy()
+        want = np.where(np.isfinite(want), want, np.float32(np.inf))
+        return (np.array_equal(self.wire_f32(body["scores"]).view(np.uint32),
+                               want.view(np.uint32))
+                and body["indices"] == res.topk.indices.tolist()
+                and body["certified"] == bool(res.certified))
+
+    def check(self, step, answers, ref, first, deleted=(), upserted=None,
+              read_launches=True) -> bool:
+        """Gates (a), (b) and (d) of one step's 512 answers."""
+        torch, m = self.torch, self.q.shape[0]
+        statuses = sorted({st for st, _ in answers.values()})
+        if sorted(answers) != list(range(m)) or statuses != [200]:
+            log(f"listen {step}: answered {len(answers)}/{m}, statuses {statuses}; ok=False")
+            return False
+        bodies = [answers[rid][1] for rid in range(m)]
+        same = sum(self.same_bits(bodies[rid], self.resolved[rid]) for rid in range(m))
+        scores = torch.tensor(self.wire_f32([v for b in bodies for v in b["scores"]]),
+                              device=self.smoke.dev).reshape(m, -1)
+        ids = torch.tensor([b["indices"] for b in bodies], device=self.smoke.dev)
+        qn = torch.sum(self.qt * self.qt, dim=-1)
+        norms = self.eng._ds.norms
+        tol = TOL_REL * (qn[:, None] + float(norms[torch.isfinite(norms)].max()))
+        ok_a, err, checked = self.smoke._close(scores, ids, ref[0], ref[1], tol)
+        gone = sorted({i for b in bodies for i in b["indices"]} & set(deleted))
+        found = all(bodies[row]["indices"][0] == new_id
+                    for row, new_id in (upserted or {}).items() if new_id not in deleted)
+        mine = self.log[first:]
+        threads = sorted({entry[3] for entry in mine})
+        on_worker = all(t.startswith("knn-dispatch") for t in threads)
+        labels = {entry[0] for entry in mine}
+        ok_b, bad = True, []
+        for lab, rows, launches, *_ in mine if read_launches else ():
+            if lab == "fqsd-int8":  # + knn_scan and knn_merge when a row refits
+                good = (launches["knn_int8_scan"] >= 1 and launches["knn_scan"] in (0, 1)
+                        and launches["knn_merge"] == 1 + launches["knn_scan"])
+            else:
+                good = (launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
+                        and launches["knn_int8_scan"] == 0)
+            ok_b &= good
+            if not good:
+                bad.append((lab, rows, launches))
+            for name in self.totals[lab]:
+                self.totals[lab][name] += launches[name]
+        ok_d = not read_launches or labels >= set(self.LABELS)
+        ok = same == m and ok_a and not gone and found and on_worker and ok_b and ok_d
+        sizes = {lab: sorted({e[1] for e in mine if e[0] == lab}) for lab in sorted(labels)}
+        log(f"listen {step}: (a) wire vs direct search max|d|={err:.3e} (tol "
+            f"{float(tol.max()):.3e}), indices checked {checked}/{ids.numel()}; bit-identical to "
+            f"the resolved results {same}/{m}; deleted ids served {gone}; upserted rows found "
+            f"{found} ({len(upserted or {})}); (b) {len(mine)} dispatches on threads {threads}, "
+            f"kernels of the label launched by all="
+            f"{ok_b if read_launches else 'not read'} {bad[:3]}; (d) 512 answered 200, labels "
+            f"{sorted(labels)}, padded rows by label {sizes}; ok={ok} [{self.smoke.card}]")
+        return ok
+
+    async def mutate(self, conn, answers, round_) -> tuple[bool, dict, set]:
+        """Upsert LISTEN["upserts"] query rows and delete the nearest ids of
+        LISTEN["deletes"] other queries (from the last answers) over the
+        wire; returns (ok, row -> new id, deleted ids)."""
+        u, dl = LISTEN["upserts"], LISTEN["deletes"]
+        rows = list(range(2 * u * round_, 2 * u * round_ + u))
+        ids = sorted({answers[r][1]["indices"][0] for r in range(rows[-1] + 1, rows[-1] + 1 + dl)})
+        t0 = time.perf_counter()
+        st_u, up = await self.request(conn, "POST", f"{self.path}/upsert",
+                                      {"vectors": self.q[rows].tolist()})
+        t1 = time.perf_counter()
+        st_d, gone = await self.request(conn, "POST", f"{self.path}/delete", {"ids": ids})
+        t2 = time.perf_counter()
+        ok = (st_u == st_d == 200 and up.get("count") == u
+              and gone.get("deleted") == len(ids))
+        log(f"listen: round {round_}: upsert {u} rows over the wire {(t1 - t0) * 1e3:.3f} ms, "
+            f"delete {len(ids)} ids {(t2 - t1) * 1e3:.3f} ms; ok={ok} [{self.smoke.card}]")
+        return ok, dict(zip(rows, up.get("ids", []))), set(ids)
+
+    # -------------------------------------------------------------- steps
+    async def phase(self) -> bool:
+        import asyncio
+
+        from repro_torch.server.loadgen import stats_stream_probe
+
+        frames, done = [], asyncio.Event()
+
+        async def ride():  # the stats stream, in segments, until told to stop
+            while not done.is_set():
+                frames.extend(await asyncio.wait_for(
+                    stats_stream_probe(*self.server.address, LISTEN["probe_s"],
+                                       interval_ms=LISTEN["probe_interval_ms"]),
+                    LISTEN["probe_s"] + LISTEN["wait_s"]))
+
+        async with self.server:
+            probe = asyncio.create_task(ride())
+            conn = self.connection()
+            try:
+                ok, answers = await self.step_exact()
+                ok2, answers = await self.step_mutate(conn, answers)
+                ok &= ok2
+                ok &= await self.step_background(conn, answers)
+                ok &= await self.step_ladder(conn)
+            finally:
+                done.set()
+                await conn.close()
+                await asyncio.wait_for(probe, LISTEN["probe_s"] + LISTEN["wait_s"])
+            good = len(frames) >= 2 and all(isinstance(f, dict) and self.name in f["schedulers"]
+                                            for f in frames)
+            log(f"listen step 5: stats stream {len(frames)} frames, each JSON with the "
+                f"collection's scheduler={good}; ok={good}")
+            ok &= good
+            log(f"listen: launches by plan over steps 1 and 2 {self.totals} [{self.smoke.card}]")
+            await self.measure()
+        return ok
+
+    async def step_exact(self) -> tuple[bool, dict]:
+        ref = await self.reference()
+        first = len(self.log)
+        answers = await self.traffic()
+        return self.check("step 1", answers, ref, first), answers
+
+    async def step_mutate(self, conn, answers) -> tuple[bool, dict]:
+        ok, upserted, deleted = await self.mutate(conn, answers, 1)
+        t0 = time.perf_counter()
+        st_c, status = await self.request(conn, "POST", f"{self.path}/compact", {"wait": True})
+        t1 = time.perf_counter()
+        st_g, got = await self.request(conn, "GET", f"{self.path}/compact")
+        ok &= (st_c == st_g == 200 and status["generation"] == got["generation"] == 1
+               and status["error"] is None and not got["running"])
+        log(f"listen step 2: POST compact {{\"wait\": true}} {t1 - t0:.3f} s -> generation "
+            f"{status['generation']}, error {status['error']}; GET compact generation "
+            f"{got['generation']}; ok={ok} [{self.smoke.card}]")
+        self.upserted, self.deleted = upserted, deleted
+        ref = await self.reference()
+        first = len(self.log)
+        answers = await self.traffic()
+        ok &= self.check("step 2", answers, ref, first, deleted, upserted)
+        return ok, answers
+
+    async def step_background(self, conn, answers) -> bool:
+        """Mutate, then the 512 over many connections with POST compact {}
+        sent after the first answers; GET compact polled until the new
+        generation stands."""
+        import asyncio
+
+        ok, upserted, deleted = await self.mutate(conn, answers, 2)
+        upserted, deleted = self.upserted | upserted, self.deleted | deleted
+        ref = await self.reference()  # the live rows, which compaction keeps
+        first = len(self.log)
+        m, c = self.q.shape[0], LISTEN["compaction_connections"]
+        answers, arrivals, started = {}, [], asyncio.Event()
+        marks = {}
+
+        def on_answer():
+            arrivals.append(time.perf_counter())
+            if len(arrivals) == LISTEN["compact_after"]:
+                started.set()
+
+        async def trigger():
+            await asyncio.wait_for(started.wait(), LISTEN["wait_s"])
+            marks["trigger"] = time.perf_counter()
+            st, status = await self.request(conn, "POST", f"{self.path}/compact", {})
+            t_end = time.perf_counter() + LISTEN["wait_s"]
+            poll = self.connection()
+            try:
+                while time.perf_counter() < t_end:
+                    st_g, got = await self.request(poll, "GET", f"{self.path}/compact")
+                    if not got["running"] and got["generation"] >= 2:
+                        marks["stood"] = time.perf_counter()
+                        return st == st_g == 200, status, got
+                    await asyncio.sleep(0.02)
+            finally:
+                await poll.close()
+            return False, status, got
+
+        (good, status, got), *_ = await asyncio.gather(
+            trigger(), *(self.lane(range(i, m, c), answers, on_answer) for i in range(c)))
+        ok &= good and got["generation"] == 2 and got["error"] is None
+        stood = marks.get("stood", math.inf)
+        during = sum(marks["trigger"] <= t <= stood for t in arrivals)
+        overlap = sum(e[5] - e[4] < stood and e[5] > marks["trigger"]
+                      for e in self.log[first:] if len(e) == 6)
+        log(f"listen step 3: POST compact {{}} after {LISTEN['compact_after']} answers -> running "
+            f"{status['running']}; generation {got['generation']} stood "
+            f"{stood - marks['trigger']:.3f} s later, error {got['error']}; dispatches that "
+            f"overlapped it {overlap}, answers that arrived meanwhile {during}; ok={ok} "
+            f"[{self.smoke.card}]")
+        return ok & self.check("step 3", answers, ref, first, deleted, upserted,
+                               read_launches=False)
+
+    async def step_ladder(self, conn) -> bool:
+        """A tenant past its rate draws 429s with Retry-After and no hard
+        error; a second server with a short queue timeout answers 503s
+        under a burst; no admission slot is left held."""
+        import asyncio
+
+        from repro_torch.server import KnnServer
+        from repro_torch.server.loadgen import closed_loop
+
+        adm = self.server.admission
+        adm.tenant_qps = LISTEN["ladder_tenant_qps"]
+        try:
+            rep = await asyncio.wait_for(closed_loop(
+                *self.server.address, self.name, connections=LISTEN["ladder_connections"],
+                duration_s=LISTEN["ladder_s"], d=self.q.shape[1], k=self.k,
+                tenant_fn=lambda w: "hot-tenant", honor_retry_after=False),
+                LISTEN["ladder_s"] + LISTEN["wait_s"])
+            # one request more at a time until one is refused, for its headers
+            for _ in range(2 * math.ceil(LISTEN["ladder_tenant_qps"]) + 2):
+                st, fields, body = await self.raw("POST", f"{self.path}/search",
+                                                  {"queries": self.q[0].tolist()},
+                                                  {"X-Tenant": "hot-tenant"})
+                if st != 200:
+                    break
+        finally:
+            adm.tenant_qps = None
+        ok = (rep.rejected > 0 and rep.errors == 0 and rep.ok > 0 and st == 429
+              and body.get("reason") == "rate_limit" and float(fields.get("Retry-After", 0)) > 0)
+        log(f"listen step 4: tenant_qps={LISTEN['ladder_tenant_qps']} under closed-loop traffic "
+            f"from one tenant over {LISTEN['ladder_connections']} connections: "
+            f"{json.dumps(rep.summary())}; one more: {st} {body.get('reason')} Retry-After "
+            f"{fields.get('Retry-After')}; ok={ok} [{self.smoke.card}]")
+
+        second = KnnServer(self.server.router, port=0, policy="adaptive",
+                           int8_min_depth=LISTEN["int8_min_depth"],
+                           queue_timeout_ms=LISTEN["queue_timeout_ms"])
+        async with second:
+            async def one(row):
+                conn2 = self.connection(second)
+                try:
+                    return await self.request(conn2, "POST", f"{self.path}/search",
+                                              {"queries": self.q[row].tolist()})
+                finally:
+                    await conn2.close()
+
+            # the worker busy for 100 ms as the burst lands (a long dispatch):
+            # every request queued meanwhile outlives its queue timeout
+            busy = asyncio.get_running_loop().run_in_executor(second._executor, time.sleep, 0.1)
+            out = await asyncio.gather(*(one(r) for r in range(LISTEN["timeout_burst"])))
+            await busy
+            probe2 = self.connection(second)
+            try:
+                st2, stats2 = await self.request(probe2, "GET", "/stats")
+                sh2, _ = await self.request(probe2, "GET", "/healthz")
+            finally:
+                await probe2.close()
+        statuses = [s for s, _ in out]
+        timeouts = sum(s == 503 and b.get("reason") == "queue_timeout" for s, b in out)
+        st1, stats1 = await self.request(conn, "GET", "/stats")
+        sh1, _ = await self.request(conn, "GET", "/healthz")
+        good = (timeouts > 0 and set(statuses) <= {200, 503} and st2 == sh2 == st1 == sh1 == 200
+                and stats2["admission"]["inflight"] == 0 and stats1["admission"]["inflight"] == 0)
+        log(f"listen step 4: a second KnnServer, queue_timeout_ms={LISTEN['queue_timeout_ms']}, "
+            f"burst of {LISTEN['timeout_burst']} onto a worker busy for 100 ms: {statuses.count(200)} answered, {timeouts} "
+            f"503 queue_timeout, others {sorted(set(statuses) - {200, 503})}; admission inflight "
+            f"after: {stats2['admission']['inflight']} / {stats1['admission']['inflight']}, "
+            f"/healthz {sh2} / {sh1}; ok={good} [{self.smoke.card}]")
+        return ok and good
+
+    # ------------------------------------------------------ measurements
+    async def measure(self) -> None:
+        """loadgen --port in a subprocess at each connection count (printed,
+        not gated), beside the dispatches of each run, the scheduler's
+        per-plan p50 from /stats and the server's codec medians."""
+        import asyncio
+        import os
+
+        import repro_torch
+
+        env = dict(os.environ, PYTHONPATH=str(Path(repro_torch.__file__).resolve().parents[1]))
+        host, port = self.server.address
+        conn = self.connection()
+        try:
+            for c in LISTEN["loadgen_connections"]:
+                first = len(self.log)
+                for samples in self.server.codec_ms.values():
+                    samples.clear()
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "repro_torch.server.loadgen", "--host", host,
+                    "--port", str(port), "--collection", self.name, "--connections", str(c),
+                    "--duration", str(LISTEN["loadgen_s"]), "--d", str(self.q.shape[1]),
+                    "--k", str(self.k), stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
+                try:
+                    out, err = await asyncio.wait_for(
+                        proc.communicate(), LISTEN["loadgen_s"] + LISTEN["wait_s"])
+                except asyncio.TimeoutError:
+                    proc.kill()
+                    await proc.wait()
+                    log(f"listen loadgen --connections {c}: timed out, killed")
+                    continue
+                if proc.returncode:
+                    log(f"listen loadgen --connections {c}: exit {proc.returncode}: "
+                        f"{err.decode()[-400:]}")
+                    continue
+                summary = json.loads(out)
+                per = {}
+                for entry in self.log[first:]:
+                    if len(entry) == 6:
+                        per.setdefault(entry[0], []).append((entry[1], entry[4] * 1e3))
+                runs = {lab: {"dispatches": len(v),
+                              "median_rows": statistics.median(r for r, _ in v),
+                              "median_service_ms": round(statistics.median(t for _, t in v), 3)}
+                        for lab, v in sorted(per.items())}
+                _, stats = await self.request(conn, "GET", "/stats")
+                p50 = {lab: round(r["p50_ms"], 3)
+                       for lab, r in stats["schedulers"][self.name]["per_plan"].items()}
+                codec = {key: round(statistics.median(v), 4) if v else None
+                         for key, v in self.server.codec_ms.items()}
+                log(f"listen loadgen --connections {c} --duration {LISTEN['loadgen_s']} (a "
+                    f"subprocess): {json.dumps(summary)}; dispatches of the run {runs}; "
+                    f"scheduler per-plan p50 ms from /stats (since start) {p50}; server codec "
+                    f"ms a request, median: parse {codec['parse']}, encode {codec['encode']} "
+                    f"[{self.smoke.card}]")
+        finally:
+            await conn.close()
+
+
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "tune", "kernels")
+          "listen", "tune", "kernels")
 
 
 def main(argv=None) -> int:

@@ -13,12 +13,24 @@ logical plan (fdsq / fqsd / fqsd-int8), the request count, p50/p99
 latency, queries/s, executors, tier and certified fraction: the paper's
 RQ3 trade-off as a runtime policy.
 
+With ``--listen HOST:PORT`` the same collection is served over the
+network instead of replayed: the asyncio HTTP/1.1 + WebSocket front end
+(``repro_torch.server.KnnServer``) with per-tenant admission control and
+continuous batching, every dispatch on one worker thread through the same
+Router, scheduler and kernels. ``--max-inflight``, ``--tenant-qps`` and
+``--queue-timeout-ms`` bound the live queue:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode knn \
+        --listen 127.0.0.1:8440 --collection passages \
+        --max-inflight 512 --tenant-qps 100 --queue-timeout-ms 2000
+
 It runs on the CUDA device and raises where there is none; ``--device cpu``
 runs the kernels' plain versions on the CPU instead.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 
@@ -43,6 +55,36 @@ def _nonneg_int(text: str) -> int:
     if v < 0:
         raise argparse.ArgumentTypeError(f"must be >= 0, got {v}")
     return v
+
+
+def _positive_float(text: str) -> float:
+    """argparse type: finite float > 0 (rates, timeouts)."""
+    try:
+        v = float(text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected a number, got {text!r}")
+    if not (math.isfinite(v) and v > 0):
+        raise argparse.ArgumentTypeError(
+            f"must be a finite number > 0, got {text!r}")
+    return v
+
+
+def _listen_addr(text: str) -> tuple[str, int]:
+    """argparse type: HOST:PORT (port in [0, 65535]; 0 = ephemeral),
+    rejected at parse time, not at bind time."""
+    host, sep, port_text = text.rpartition(":")
+    if not sep or not host:
+        raise argparse.ArgumentTypeError(
+            f"expected HOST:PORT, got {text!r}")
+    try:
+        port = int(port_text)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"port must be an integer, got {port_text!r}")
+    if not 0 <= port <= 65535:
+        raise argparse.ArgumentTypeError(
+            f"port must be in [0, 65535], got {port}")
+    return host, port
 
 
 def _shard_fraction(text: str) -> float:
@@ -161,10 +203,65 @@ def report(sched, router, args, wall: float) -> None:
           f"evictions={cache['evictions']}")
 
 
+def build_server(args):
+    """The --listen path's one construction: :func:`_build_router`'s Router
+    and collection behind a :class:`repro_torch.server.KnnServer` that binds
+    ``args.listen`` when started (not yet listening). Returns (server, x)."""
+    from repro_torch.server import KnnServer
+
+    router, x = _build_router(args)
+    host, port = args.listen
+    server = KnnServer(
+        router, host=host, port=port,
+        policy="throughput" if args.fqsd else args.policy,
+        fdsq_max_batch=args.fdsq_max_batch,
+        fqsd_min_depth=args.fqsd_min_depth,
+        int8_min_depth=args.int8_depth,
+        max_inflight=args.max_inflight,
+        tenant_qps=args.tenant_qps,
+        queue_timeout_ms=args.queue_timeout_ms,
+    )
+    return server, x
+
+
+def serve_http(args):
+    """--listen path: the network front end over the same collection, until
+    interrupted."""
+    import asyncio
+
+    server, _ = build_server(args)
+    policy = server.schedulers[args.collection].policy
+
+    async def run():
+        async with server:
+            bound_host, bound_port = server.address
+            print(f"serving collection {args.collection!r} "
+                  f"({args.n} x {args.d}) on http://{bound_host}:{bound_port} "
+                  f"(policy={policy} max_inflight={args.max_inflight} "
+                  f"tenant_qps={args.tenant_qps} "
+                  f"queue_timeout_ms={args.queue_timeout_ms})", flush=True)
+            print("endpoints: POST /v1/collections/"
+                  f"{args.collection}/{{search,upsert,delete,compact}}  "
+                  f"GET /v1/collections/{args.collection}/compact  "
+                  "GET /healthz  GET /stats  WS /v1/stats/stream", flush=True)
+            try:
+                await server.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        print("shutdown requested, draining")
+
+
 def serve_knn(args):
     from repro_torch.data import query_stream
     from repro_torch.serving import AdaptiveScheduler, bursty_requests
 
+    if args.listen is not None:
+        serve_http(args)
+        return
     policy = "throughput" if args.fqsd else args.policy
     router, x = _build_router(args)
     q = query_stream(x, args.queries, seed=1)
@@ -245,6 +342,24 @@ def parser() -> argparse.ArgumentParser:
                          "for streamed shard reads / candidate gathers / "
                          "device transfers; 0 disables retry. Default: the "
                          "engine's default (2)")
+    ap.add_argument("--listen", type=_listen_addr, default=None,
+                    metavar="HOST:PORT",
+                    help="serve the collection over HTTP instead of "
+                         "replaying a synthetic stream: asyncio front end "
+                         "with per-tenant admission control and continuous "
+                         "batching (port 0 = ephemeral)")
+    ap.add_argument("--max-inflight", type=_positive_int, default=512,
+                    help="server-wide bound on admitted-but-unanswered "
+                         "requests; arrivals past it get 429 + Retry-After "
+                         "(--listen only)")
+    ap.add_argument("--tenant-qps", type=_positive_float, default=None,
+                    help="per-tenant sustained request rate over a 1s "
+                         "sliding window; default: unlimited "
+                         "(--listen only)")
+    ap.add_argument("--queue-timeout-ms", type=_positive_float, default=None,
+                    help="bound on time a request may wait in the live "
+                         "queue before the server answers 503; default: "
+                         "wait for dispatch (--listen only)")
     return ap
 
 

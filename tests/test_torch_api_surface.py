@@ -179,3 +179,50 @@ def test_fdsq_query_stream_and_merge_two_sorted_match_the_reference():
                                   JTopK(jnp.asarray(b_s), jnp.asarray(b_i)))
     np.testing.assert_array_equal(got.scores.numpy(), np.asarray(want.scores))
     np.testing.assert_array_equal(got.indices.numpy(), np.asarray(want.indices))
+
+
+def test_server_all_is_the_reference():
+    import repro.server as jserver
+    import repro_torch.server as server
+
+    assert list(server.__all__) == list(jserver.__all__)
+    for name in server.__all__:
+        assert getattr(server, name).__module__.startswith("repro_torch.server."), name
+
+
+LISTEN_FLAGS = ("listen", "max_inflight", "tenant_qps", "queue_timeout_ms")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--listen", "0.0.0.0:8440", "--max-inflight", "64", "--tenant-qps", "12.5",
+     "--queue-timeout-ms", "250"],
+    ["--listen", "localhost:0", "--tenant-qps", "1e3"],
+])
+def test_serve_parser_takes_the_reference_listen_flags(monkeypatch, argv):
+    """launch.serve's parser takes the reference's --listen, --max-inflight,
+    --tenant-qps and --queue-timeout-ms with the same defaults and values."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+
+    seen = []
+    monkeypatch.setattr(jserve, "serve_knn", seen.append)
+    jserve.main(["--mode", "knn", *argv])
+    got = serve.parser().parse_args(["--mode", "knn", *argv])
+    assert [getattr(got, f) for f in LISTEN_FLAGS] == [getattr(seen[0], f) for f in LISTEN_FLAGS]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--listen", "8440"], ["--listen", ":8440"], ["--listen", "h:65536"], ["--listen", "h:p"],
+    ["--max-inflight", "0"], ["--tenant-qps", "-1"], ["--tenant-qps", "nan"],
+    ["--queue-timeout-ms", "0"], ["--queue-timeout-ms", "inf"],
+])
+def test_serve_parser_refuses_what_the_reference_refuses(monkeypatch, argv):
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(jserve, "serve_knn", lambda args: None)
+    with pytest.raises(SystemExit):
+        jserve.main(["--mode", "knn", *argv])
+    with pytest.raises(SystemExit):
+        serve.parser().parse_args(["--mode", "knn", *argv])

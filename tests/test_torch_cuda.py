@@ -720,3 +720,148 @@ def test_probe_cuda_capability_on_the_card(dev, tuning_cache):
     hw = HwSpec.from_device(dev, tdp_watts=700.0)
     assert hw.name == torch.cuda.get_device_name(dev)
     assert hw.hbm_bytes == torch.cuda.get_device_properties(dev).total_memory
+
+
+def _over_the_wire(server, calls):
+    """Start the server, send (method, path, body) calls in turn on one
+    persistent connection, stop; returns the (status, body) answers. Every
+    wait is bounded."""
+    import asyncio
+
+    from repro_torch.server.loadgen import Connection, LoadReport
+
+    async def run():
+        async with server:
+            conn = Connection(*server.address, LoadReport(mode="test", duration_s=0.0))
+            try:
+                return [await asyncio.wait_for(conn.request(*call), 60) for call in calls]
+            finally:
+                await conn.close()
+
+    return asyncio.run(asyncio.wait_for(run(), 300))
+
+
+def _wire_bits(values):
+    import numpy as np
+
+    return np.asarray(values, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("tier", ["f32", "int8"])
+def test_server_answers_as_the_same_batch_dispatched_in_process(dev, tier):
+    """A KnnServer on the card answers each search over the wire with the
+    bits of the same one-request batch dispatched in process; its dispatches
+    run on the server's worker thread, the card its current device, and
+    launch the tier's kernels."""
+    import threading
+
+    from repro_torch.api import Router
+    from repro_torch.server import KnnServer
+    from repro_torch.serving import AdaptiveScheduler
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = _unit_scale_rows(20_000, 256, g, dev) if tier == "int8" else _ints((20_000, 256), g, dev)
+    q = _ints((3, 256), g, dev).cpu().numpy()
+    router = Router()
+    eng = router.create("docs", x, k=72, backend="cuda")
+    if tier == "int8":
+        eng.enable_int8()
+    server = KnnServer(router, port=0)
+    sched, seen = server.schedulers["docs"], []
+    search = sched._search
+
+    def spy(request):
+        K.reset_launch_counts()
+        res = search(request)
+        seen.append((threading.current_thread().name, torch.cuda.current_device(),
+                     dict(K.LAUNCHES)))
+        return res
+
+    sched._search = spy
+    got = _over_the_wire(server, [("POST", "/v1/collections/docs/search",
+                                   {"queries": row.tolist(), "rid": i, "tier": tier})
+                                  for i, row in enumerate(q)])
+    direct = AdaptiveScheduler(router=router, collection="docs")
+    for i, row in enumerate(q):
+        [want] = direct.dispatch_batch([SearchRequest(queries=row, rid=i, tier=tier)])
+        st, body = got[i]
+        assert st == 200 and body["tier"] == tier and body["rid"] == i
+        assert (_wire_bits(body["scores"]) == _wire_bits(want.topk.scores.numpy())).all()
+        assert body["indices"] == want.topk.indices.tolist()
+        assert body["certified"] == bool(want.certified)
+    scan = "knn_int8_scan" if tier == "int8" else "knn_scan"
+    card = dev.index if dev.index is not None else torch.cuda.current_device()
+    assert len(seen) == 3
+    for thread, device, launches in seen:
+        assert thread.startswith("knn-dispatch") and device == card
+        assert launches[scan] >= 1 and launches["knn_merge"] >= 1
+
+
+def test_searches_over_the_wire_during_a_background_compaction(dev):
+    """POST compact {} starts the store's compactor thread on the card while
+    searches run on the dispatch worker: every answer, during and after the
+    swap, has the bits of a direct search of the live rows."""
+    import asyncio
+
+    from repro_torch.api import Router
+    from repro_torch.server import KnnServer
+    from repro_torch.server.loadgen import Connection, LoadReport
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    x = _ints((200_000, 128), g, dev)
+    q = _ints((64, 128), g, dev)
+    router = Router()
+    eng = router.create("docs", x, k=16, backend="cuda")
+    eng.upsert(q[:8].cpu().numpy())
+    eng.delete([5, 17, 999, 200_003])
+    want = eng.search(SearchRequest(queries=q, mode_hint="fqsd"))
+    scores, ids = want.topk.scores.cpu().numpy(), want.topk.indices.cpu().tolist()
+    rows = q.cpu().numpy()
+    server = KnnServer(router, port=0)
+
+    def connection():
+        return Connection(*server.address, LoadReport(mode="test", duration_s=0.0))
+
+    async def ask(conn, method, path, body=None):
+        return await asyncio.wait_for(conn.request(method, path, body), 60)
+
+    async def searches():
+        answers = {}
+
+        async def lane(idx):
+            conn = connection()
+            try:
+                for i in idx:
+                    answers[i] = await ask(conn, "POST", "/v1/collections/docs/search",
+                                           {"queries": rows[i].tolist(), "rid": i})
+            finally:
+                await conn.close()
+
+        await asyncio.gather(*(lane(range(j, 64, 8)) for j in range(8)))
+        return [answers[i] for i in range(64)]
+
+    async def run():
+        async with server:
+            admin = connection()
+            try:
+                started = await ask(admin, "POST", "/v1/collections/docs/compact", {})
+                during = await searches()
+                for _ in range(1200):
+                    st, status = await ask(admin, "GET", "/v1/collections/docs/compact")
+                    if status["generation"] == 1 and not status["running"]:
+                        break
+                    await asyncio.sleep(0.05)
+                after = await searches()
+            finally:
+                await admin.close()
+        return started, (st, status), during, after
+
+    started, polled, during, after = asyncio.run(asyncio.wait_for(run(), 300))
+    assert started[0] == polled[0] == 200
+    assert polled[1]["generation"] == 1 and polled[1]["error"] is None
+    for answers in (during, after):
+        for i, (st, body) in enumerate(answers):
+            assert st == 200
+            assert (_wire_bits(body["scores"]) == _wire_bits(scores[i])).all()
+            assert body["indices"] == ids[i]
+    assert ids[0][0] == 200_000  # the upserted copy of query 0, found first
