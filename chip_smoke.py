@@ -215,7 +215,49 @@ Phases, in order (any failure makes the run exit non-zero):
              beside torch.cdist's matrix-product form; and both l2dist
              kernels at M = 16 to 128 (the crossover, printed only).
 
-Phases 3-10 and 12 are the main path (phase 11 measures tuning, and its
+13. mesh   — the mesh (repro_torch.core.sharded) at the GIST shape, nothing
+             cut: phase 3's data (seed 3), N = 1,000,000, d = 960, padded to
+             1,000,448 x 1,024 (4.10 GB), row-sharded over make_mesh((2, 2),
+             ("data", "model"), devices=["cuda:0"] * 4): four logical
+             devices on the one card, each block 250,112 x 1,024 (a view of
+             the single-device engine's rows, fitted from the same store).
+             Searches: fdsq-sharded at m = 1 and m = 16, the ring
+             (fqsd-sharded) at m = 16, fdsq-sharded-int8 at m = 16, all at
+             k = 1024; fqsd-sharded-int8 over a pinned host store of 16
+             shards of 65,536 rows ring-put to the 4 positions; then
+             Router.create(devices=["cuda:0"] * 4) (a one-axis mesh) on the
+             same store behind AdaptiveScheduler, a bursty replay of 128
+             queries (burst 32, trickle 4) under the adaptive policy with
+             int8_min_depth 32 and under the throughput policy; then 16
+             upserts, 16 deletes and a filter mask on the 2 x 2 engine.
+             First a batch probe on block 0: the query norms of 8 queries
+             in a batch of 8 and of 16 (torch.sum, printed; the scans'
+             fixed order, query_norms_sq: must be bit-identical) and
+             knn_scan + knn_merge at bm = 8 and 16 with the norms fixed
+             (must be bit-identical), and what each norm costs a call.
+             Gates: (a) every f32 mesh answer bit-identical (values,
+             indices) to the single-device fdsq-cuda answer on the same
+             rows at the same batch, the replay's by rid against one
+             search of all 128; (b) every int8 mesh answer bit-identical to
+             knn_exact_direct; (c) the launches of knn_scan, knn_int8_scan
+             and knn_merge in each search (and each replay dispatch) equal
+             the schedule the executor's docstring states; (d)
+             stats["bytes_per_device"] of the int8 mesh searches has 4
+             entries summing to the scan bytes; (e) after the mutations, with
+             and without the mask, every mesh search equals a fresh
+             single-device fit on the live rows, and no executable-cache miss
+             is added; (f) 8 traced warm ring searches make no new device
+             allocation. Printed: each mesh search's host-clock median
+             beside the single-device search, one ring step's block copies
+             beside its block scans, the traced ring and int8 ring searches
+             (device ms by kind, span, cudaMalloc, allocator counts), and
+             every kernel at each shape the searches give it (a block's
+             aligned scan and its own knn_merge, the tail scan, the
+             hierarchical knn_merge; the int8 block and shard scans and
+             their merges), launches split by the schedule, beside their
+             plain versions, library calls and bounds over d = 960.
+
+Phases 3-10, 12 and 13 are the main path (phase 11 measures tuning, and its
 launches enter no entry; phase 10's launches are printed on a line of
 their own). The launch counters are set to 0 just before
 each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
@@ -356,6 +398,17 @@ TUNE = dict(gist=dict(n=1_000_000, d=960, k=1024, seed=3), f32_ms=(16,), int8_ms
             pipeline=dict(n=1_000_000, d=960, m=16, k=1024, shards=(65_536, 131_072),
                           rescore=(2, 4), seed=3),
             clustered_m=64, repeats=3, searches=5)
+#: phase 13: the mesh at the GIST shape (phase 3's data, seed 3), nothing
+#: cut: a "shape" mesh over "axes" of logical devices on the one card;
+#: fdsq-sharded at each of "fdsq_ms" and the ring (fqsd-sharded) and the int8
+#: tier at "m" queries; the int8 ring over a pinned host store of shards of
+#: "rows_per_shard"; the Router's replay of "replay"; "upserts" rows upserted
+#: and the nearest rows of "deletes" queries deleted; "traced" ring searches
+#: and "traced_int8" int8 ring searches each under the profiler
+MESH = dict(n=1_000_000, d=960, seed=3, shape=(2, 2), axes=("data", "model"), k=1024,
+            m=16, fdsq_ms=(1, 16), rows_per_shard=65_536,
+            replay=dict(queries=128, burst_size=32, trickle=4, int8_min_depth=32),
+            upserts=16, deletes=16, repeats=5, traced=8, traced_int8=3)
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -368,10 +421,12 @@ def log(msg: str) -> None:
 
 class Smoke:
     def __init__(self, torch, dev, card: str = ""):
+        from repro_torch.core.distance import query_norms_sq
         from repro_torch.kernels.knn import kernel as K, ops
         from repro_torch.roofline.hw import H100_SXM
 
         self.torch, self.K, self.ops, self.dev = torch, K, ops, dev
+        self.qnorm = query_norms_sq  # the query norms as the executors compute them
         self.card = card  # nvidia-smi's name and power limit, beside every time
         self.bw, self.flops = H100_SXM.hbm_bw, H100_SXM.peak_flops_f32
         self.shapes: list[dict] = []  # one per main-path search
@@ -746,7 +801,7 @@ class Smoke:
         call = ops.prepare(eng._pad_queries(q), ds.vectors, k, "l2", ds.norms)
         bm, bn, _ = call.blocks
         cq, cx, cxn = call.q, call.x, call.xn
-        qn = torch.sum(cq.to(torch.float32) ** 2, dim=-1)
+        qn = self.qnorm(cq)
         m_tiles, n_tiles = cq.shape[0] // bm, cx.shape[0] // bn
         splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
         sv, si, sk, st = K.knn_scan(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits,
@@ -1019,7 +1074,7 @@ class Smoke:
         # the yardstick of the whole int8 search: the f32 scan at the same shape
         fcall = ops.prepare(qv, ds.vectors, k, "l2", ds.norms)
         fbm, fbn, _ = fcall.blocks
-        fqn = torch.sum(fcall.q * fcall.q, dim=-1)
+        fqn = self.qnorm(fcall.q)
         f32_scan_ms = self.ms(lambda: K.knn_scan(fcall.q, fcall.x, fqn, fcall.xn, fcall.k_eff,
                                                  "l2", fbm, fbn, True))
 
@@ -1093,7 +1148,7 @@ class Smoke:
         w = 2 * next_pow2(k)
         call = ops.prepare(qb, ds.vectors, w, "l2", ds.norms)
         bm, bn, _ = call.blocks
-        qn = torch.sum(call.q * call.q, dim=-1)
+        qn = self.qnorm(call.q)
         splits = K.scan_config(call.q.shape[0] // bm, call.x.shape[0] // bn, bm, self.dev)[0]
         args = (call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
         sv, si, _ = K.knn_scan(*args)
@@ -1360,7 +1415,7 @@ class Smoke:
         i0 = torch.full((m, call0.k_eff), -1, dtype=torch.int32, device=self.dev)
         v, i = ops.knn_shard(v0, i0, qv, prev.vectors, prev.norms, k, "l2", prev.base_index)
         call = ops.prepare(qv, shard.vectors, k, "l2", shard.norms)
-        qn = torch.sum(call.q * call.q, dim=-1)
+        qn = self.qnorm(call.q)
         m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
         splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
         got = ops.knn_shard(v, i, qv, shard.vectors, shard.norms, k, "l2", shard.base_index)
@@ -1982,7 +2037,7 @@ class Smoke:
         m, d = q.shape[0], MUTATE["d"]
         call = ops.prepare(q, shard.vectors, k, "l2", shard.norms)
         bm, bn, _ = call.blocks
-        qn = torch.sum(call.q * call.q, dim=-1)
+        qn = self.qnorm(call.q)
         m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
         splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
         args = (call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
@@ -2393,7 +2448,7 @@ class Smoke:
         if tier == "f32":
             call = ops.prepare(qv, eng._ds.vectors, k, "l2", eng._ds.norms, *blocks)
             bm, bn, _ = call.blocks
-            qn = torch.sum(call.q.to(torch.float32) ** 2, dim=-1)
+            qn = self.qnorm(call.q)
             return self.ms(lambda: K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff,
                                               call.metric, bm, bn))
         call = ops.prepare_int8(qv, eng._int8, k, eng.rescore_factor, *blocks)
@@ -2699,6 +2754,640 @@ class Smoke:
                 calls=STANDALONE["calls"]) for path in ("stream", "tiled")}
             log(f"l2dist crossover m={m}: stream_ms={times['stream']:.4f} "
                 f"tiled_ms={times['tiled']:.4f} (picked: {L.l2dist_config(m, n, d).path})")
+
+    # ------------------------------------------------------ phase 13: mesh
+    @property
+    def first_device(self) -> str:
+        """The device the mesh's logical positions all name."""
+        return "cuda:0" if self.dev.type == "cuda" else str(self.dev)
+
+    @staticmethod
+    def hier_merges(sizes) -> int:
+        """knn_merge launches of a hierarchical merge over axes of `sizes`,
+        innermost first, one a group of more than one position
+        (core/sharded.py::fdsq_sharded)."""
+        total, outer = 0, 1
+        for a in sizes:
+            if a > 1:
+                total += outer
+            outer *= a
+        return total
+
+    def phase_mesh(self) -> bool:
+        """The mesh at the GIST shape, nothing cut: a 2 x 2 mesh of logical
+        devices on the one card, each block 250,112 x 1,024."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core.mesh import make_mesh
+        from repro_torch.core.planner import largest_divisor_at_most
+        from repro_torch.store import DatasetStore
+
+        cfg = MESH
+        n, d, k, reps = cfg["n"], cfg["d"], cfg["k"], cfg["repeats"]
+        sizes = tuple(cfg["shape"])
+        mesh = make_mesh(sizes, cfg["axes"], devices=[self.first_device] * math.prod(sizes))
+        n_pos = mesh.size
+        x, q = self._dataset(n, d, cfg["m"], seed=cfg["seed"])
+        t0 = time.perf_counter()
+        hstore = DatasetStore.from_array(x, rows_per_shard=cfg["rows_per_shard"],
+                                         pin_memory=self.dev.type == "cuda")
+        hstore.ensure_tier("int8", device=self.dev)
+        meng = ExactKNN(k=k, backend="cuda", mesh=mesh, mesh_axes=cfg["axes"])
+        store = DatasetStore.from_array(x, row_mult=meng._row_mult())
+        del x
+        meng.fit_store(store)
+        single = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(store)
+        self.sync()
+        ds = meng._ds
+        rows, dp = ds.vectors.rows, ds.vectors.shape[1]
+        views = all(ds.vectors.local[p].data_ptr() == single._ds.vectors.data_ptr()
+                    + p * rows * dp * 4 for p in range(n_pos))
+        log(f"mesh: {mesh} over {cfg['axes']}; padded {tuple(ds.vectors.shape)}, "
+            f"{n_pos} blocks of {rows} x {dp} (views of the single-device rows={views}); "
+            f"pinned host store of {hstore.n_shards} shards x {hstore.rows_per_shard} with its "
+            f"int8 tier; set-up {time.perf_counter() - t0:.2f} s; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{self.card}]")
+        torch.cuda.empty_cache()
+        parts = len(ops.shard_parts(rows, k, dp))
+        hier = self.hier_merges(sizes)
+        n_d, n_t = sizes
+        ok = views & self._batch_probe(meng._pad_queries(q), ds, k)
+
+        # ---- f32: (a) bit-identical to fdsq-cuda at the same batch, (c)
+        # the schedule's launches
+        specs = [(f"mesh_fdsq_m{m}_k{k}", m, "fdsq", "fdsq-sharded", m,
+                  {"knn_scan": n_pos * parts, "knn_merge": n_pos + hier})
+                 for m in cfg["fdsq_ms"]]
+        mq = cfg["m"]
+        specs.append((f"mesh_ring_m{mq}_k{k}", mq, "fqsd", "fqsd-sharded", mq // n_d,
+                      {"knn_scan": n_d * n_d * n_t * parts,
+                       "knn_merge": n_d * n_d * n_t + (n_d if n_t > 1 else 0)}))
+        reqs, base = {}, {}
+        for label, m, mode, executor, block_m, want_l in specs:
+            base[label] = want_l
+            req = reqs[label] = SearchRequest(queries=q[:m], k=k, mode_hint=mode)
+            want = single.search(req).topk
+            got, launches = self._counted(lambda: meng.search(req))
+            same = torch.equal(got.topk.scores, want.scores) and torch.equal(got.topk.indices,
+                                                                             want.indices)
+            good_c = all(launches[name] == want_l.get(name, 0) for name in launches)
+            mesh_ms = self.host_clock_ms(lambda: meng.search(req), reps)[0]
+            single_ms = self.host_clock_ms(lambda: single.search(req), reps)[0]
+            assert single.plans[-1].executor == "fdsq-cuda"
+            good = same and good_c and got.plan.executor == executor
+            log(f"{label}: executor={got.plan.executor} mode={got.plan.mode} (a) bit-identical "
+                f"to fdsq-cuda at the same batch of {m}={same}; (c) launches={launches} "
+                f"schedule={want_l} ok={good_c}; search ms median mesh={mesh_ms:.3f} "
+                f"single-device fdsq-cuda={single_ms:.3f} [{self.card}]")
+            ok &= good
+            self.shapes.extend(self._mesh_f32_shapes(label, meng._pad_queries(q[:block_m]), ds,
+                                                     k, launches))
+
+        # ---- the ring's copies against its scans (one ring step), and
+        # traced ring searches: where a slow one spends its time
+        blocks = [(ds.vectors.local[p], ds.norms.local[p]) for p in range(n_pos)]
+        qv8 = meng._pad_queries(q[: mq // n_d])
+        copy_ms = self.ms(lambda: [(v.clone(), nn.clone()) for v, nn in blocks])
+        k_eff = 1 << max(0, (k - 1).bit_length())
+
+        def ring_step():
+            for v, nn in blocks:
+                ops.knn_shard(torch.full((qv8.shape[0], k_eff), torch.inf, device=self.dev),
+                              torch.full((qv8.shape[0], k_eff), -1, dtype=torch.int32,
+                                         device=self.dev), qv8, v, nn, k, "l2", 0)
+
+        step_ms = self.ms(ring_step)
+        copy_bytes = sum(v.numel() * 4 + nn.numel() * 4 for v, nn in blocks)
+        log(f"mesh ring: one step's block copies {copy_ms:.4f} ms ({copy_bytes} B, "
+            f"{2 * copy_bytes / copy_ms / 1e6:.1f} GB/s read + written) against its block "
+            f"scans {step_ms:.4f} ms (m={qv8.shape[0]} a block, {n_pos} blocks); the ring "
+            f"runs {n_d - 1} copy step(s) and {n_d} scan steps a search [{self.card}]")
+        traced = self._ring_profile(f"mesh_ring_m{mq}_k{k}", meng,
+                                    reqs[f"mesh_ring_m{mq}_k{k}"], cfg["traced"])
+        fresh = [row["allocator"]["num_device_alloc"] for row in traced]
+        log(f"mesh ring: new device allocations a warm traced search {fresh} (gate: all 0)")
+        ok &= not any(fresh)
+
+        # ---- int8 resident: (b) = knn_exact_direct, (c), (d)
+        meng.enable_int8()
+        req8 = SearchRequest(queries=q, k=k, tier="int8")
+        qv = single._pad_queries(q)
+        chunk = largest_divisor_at_most(single._ds.vectors.shape[0], 8192)
+        oracle = ops.knn_exact_direct(qv, single._ds.vectors, single._ds.norms, k, chunk)
+        got8, launches = self._counted(lambda: meng.search(req8))
+        want_l = base["int8"] = {"knn_int8_scan": n_pos, "knn_merge": n_pos + hier}
+        bpd = got8.stats.get("bytes_per_device", [])
+        scan_bytes = n_pos * rows * (dp + 12)
+        good = self._mesh_int8_gates(f"mesh_int8_m{mq}_k{k}", got8, oracle, launches, want_l,
+                                     "fdsq-sharded-int8", bpd, scan_bytes, n_pos)
+        t_mesh = self.host_clock_ms(lambda: meng.search(req8), reps)[0]
+        single.enable_int8()  # the store's tier, already quantised: a view
+        t_single = self.host_clock_ms(lambda: single.search(req8), reps)[0]
+        last = meng.search(req8).stats
+        log(f"mesh_int8_m{mq}_k{k}: search ms median {t_mesh:.3f} single-device "
+            f"{single.plans[-1].executor} {t_single:.3f}; phases of a warm search "
+            f"{ {key: round(last[key], 3) for key in ('scan_ms', 'gather_ms', 'rescore_ms')} } "
+            f"[{self.card}]")
+        ok &= good
+        q8 = meng._int8
+        blocks8 = [(q8.q.local[p], q8.scales.local[p], q8.err.local[p],
+                    torch.where(torch.isfinite(q8.norms_sq.local[p]), q8.qnorm_sq.local[p],
+                                torch.inf), p * q8.q.rows) for p in range(n_pos)]
+        self.shapes.extend(self._int8_shapes(f"mesh_int8_m{mq}_k{k}", qv, blocks8, k, launches,
+                                             self._budget(got8.plan), n_pos, 2))
+        del blocks8
+
+        # ---- int8 ring over the pinned host store: (b), (c), (d)
+        reng = ExactKNN(k=k, backend="cuda", mesh=mesh, mesh_axes=cfg["axes"]).fit_store(
+            hstore, resident=False).enable_int8()
+        sreng = ExactKNN(k=k, backend="cuda", device=self.dev).fit_store(
+            hstore, resident=False).enable_int8()
+        n_sh = hstore.n_shards
+        gotr, launches = self._counted(lambda: reng.search(req8))
+        want_l = {"knn_int8_scan": n_sh, "knn_merge": n_sh + 1}
+        shard_bytes = sum(hstore.read_shard(i, "int8").scan_bytes() for i in range(n_sh))
+        good = self._mesh_int8_gates(f"mesh_ring_int8_m{mq}_k{k}", gotr, oracle, launches,
+                                     want_l, "fqsd-sharded-int8",
+                                     gotr.stats.get("bytes_per_device", []), shard_bytes, n_pos)
+        good &= gotr.stats.get("transfers") == n_sh
+        t_ring = self.host_clock_ms(lambda: reng.search(req8), reps)[0]
+        t_one = self.host_clock_ms(lambda: sreng.search(req8), reps)[0]
+        log(f"mesh_ring_int8_m{mq}_k{k}: transfers={gotr.stats.get('transfers')} search ms "
+            f"median ring over {n_pos} positions={t_ring:.3f} single-device "
+            f"fqsd-int8-streamed={t_one:.3f} [{self.card}]")
+        ok &= good
+        self._ring_profile(f"mesh_ring_int8_m{mq}_k{k}", reng, req8, cfg["traced_int8"])
+        shards = [hstore.read_shard(i, "int8") for i in range(n_sh)]
+        blocks_r = [(s8.q.to(self.dev), s8.scales.to(self.dev), s8.err.to(self.dev),
+                     s8.qnorm.to(self.dev), s8.base_index) for s8 in shards]
+        self.shapes.extend(self._int8_shapes(f"mesh_ring_int8_m{mq}_k{k}", qv, blocks_r, k,
+                                             launches, self._budget(gotr.plan), n_pos, n_pos))
+        del shards, blocks_r
+        del reng, sreng, hstore
+        torch.cuda.empty_cache()
+
+        # ---- Router.create(devices=) behind the AdaptiveScheduler
+        ok &= self._mesh_replay(store, single, k, chunk, parts)
+
+        # ---- (e) mutations and a filter mask: as a fresh fit, no cache miss
+        ok &= self._mesh_mutate(meng, single, q, k, n, d, reqs, req8, base)
+        del meng, single, store
+        torch.cuda.empty_cache()
+        return ok
+
+    def _counted(self, fn):
+        """fn() with the launch counters at 0 just before and read just after."""
+        self.sync()
+        self.K.reset_launch_counts()
+        out = fn()
+        self.sync()
+        return out, dict(self.K.LAUNCHES)
+
+    def _batch_probe(self, qv, ds, k) -> bool:
+        """Where a score's bits could depend on the batch, on block 0's
+        aligned rows: the query norms of the first 8 queries computed in a
+        batch of 8 and in one of 16, by torch.sum and by the fixed order the
+        scans use (query_norms_sq); knn_scan (then knn_merge) at bm = 8 and
+        bm = 16 with those norms held fixed, and with torch.sum's. Holds
+        that the fixed-order norms and the scan at fixed norms do not
+        depend on the batch."""
+        torch, K, ops = self.torch, self.K, self.ops
+        x, xn = ds.vectors.local[0], ds.norms.local[0]
+        a, b = ops.shard_parts(x.shape[0], k, x.shape[1])[0]
+        c16, c8 = (ops.prepare(qv[:m], x[a:b], k, "l2", xn[a:b]) for m in (16, 8))
+        s16, s8 = (torch.sum(c.q * c.q, dim=-1) for c in (c16, c8))
+        f16, f8 = self.qnorm(c16.q), self.qnorm(c8.q)
+
+        def scan(c, qn):
+            bm, bn, _ = c.blocks
+            sv, si, _ = K.knn_scan(c.q, c.x, qn, c.xn, c.k_eff, "l2", bm, bn)
+            return K.knn_merge(sv, si)
+
+        (v16, i16), (v8, i8) = scan(c16, f16), scan(c8, f8)
+        (w16, j16), (w8, j8) = scan(c16, s16), scan(c8, s8)
+        sum_rows = int((s16[:8] != s8).sum())
+        fixed_same = torch.equal(f16[:8], f8)
+        scan_same = torch.equal(v16[:8], v8) and torch.equal(i16[:8], i8)
+        sum_scores = int((w16[:8] != w8).sum())
+        # what the fixed order costs a scan call: host time to enqueue
+        # (the host clock over 200 calls, then a synchronise) and device time
+        cost = {}
+        for name, fn in (("torch.sum", lambda: torch.sum(c16.q * c16.q, dim=-1)),
+                         ("query_norms_sq", lambda: self.qnorm(c16.q))):
+            self.sync()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            self.sync()
+            cost[name] = (round(host_us, 1), round(self.ms(fn) * 1e3, 1))
+        log(f"mesh batch probe: query norms of {tuple(c16.q.shape)}, (host us to enqueue, "
+            f"device us) {cost} [{self.card}]")
+        log(f"mesh batch probe (8 queries in a batch of 8 and of 16, block 0's {b - a} rows, "
+            f"bm={c8.blocks[0]} / {c16.blocks[0]}): torch.sum's query norms differ in "
+            f"{sum_rows} of 8 rows, whose top-{k} scores then differ in {sum_scores} of "
+            f"{w8.numel()}; the fixed-order norms (query_norms_sq) bit-identical={fixed_same}; "
+            f"knn_scan + knn_merge at fixed norms bit-identical={scan_same}")
+        return fixed_same and scan_same
+
+    def _ring_profile(self, label, eng, req, n: int) -> list[dict]:
+        """n searches of `req`, each on the host clock and traced: device ms
+        by kind (copies, knn_scan, knn_merge, knn_int8_scan, other kernels),
+        the span from the first device event to the last, the host ms in
+        cudaMalloc / cudaFree, and the caching allocator's new device
+        allocations, frees and retries over the search. Returns the rows."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        kinds = ("copy", "knn_scan", "knn_merge", "knn_int8_scan", "other")
+        rows = []
+        for _ in range(n):
+            self.sync()
+            before = torch.cuda.memory_stats(self.dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.search(req)
+                self.sync()
+                wall = (time.perf_counter() - t0) * 1e3
+            after = torch.cuda.memory_stats(self.dev)
+            dev = dict.fromkeys(kinds, 0.0)
+            host = {"cudaMalloc": [0, 0.0], "cudaFree": [0, 0.0]}
+            first, last = math.inf, -math.inf
+            for e in prof.events():
+                us = e.time_range.elapsed_us()
+                if e.device_type == DeviceType.CUDA:
+                    name = e.name
+                    kind = ("copy" if "Memcpy" in name or "Memset" in name else
+                            next((kk for kk in kinds[1:4] if kk + "_kernel" in name), "other"))
+                    dev[kind] += us / 1e3
+                    first, last = min(first, e.time_range.start), max(last, e.time_range.end)
+                elif e.name in host:
+                    host[e.name][0] += 1
+                    host[e.name][1] += us / 1e3
+            rows.append({
+                "wall_ms": round(wall, 3),
+                "device_ms": {kk: round(v, 3) for kk, v in dev.items() if v},
+                "span_ms": round((last - first) / 1e3, 3) if last > first else 0.0,
+                "cudaMalloc": [host["cudaMalloc"][0], round(host["cudaMalloc"][1], 3)],
+                "cudaFree": [host["cudaFree"][0], round(host["cudaFree"][1], 3)],
+                "allocator": {key: after.get(key, 0) - before.get(key, 0)
+                              for key in ("num_device_alloc", "num_device_free",
+                                          "num_alloc_retries")}})
+        for i, row in enumerate(rows):
+            log(f"{label} traced search {i + 1}/{n}: {json.dumps(row)} [{self.card}]")
+        return rows
+
+    def _mesh_int8_gates(self, label, res, oracle, launches, want_l, executor, bpd,
+                         scan_bytes, n_pos) -> bool:
+        """(b) every row bit-identical to knn_exact_direct; (c) the launches
+        of the executor's schedule; (d) one per-device byte count a position,
+        summing to the scan bytes."""
+        torch = self.torch
+        same = (torch.equal(res.topk.scores, oracle.scores)
+                and torch.equal(res.topk.indices, oracle.indices))
+        good_c = all(launches[name] == want_l.get(name, 0) for name in launches)
+        good_d = len(bpd) == n_pos and sum(bpd) == scan_bytes
+        share = float(res.certified.to(torch.float32).mean())
+        log(f"{label}: executor={res.plan.executor} (b) bit-identical to knn_exact_direct="
+            f"{same} (certified share {share:.4f}); (c) launches={launches} schedule={want_l} "
+            f"ok={good_c}; (d) bytes_per_device={bpd} sum={sum(bpd)} scan bytes={scan_bytes} "
+            f"ok={good_d}")
+        return same and good_c and good_d and res.plan.executor == executor
+
+    @staticmethod
+    def _budget(plan) -> int:
+        """An int8 mesh plan's candidate budget r (executors._rescore_budget)."""
+        return max(1, min(int(plan.padded_rows), int(plan.rescore_factor) * plan.k))
+
+    def _kernel_entry(self, launches, fn, plain, lib, lib_name, work, err) -> dict:
+        """One kernel at one shape: `launches` from the main path's run, fn's
+        and plain's CUDA-event ms, lib's (None: no one-call counterpart),
+        and the bound of `work` (bytes, operations)."""
+        bb, by = self.bound(*work)
+        return {"launches": launches, "max_abs_err": err, "ms": self.ms(fn),
+                "plain_ms": self.ms(plain), "bound_ms": bb, "bound_by": by,
+                "library_ms": None if lib is None else self.ms(lib), "library": lib_name}
+
+    def _merge_entry(self, launches, hv, hi) -> tuple[dict, bool]:
+        """knn_merge of the sorted (m, S, w) queues (hv, hi) against its plain
+        version (bit for bit), beside torch.topk of the flattened queues."""
+        torch, K = self.torch, self.K
+        mv, mi = K.knn_merge(hv, hi)
+        mpv, mpi = K.knn_merge_plain(hv, hi)
+        exact = torch.equal(mv, mpv) and torch.equal(mi, mpi)
+        flat = hv.reshape(hv.shape[0], -1)
+        entry = self._kernel_entry(
+            launches, lambda: K.knn_merge(hv, hi), lambda: K.knn_merge_plain(hv, hi),
+            lambda: torch.topk(flat, hv.shape[-1], largest=False),
+            "torch.topk(queues.reshape(m, -1))", self.merge_work(hv, hi, mv, mi),
+            0.0 if exact else math.inf)
+        return entry, exact
+
+    @staticmethod
+    def _captured_merge(run) -> tuple:
+        """The (m, S, w) queues that `run(merge)` hands its merge, which
+        runs as knn_merge: the exact input of a position's knn_merge."""
+        from repro_torch.kernels.knn.kernel import knn_merge
+
+        seen = []
+
+        def merge(v, i):
+            seen.append((v, i))
+            return knn_merge(v, i)
+
+        run(merge)
+        return seen[-1]
+
+    def _log_shapes(self, label, shapes) -> None:
+        for s in shapes:
+            for name, e in s["kernels"].items():
+                lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
+                log(f"{s['shape']}: {name} {s['operands']} launches={e['launches']} "
+                    f"ms={e['ms']:.4f} plain_ms={e['plain_ms']:.4f} library_ms={lib} "
+                    f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}) "
+                    f"max|d| vs plain={e['max_abs_err']:.3e} [{self.card}]")
+
+    def _mesh_f32_shapes(self, label, qv, ds, k, launches) -> list[dict]:
+        """The kernels of one f32 mesh search at the shapes it gives them,
+        on blocks 0 and 1: "/block", knn_scan over a block's aligned rows
+        and the knn_merge of its scans' queues into the position's queue
+        ((m, S + S_tail + 1, k_eff)); "/tail", knn_scan over the block's
+        last rows, padded to one row tile; "/hier", the knn_merge of two
+        positions' queues ((m, 2, k_eff)), one group of the hierarchical
+        merge. Each beside its plain version, one library call and its
+        bound over the unpadded width d. `launches` (the search's counts)
+        split by the schedule: each position step one scan of each part and
+        one block merge, the other merges hierarchical."""
+        torch, K, ops = self.torch, self.K, self.ops
+        d, m = MESH["d"], qv.shape[0]
+        x, xn = ds.vectors.local[0], ds.norms.local[0]
+        parts = ops.shard_parts(x.shape[0], k, x.shape[1])
+        steps = launches["knn_scan"] // len(parts)
+        calls = [ops.prepare(qv, x[a:b], k, "l2", xn[a:b]) for a, b in parts]
+        qn = self.qnorm(calls[0].q)
+        k_eff = calls[0].k_eff
+        shapes, ok, svs, sis = [], True, [], []
+        for (a, b), call, tag in zip(parts, calls, ("block", "tail")):
+            bm, bn, _ = call.blocks
+            splits = K.scan_config(call.q.shape[0] // bm, call.x.shape[0] // bn, bm, self.dev)[0]
+            args = (call.q, call.x, qn, call.xn, k_eff, "l2", bm, bn, True, splits)
+            sv, si, _ = K.knn_scan(*args)
+            pv, pi, _ = K.knn_scan_plain(*args)
+            xmax = float(call.xn[torch.isfinite(call.xn)].max())
+            good, err, _ = self._close(sv, si, pv, pi, TOL_REL * (qn[:, None, None] + xmax))
+            ok &= good
+            rows = b - a
+            xr = call.x[:rows]
+            lib_k = min(k, rows)
+            entry = self._kernel_entry(
+                steps, lambda: K.knn_scan(*args), lambda: K.knn_scan_plain(*args),
+                lambda: torch.topk(torch.cdist(call.q[:m], xr) ** 2, lib_k, largest=False),
+                f"torch.topk(torch.cdist(q, x)**2, {lib_k}) on the part's rows",
+                ((rows + m) * d * 4 + (rows + m) * 4 + m * k * 8,
+                 m * rows * (2 * d + L2_EPILOGUE_OPS)), err)
+            shapes.append({"shape": f"{label}/{tag}", "splits": splits, "blocks": [bm, bn],
+                           "operands": f"({m} x {rows} x {d}, S={splits})",
+                           "kernels": {"knn_scan": entry}})
+            svs.append(sv[:m])
+            sis.append(torch.where(torch.isfinite(sv[:m]), si[:m] + a, si[:m]))
+        v0 = torch.full((m, k_eff), torch.inf, device=self.dev)
+        i0 = torch.full((m, k_eff), -1, dtype=torch.int32, device=self.dev)
+        hv, hi = self._captured_merge(lambda merge: ops.merge_shard(
+            v0, i0, torch.cat(svs, 1), torch.cat(sis, 1), 0, merge=merge))
+        entry, exact = self._merge_entry(steps, hv, hi)
+        ok &= exact
+        shapes[0]["kernels"]["knn_merge"] = entry
+        shapes[0]["operands"] += f", merge {tuple(hv.shape)}"
+        # two positions' finished queues, as merge_queues stacks them
+        qa = ops.knn_shard(v0, i0, qv, x, xn, k, "l2", 0)
+        qb = ops.knn_shard(v0, i0, qv, ds.vectors.local[1], ds.norms.local[1], k, "l2",
+                           ds.vectors.rows)
+        hv, hi = torch.stack([qa[0], qb[0]], 1), torch.stack([qa[1], qb[1]], 1)
+        entry, exact = self._merge_entry(launches["knn_merge"] - steps, hv, hi)
+        ok &= exact
+        shapes.append({"shape": f"{label}/hier", "operands": f"{tuple(hv.shape)}",
+                       "kernels": {"knn_merge": entry}})
+        self._log_shapes(label, shapes)
+        if not ok:
+            raise AssertionError(f"{label}: a mesh kernel disagrees with its plain version")
+        return shapes
+
+    def _int8_shapes(self, label, qv, blocks, k, launches, r, n_pos, group) -> list[dict]:
+        """The kernels of one int8 mesh search at the shapes it gives them.
+        `blocks`: the (codes, scales, err, qnorm, base) of every block a
+        position scans, in the search's order, block i on position i mod
+        n_pos. "/block": knn_int8_scan over block 0 and the knn_merge of its
+        queues into the position's (m, r + 1) queue ((m, S + 1, q_len));
+        "/hier": the knn_merge of the first `group` positions' queues, each
+        having scanned its blocks, padded to next_pow2(r + 1) as
+        merge_queues pads them ((m, group, w): 2 on the 2 x 2 mesh, whose
+        merges go one axis at a time; n_pos for the ring's one merge). Beside
+        their plain versions and bounds over the unpadded width d (the int8
+        scan has no one-call library counterpart). `launches` split by the
+        schedule: one scan and one block merge a block, the other merges
+        hierarchical."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch.core.partition import next_pow2
+
+        d, m = MESH["d"], qv.shape[0]
+        codes, scales, err, qnorm, base = blocks[0]
+        args = ops.int8_shard_operands(qv, codes, scales, err, qnorm, r)
+        bm, bn = args[7], args[8]
+        splits = K.int8_scan_config(args[0].shape[0] // bm, -(-args[1].shape[0] // bn), bm,
+                                    self.dev)[0]
+        sv, si, _ = K.knn_int8_scan(*args, True, splits)
+        pv, pi, _ = K.knn_int8_scan_plain(*args, True, splits)
+        hmax = float(args[5][torch.isfinite(args[5])].max())
+        ok, err_scan, _ = self._close(sv[:m], si[:m], pv[:m], pi[:m],
+                                      TOL_REL * (args[2][:m, None, None] + hmax))
+        rows = int(codes.shape[0])
+        steps = launches["knn_int8_scan"]
+        scan = self._kernel_entry(
+            steps, lambda: K.knn_int8_scan(*args, True, splits),
+            lambda: K.knn_int8_scan_plain(*args, True, splits), None, None,
+            (rows * d + rows * 12 + m * d * 4 + m * (r + 1) * 8,
+             m * rows * (2 * d + INT8_EPILOGUE_OPS)), err_scan)
+
+        def fresh():
+            return (torch.full((m, r + 1), torch.inf, device=self.dev),
+                    torch.full((m, r + 1), -1, dtype=torch.int32, device=self.dev))
+
+        lb, li = fresh()
+        hv, hi = self._captured_merge(lambda merge: ops.merge_shard(
+            lb, li, sv[:m], si[:m], base, merge=merge))
+        block_merge, exact = self._merge_entry(steps, hv, hi)
+        ok &= exact
+        shapes = [{"shape": f"{label}/block", "splits": splits, "blocks": [bm, bn],
+                   "operands": f"({m} x {rows} x {d}, q_len {args[6]}, S={splits}), merge "
+                               f"{tuple(hv.shape)}",
+                   "kernels": {"knn_int8_scan": scan, "knn_merge": block_merge}}]
+        queues = [fresh() for _ in range(n_pos)]
+        for i, (c, s, e, qn, b0) in enumerate(blocks):
+            p = i % n_pos
+            queues[p] = ops.knn_int8_shard(*queues[p], qv, c, s, e, qn, b0, r)
+        w = next_pow2(r + 1)
+        hv = torch.stack([torch.cat([v, v.new_full((m, w - r - 1), torch.inf)], 1)
+                          for v, _ in queues[:group]], 1)
+        hi = torch.stack([torch.cat([i, i.new_full((m, w - r - 1), -1)], 1)
+                          for _, i in queues[:group]], 1)
+        hier, exact = self._merge_entry(launches["knn_merge"] - steps, hv, hi)
+        ok &= exact
+        shapes.append({"shape": f"{label}/hier", "operands": f"{tuple(hv.shape)}",
+                       "kernels": {"knn_merge": hier}})
+        self._log_shapes(label, shapes)
+        if not ok:
+            raise AssertionError(f"{label}: a mesh kernel disagrees with its plain version")
+        return shapes
+
+    def _mesh_replay(self, store, single, k, chunk, parts) -> bool:
+        """Router.create(devices=[...] * P) on the phase's store behind the
+        AdaptiveScheduler: a bursty replay under the adaptive policy (int8
+        hook on) and the throughput policy (off). Every served answer is
+        bit-identical, by rid, to the single-device search of all the
+        queries at once (f32 dispatches, whatever their batch) or to
+        knn_exact_direct (int8 dispatches); every dispatch launched
+        its plan's schedule on the one-axis mesh; the three mesh plans were
+        reached; the scheduler sums bytes_per_device over P devices."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch import SearchRequest
+        from repro_torch.api import Router
+        from repro_torch.serving import AdaptiveScheduler, bursty_requests
+
+        cfg = MESH["replay"]
+        n_pos = math.prod(MESH["shape"])
+        router = Router()
+        eng = router.create("mesh", store=store, k=k, backend="cuda",
+                            devices=[self.first_device] * n_pos)
+        g = torch.Generator(device=self.dev).manual_seed(41)
+        pick = torch.randint(0, MESH["n"], (cfg["queries"],), generator=g, device=self.dev)
+        qr = (single._ds.vectors[pick, : MESH["d"]]
+              + 0.3 * torch.randn(cfg["queries"], MESH["d"], generator=g, device=self.dev))
+        want = single.search(SearchRequest(queries=qr, k=k, mode_hint="fqsd")).topk
+        want8 = ops.knn_exact_direct(single._pad_queries(qr), single._ds.vectors,
+                                     single._ds.norms, k, chunk)
+        sched_launch = {
+            "fdsq": {"knn_scan": n_pos * parts, "knn_merge": n_pos + 1},
+            "fqsd": {"knn_scan": n_pos * n_pos * parts, "knn_merge": n_pos * n_pos},
+            "fqsd-int8": {"knn_int8_scan": n_pos, "knn_merge": n_pos + 1}}
+
+        class Counted(AdaptiveScheduler):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.log = []
+
+            def _search(self, request):
+                K.reset_launch_counts()
+                res = super()._search(request)
+                label = "fqsd-int8" if request.tier == "int8" else request.mode_hint
+                self.log.append((label, int(request.queries.shape[0]), dict(K.LAUNCHES)))
+                return res
+
+        ok, executors = True, set()
+        qnp = qr.cpu().numpy()
+        for policy, depth in (("adaptive", cfg["int8_min_depth"]), ("throughput", None)):
+            sched = Counted(policy=policy, int8_min_depth=depth, router=router,
+                            collection="mesh")
+            t0 = time.perf_counter()
+            served = {r.rid: r for r in sched.serve(bursty_requests(qnp, cfg["burst_size"],
+                                                                     cfg["trickle"]))}
+            wall = time.perf_counter() - t0
+            st = sched.stats()
+            bad_a = []
+            for rid, r in served.items():
+                sv, si = r.topk.scores.to(self.dev), r.topk.indices.to(self.dev)
+                ref = want8 if r.tier == "int8" else want
+                if not (torch.equal(sv, ref.scores[rid]) and torch.equal(si, ref.indices[rid])):
+                    bad_a.append(rid)
+            bad_b = [(lab, rows, l) for lab, rows, l in sched.log
+                     if any(l[name] != sched_launch[lab].get(name, 0) for name in l)]
+            for plan in st["per_plan"].values():
+                executors.update(plan["executors"])
+            good = (len(served) == cfg["queries"] and not bad_a and not bad_b
+                    and len(st.get("bytes_per_device", [0] * n_pos)) == n_pos)
+            per_plan = {label: (p["count"], round(p["p50_ms"], 3), p["executors"])
+                        for label, p in st["per_plan"].items()}
+            log(f"mesh replay {policy} int8_min_depth={depth}: {len(served)} served in "
+                f"{wall:.3f} s, {len(sched.log)} dispatches, per plan (count, p50 ms, "
+                f"executors) {per_plan}; answers by rid (f32 bit-identical to fdsq-cuda, "
+                f"int8 bit-identical to knn_exact_direct): {not bad_a} {bad_a[:4]}; launches of each dispatch "
+                f"= its plan's schedule: {not bad_b} {bad_b[:2]}; bytes_per_device "
+                f"{st.get('bytes_per_device')}; phase_ms {st.get('phase_ms')} ok={good} "
+                f"[{self.card}]")
+            ok &= good
+        devices = router.stats()["collections"]["mesh"]["devices"]
+        reached = {"fdsq-sharded", "fqsd-sharded", "fdsq-sharded-int8"} <= executors
+        log(f"mesh replay: executors reached {sorted(executors)} (all three mesh plans="
+            f"{reached}); Router devices {devices}")
+        del eng, router
+        return ok and reached and devices == [self.first_device] * n_pos
+
+    def _mesh_mutate(self, meng, single, q, k, n, d, reqs, req8, base) -> bool:
+        """(e) MESH["upserts"] rows upserted, the nearest rows of
+        MESH["deletes"] queries deleted, then a filter mask: every mesh
+        search equals a fresh single-device fit on the live rows (f32 bit
+        for bit to its fdsq-cuda search, int8 to knn_exact_direct),
+        with no new executable-cache miss; (c) each f32 search adds one
+        knn_scan and one knn_merge a delta shard (the ring: a delta shard
+        and query block), the int8 one none (its delta rows merge in the
+        direct form)."""
+        torch, ops = self.torch, self.ops
+        from repro_torch import ExactKNN, SearchRequest
+        from repro_torch.core.executors import cache_info
+        from repro_torch.core.planner import largest_divisor_at_most
+
+        n_up, n_del = MESH["upserts"], MESH["deletes"]
+        g = torch.Generator(device=self.dev).manual_seed(43)
+        u = q[:n_up] + 1e-3 * torch.randn(n_up, d, generator=g, device=self.dev)
+        first = reqs[f"mesh_fdsq_m{MESH['m']}_k{k}"]
+        dead = torch.unique(meng.search(first).topk.indices[-n_del:, 0].to(torch.int64))
+        n_ids = meng.n_ids + n_up
+        keep = torch.ones(n_ids, dtype=torch.bool, device=self.dev)
+        keep[dead] = False
+        mask = torch.ones(n_ids, dtype=torch.bool, device=self.dev)
+        mask[meng.search(first).topk.indices[:, 1].to(torch.int64)] = False
+        masked = {False: torch.nonzero(keep).reshape(-1),
+                  True: torch.nonzero(keep & mask).reshape(-1)}
+        rows = torch.cat([single._ds.vectors[:n, :d], u])
+        want = {}
+        for use_mask, live in masked.items():
+            fresh = ExactKNN(k=k, backend="cuda", device=self.dev).fit(rows[live])
+            for label, req in reqs.items():
+                want[label, use_mask] = fresh.search(req).topk
+            want["int8", use_mask] = ops.knn_exact_direct(
+                fresh._pad_queries(q), fresh._ds.vectors, fresh._ds.norms, k,
+                largest_divisor_at_most(fresh._ds.vectors.shape[0], 8192))
+            del fresh
+            torch.cuda.empty_cache()
+        del rows
+        misses = cache_info()["misses"]
+        ids = meng.upsert(u)
+        meng.delete(dead.cpu().numpy())
+        n_delta = len(meng._delta_dev)
+        ok = bool((torch.as_tensor(ids) == torch.arange(n_ids - n_up, n_ids)).all())
+        extra = {label: n_delta * (MESH["shape"][0] if req.mode_hint == "fqsd" else 1)
+                 for label, req in reqs.items()}
+        extra["int8"] = 0
+        for use_mask, live in masked.items():
+            fm = mask.cpu().numpy() if use_mask else None
+            for label, req in list(reqs.items()) + [("int8", req8)]:
+                r = SearchRequest(queries=req.queries, k=k, mode_hint=req.mode_hint,
+                                  tier=req.tier, filter_mask=fm)
+                got, launches = self._counted(lambda: meng.search(r))
+                same = self._same_as_fresh(got.topk, want[label, use_mask], live)
+                want_l = {name: c + (extra[label] if name in ("knn_scan", "knn_merge") else 0)
+                          for name, c in base[label].items()}
+                want_l.setdefault("knn_scan", extra[label])
+                good_c = all(launches[name] == want_l.get(name, 0) for name in launches)
+                ok &= same and good_c
+                log(f"mesh mutate {label} mask={use_mask}: executor={got.plan.executor} "
+                    f"(c) launches={launches} schedule={want_l} ok={good_c}; delta shards="
+                    f"{n_delta}; (e) bit-identical to the fresh fit on the live rows={same}")
+        added = cache_info()["misses"] - misses
+        log(f"mesh mutate: {n_up} upserted, {dead.numel()} deleted, mask of "
+            f"{int((~mask).sum())} ids; executable-cache misses added {added} (gate: 0); "
+            f"ok={ok and added == 0}")
+        return ok and added == 0
 
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
@@ -3197,7 +3886,7 @@ class Listen:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "listen", "tune", "kernels")
+          "listen", "tune", "kernels", "mesh")
 
 
 def main(argv=None) -> int:

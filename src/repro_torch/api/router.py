@@ -23,6 +23,10 @@ from typing import Iterator
 
 from repro_torch.api.types import SearchRequest, SearchResult
 
+#: one Mesh per device group, so collections placed on the same group share
+#: executable-cache keys (plan.cache_key(), mesh, axes)
+_MESH_BY_GROUP: dict = {}
+
 
 class Router:
     """Route search traffic across named collections.
@@ -55,8 +59,17 @@ class Router:
         to ``ExactKNN.fit`` as it is: a tensor already on the engine's device
         is padded there, with no host copy) or a prebuilt ``store``.
         Remaining kwargs go to the ``ExactKNN`` constructor (k, metric,
-        backend, device, device_budget_bytes, ...). Placing a collection on
-        a device group (``devices=``) comes with the mesh slice of the port.
+        backend, device, device_budget_bytes, ...).
+
+        ``devices`` places the collection's rows across a device group: a
+        count (the first N CUDA devices) or a sequence of ``torch.device`` or
+        device strings, which may repeat a device (logical devices: each
+        position holds its own block). The Router builds a one-axis
+        ``("data",)`` mesh over them and hands it to the engine, so resident
+        tiers shard row-wise across the group and the int8 tier of a store
+        kept off the devices ring-streams over it; the process-wide
+        executable cache stays shared: collections placed on the same group
+        reuse each other's entries (same ``(cache_key, mesh, axes)``).
         """
         from repro_torch.core.engine import ExactKNN
 
@@ -64,15 +77,39 @@ class Router:
         if (vectors is None) == (store is None):
             raise ValueError("pass exactly one of `vectors` or `store`")
         if devices is not None:
-            raise NotImplementedError(
-                "placing a collection on a device group (devices=) needs the "
-                "mesh, which is ported in the mesh slice")
+            if "mesh" in engine_kwargs:
+                raise ValueError("pass either `devices` or `mesh`, not both")
+            engine_kwargs = dict(engine_kwargs, mesh=self._make_mesh(devices),
+                                 mesh_axes=("data",))
         engine = ExactKNN(**engine_kwargs)
         if store is not None:
             engine.fit_store(store)
         else:
             engine.fit(vectors)
         return self.attach(name, engine)
+
+    @staticmethod
+    def _make_mesh(devices):
+        """A one-axis ``("data",)`` mesh over a device group: a count (the
+        first N CUDA devices; raises where there are fewer) or a sequence of
+        devices, repeats allowed. The same group always gives the identical
+        Mesh object."""
+        import torch
+
+        from repro_torch.core.mesh import make_mesh
+
+        if isinstance(devices, int):
+            avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if not 1 <= devices <= avail:
+                raise ValueError(f"devices={devices} but {avail} CUDA device(s) present")
+            devices = [torch.device("cuda", i) for i in range(devices)]
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("`devices` must name at least one device")
+        group = tuple(str(d) for d in devices)
+        if group not in _MESH_BY_GROUP:
+            _MESH_BY_GROUP[group] = make_mesh((len(devices),), ("data",), devices=devices)
+        return _MESH_BY_GROUP[group]
 
     def _check_name(self, name: str) -> None:
         if not isinstance(name, str) or not name:
@@ -85,13 +122,14 @@ class Router:
         self._check_name(name)
         if not engine.is_fitted:
             raise ValueError(f"engine for collection {name!r} must be fitted")
+        mesh = getattr(engine, "mesh", None)
         self._engines[name] = engine
         self._stats[name] = {
             "requests": 0,
             "queries": 0,
             "bytes_scanned": {"f32": 0, "int8": 0},
             "tiers": set(),
-            "devices": None,  # one device per engine until the mesh slice
+            "devices": [str(d) for d in mesh.devices.flat] if mesh is not None else None,
         }
         return engine
 

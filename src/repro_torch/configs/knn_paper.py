@@ -6,8 +6,13 @@ GIST (1M x 960), YFCC100M-HNFc6 (~100M x 4096), MS-MARCO/STAR (8.84M x 769):
     msmarco_fdsq   FD-SQ, single query, k=1024       (paper Table 2, MARCO)
     msmarco_k72    FD-SQ, single query, k=72         (paper Table 3 best)
     yfcc_ring      FQ-SD ring-streamed over a mesh (YFCC does not fit one
-                   device)
-    yfcc_ring_q    the query-ring variant of yfcc_ring
+                   device): repro_torch.core.sharded.fqsd_ring over the
+                   port's devices
+    yfcc_ring_q    the query-ring variant of yfcc_ring (fqsd_ring_queries)
+
+The ring shapes run on a mesh of the port's devices (repro_torch.core.mesh);
+at their size (about 1.6 TB of f32 rows) they need more cards than one
+machine of the port's has.
 """
 import dataclasses
 
@@ -48,6 +53,7 @@ ARCH = ArchConfig(
     smoke_model=_SMOKE,
     shapes=KNN_SHAPES,
     source="the reproduced paper (Table 1-3)",
-    notes="FQ-SD/FD-SQ executors of repro_torch.core on one device; the "
-          "ring shapes need the mesh.",
+    notes="FQ-SD/FD-SQ executors of repro_torch.core; the ring shapes run "
+          "on a mesh of the port's devices and need more cards than one "
+          "machine has.",
 )

@@ -20,6 +20,7 @@ _SUPPORTED: tuple[str, ...] = ("l2", "ip", "cos")
 #: Rows per pass of :func:`row_norms_sq`, so the squares of a dataset the
 #: size of device memory never exist at once.
 _NORM_CHUNK_ROWS = 1 << 16
+_QUERY_BLOCK = 16  # rows of each torch.sum in query_norms_sq
 
 
 def validate_metric(metric: str) -> None:
@@ -40,6 +41,24 @@ def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
         c = flat[s: s + _NORM_CHUNK_ROWS].to(torch.float32)
         res[s: s + _NORM_CHUNK_ROWS] = sum_last_fixed(c * c)
     return out
+
+
+def query_norms_sq(q: torch.Tensor) -> torch.Tensor:
+    """||q_i||^2 per row in f32, as the scans' epilogue takes it: one
+    ``torch.sum`` a block of exactly ``_QUERY_BLOCK`` rows (the last one
+    padded with zero rows), so every row is reduced in the order of one
+    fixed shape whatever its batch. ``torch.sum``'s order on a card
+    follows the number of rows (8 queries summed in a batch of 8 and of 16
+    differ in the last bit), and a pair's scan score adds this norm, so
+    without it a query's answer would depend on the queries beside it."""
+    q = q.to(torch.float32)
+    m = q.shape[0]
+    mp = max(_QUERY_BLOCK, -(-m // _QUERY_BLOCK) * _QUERY_BLOCK)
+    if mp != m:
+        q = torch.cat([q, q.new_zeros((mp - m, q.shape[1]))])
+    sq = q * q
+    sums = [torch.sum(b, dim=-1) for b in sq.split(_QUERY_BLOCK)]
+    return (sums[0] if len(sums) == 1 else torch.cat(sums))[:m]
 
 
 def inner_product(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,9 @@
              fqsd-int8-torch / fqsd-int8-cuda          certified int8 tier, resident
              fqsd-streamed / fqsd-mmap-streamed        f32 tier, out of core
              fqsd-int8-streamed / -mmap-streamed       int8 tier, out of core
+             fdsq-sharded / fqsd-sharded               f32 tier, on a mesh
+             fdsq-sharded-int8                         int8 tier, on a mesh
+             fqsd-sharded-int8 / -int8-streamed        int8 tier, ring over a mesh
 
 One engine plays the role of the single physical configuration: FD-SQ and
 FQ-SD are logical configurations over the same building blocks, chosen per
@@ -43,15 +46,20 @@ Usage (request-first API — every option is a per-request fact):
     eng.delete(ids[:1])                      # ditto; still exact
     eng.store.compact()                      # the next search refits
 
-The port serves single-device data: resident, or streamed from host RAM or
-from a store's memory-mapped files. Mutations ride the store's delta shards
-and tombstones (+inf norms), so they change no shape; a resident engine
-merges its delta shards on the kernels of its backend (``knn_scan`` +
-``knn_merge`` a shard on ``cuda``). Meshes raise ``NotImplementedError``
-naming the slice of the port that brings them.
+Data is resident on one device or row-sharded over a device mesh
+(``mesh=``, :mod:`repro_torch.core.mesh`; the engine's device is then the
+mesh's first), or streamed from host RAM or from a store's memory-mapped
+files. Mutations ride the store's delta shards and tombstones (+inf
+norms), so they change no shape; a resident engine merges its delta shards
+on the kernels of its backend (``knn_scan`` + ``knn_merge`` a shard on
+``cuda``), a mesh engine on its first device.
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    eng = ExactKNN(k=10, backend="cuda", mesh=mesh).fit(x)   # fdsq-sharded
 """
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from typing import Iterable, Iterator
@@ -61,14 +69,17 @@ import torch
 
 from repro_torch.api.types import AUTO_FDSQ_MAX_BATCH, SearchRequest, SearchResult
 from repro_torch.core import partition as part
+from repro_torch.core import sharded as sh
 from repro_torch.core.distance import Metric, row_norms_sq, validate_metric
 from repro_torch.core.executors import (
     ExecContext,
+    MeshTiered,
     TieredResident,
     cached_direct_step,
     cached_partition_step,
     execute,
 )
+from repro_torch.core.mesh import Mesh
 from repro_torch.core.planner import (
     Backend,
     DatasetMeta,
@@ -192,7 +203,8 @@ class ExactKNN:
         n_partitions: int = 8,
         dtype=torch.float32,
         device=None,
-        mesh=None,
+        mesh: Mesh | None = None,
+        mesh_axes=("data", "model"),
         rescore_factor: int | None = None,
         device_budget_bytes: int | None = None,
         prefetch_depth: int | None = None,
@@ -216,8 +228,21 @@ class ExactKNN:
         if rescore_factor is not None and rescore_factor < 1:
             raise ValueError(f"rescore_factor must be >= 1, got {rescore_factor}")
         if mesh is not None:
-            raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.core.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            for ax in mesh_axes:
+                if ax not in mesh.axis_names:
+                    raise ValueError(f"mesh_axes {tuple(mesh_axes)} not in the mesh's "
+                                     f"axes {mesh.axis_names}")
+            if device is not None and torch.device(device) != mesh.first:
+                raise ValueError(f"device={device!r} but the mesh's first device is "
+                                 f"{mesh.first}")
+            device = mesh.first
         self.device = resolve_device(device)
+        #: the device mesh the resident rows shard over (None: one device)
+        self.mesh = mesh
+        self.mesh_axes = tuple(mesh_axes)
         self.k = int(k)
         self.metric = metric
         self.backend: Backend = backend
@@ -250,9 +275,10 @@ class ExactKNN:
         self.retry_backoff_s = 0.05 if retry_backoff_s is None else float(retry_backoff_s)
         self._store = None
         self._resident = True
-        # cos + fused backend: the resident view is normalised at fit time,
-        # so the kernel skips its own dataset pass per query batch
-        self._cos_prenormalized = metric == "cos" and backend == "cuda"
+        # cos + fused backend on one device: the resident view is normalised
+        # at fit time, so the kernel skips its own dataset pass per query
+        # batch (a mesh's blocks score raw rows, as the reference's do)
+        self._cos_prenormalized = metric == "cos" and backend == "cuda" and mesh is None
         self._ds: part.PaddedDataset | None = None  # device f32 view
         self._int8: QuantizedDataset | None = None  # device int8 view
         self._delta_dev: list[part.PaddedDataset] = []  # device delta shards
@@ -314,8 +340,15 @@ class ExactKNN:
 
     def _attach(self, vectors: torch.Tensor, norms: torch.Tensor, n_valid: int,
                 prenormalized: bool) -> None:
-        """Make (vectors, norms) the resident view. Rows are normalised here
-        for cos on the fused backend unless `prenormalized` says they are."""
+        """Make (vectors, norms) the resident view: on the engine's device,
+        or row-sharded over the mesh (each block straight to its device).
+        Rows are normalised here for cos on the fused backend unless
+        `prenormalized` says they are."""
+        if self.mesh is not None:
+            vec, nrm = sh.shard_dataset(self.mesh, vectors.to(dtype=self.dtype), norms,
+                                        self.mesh_axes)
+            self._ds = part.PaddedDataset(vec, nrm, int(n_valid), 0)
+            return
         vec = vectors.to(device=self.device, dtype=self.dtype)
         if self._cos_prenormalized and not prenormalized:
             # cos is scale-invariant; the norms channel keeps the RAW norms
@@ -324,8 +357,21 @@ class ExactKNN:
         self._ds = part.PaddedDataset(vec, norms.to(self.device), int(n_valid), 0)
 
     def _row_mult(self) -> int:
-        """Row alignment: rows must split evenly over the partitions."""
-        return part.LANE * self.n_partitions
+        """Row alignment: rows must split evenly over the partitions, and
+        over the mesh's blocks."""
+        mult = part.LANE * self.n_partitions
+        if self.mesh is not None:
+            mult = max(mult, part.LANE * math.prod(self.mesh.shape[ax]
+                                                   for ax in self.mesh_axes))
+        return mult
+
+    def _put_rows(self, t: torch.Tensor):
+        """A per-row channel (norms, a filter mask, an int8 channel) where
+        the resident view lives: row-sharded like it over the mesh, else on
+        the engine's device. A mutation re-puts only such channels."""
+        if self.mesh is not None:
+            return sh.shard_rows(self.mesh, t, self.mesh_axes)
+        return t.to(self.device)
 
     @property
     def store(self):
@@ -395,12 +441,12 @@ class ExactKNN:
             return
         self._seen_mutations = self._store.mutation_count
         if self._resident:
-            self._ds = self._ds._replace(norms=self._store.resident_norms().to(self.device))
+            self._ds = self._ds._replace(norms=self._put_rows(self._store.resident_norms()))
             if self._int8 is not None:
                 # only the validity channel moves on a mutation; the codes,
                 # scales and errors went to the device once
                 self._int8 = self._int8._replace(
-                    norms_sq=self._store.int8_resident_norms().to(self.device))
+                    norms_sq=self._put_rows(self._store.int8_resident_norms()))
         self._put_delta_shards()
 
     def _put_delta_shards(self) -> None:
@@ -474,8 +520,10 @@ class ExactKNN:
         return self
 
     def _put_int8(self) -> None:
-        self._int8 = QuantizedDataset(
-            *(t.to(self.device) for t in self._store.int8_resident()))
+        """The int8 view: every channel on the engine's device, or
+        row-sharded over the mesh (the f32 tier stays off the mesh's int8
+        path: only candidate rows of it are gathered)."""
+        self._int8 = QuantizedDataset(*(self._put_rows(t) for t in self._store.int8_resident()))
 
     @property
     def has_int8(self) -> bool:
@@ -504,6 +552,7 @@ class ExactKNN:
         return EngineConfig(
             k=self.k, metric=self.metric, backend=self.backend,
             chunk_rows=self.chunk_rows, n_partitions=self.n_partitions,
+            sharded=self.mesh is not None, mesh_axes=self.mesh_axes,
             rescore_factor=self.rescore_factor,
             dtype=str(self.dtype).removeprefix("torch."),
             rescore_pinned=self._rescore_pinned,
@@ -512,11 +561,12 @@ class ExactKNN:
     def dataset_meta(self, tier: str = "f32") -> DatasetMeta:
         """Planner-visible storage facts."""
         self._require_fit()
+        sharded = self.mesh is not None
         if self._store is not None:
-            return self._store.meta(device_resident=self._resident, tier=tier)
+            return self._store.meta(device_resident=self._resident, tier=tier, sharded=sharded)
         rows = int(self._ds.vectors.shape[0])
         return DatasetStoreMeta(padded_rows=rows, padded_dim=self._padded_dim(),
-                                n_valid=int(self._ds.n_valid), tier=tier,
+                                n_valid=int(self._ds.n_valid), sharded=sharded, tier=tier,
                                 rows_per_shard=rows)
 
     def plan_for(self, mode: str, m: int = 1, tier: str = "f32", **kw) -> ExecutionPlan:
@@ -531,6 +581,7 @@ class ExactKNN:
              delta: tuple[part.PaddedDataset, ...] = ()) -> TopK:
         self._plans.append(p)
         ctx = ExecContext(
+            mesh=self.mesh, mesh_axes=self.mesh_axes,
             cos_prenormalized=self._cos_prenormalized,
             prefetch_depth=self.prefetch_depth if prefetch_depth is None else prefetch_depth,
             spec_trigger=spec_trigger,
@@ -561,7 +612,15 @@ class ExactKNN:
         if mask is None:
             return ds
         keep = _keep_rows(mask, 0, ds.n_valid, int(ds.vectors.shape[0]))
-        return ds._replace(norms=torch.where(keep, ds.norms, torch.inf))
+        return ds._replace(norms=self._masked(ds.norms, keep))
+
+    def _masked(self, norms, keep: torch.Tensor):
+        """`norms` with +inf where `keep` is False (block by block on a
+        mesh, each block's slice of the mask shipped to its device)."""
+        if self.mesh is None:
+            return torch.where(keep, norms, torch.inf)
+        return sh.map_blocks(lambda n, kb: torch.where(kb, n, torch.inf), norms,
+                             sh.shard_rows(norms.mesh, keep, norms.axes))
 
     def _masked_int8(self, mask: torch.Tensor | None) -> QuantizedDataset:
         """Int8 view under the same mask: norms_sq is the int8 executors'
@@ -570,7 +629,7 @@ class ExactKNN:
         if mask is None:
             return q8
         keep = _keep_rows(mask, 0, self._ds.n_valid, int(q8.norms_sq.shape[0]))
-        return q8._replace(norms_sq=torch.where(keep, q8.norms_sq, torch.inf))
+        return q8._replace(norms_sq=self._masked(q8.norms_sq, keep))
 
     def search(self, request: SearchRequest) -> SearchResult:
         """Serve one :class:`SearchRequest` — the single entry point.
@@ -650,8 +709,9 @@ class ExactKNN:
             # streamed shards live on the host: so does their mask
             mask = mask.to(self.device if self._resident else "cpu")
         t0 = time.perf_counter()
-        meta = (view.meta(device_resident=self._resident, tier=tier) if view is not None
-                else self.dataset_meta(tier=tier))
+        meta = (view.meta(device_resident=self._resident, tier=tier,
+                          sharded=self.mesh is not None)
+                if view is not None else self.dataset_meta(tier=tier))
         if not self._resident:
             # tier="int8" survives planning here: the out-of-core scan
             # streams 1 B/element codes and rescores candidate rows only.
@@ -677,9 +737,18 @@ class ExactKNN:
                 max_retries=request.max_retries, allow_partial=request.allow_partial)
         else:
             p = plan_fn((m, self._padded_dim()), meta, self.config(), mode, k=k, metric=metric)
-            dataset = self._masked_resident(mask)
-            if p.tier == "int8":
-                dataset = TieredResident(dataset, self._masked_int8(mask))
+            if p.executor == "fdsq-sharded-int8":
+                # the sharded int8 view and the backing store for the
+                # candidate-only rescore (under the request's mask, so the
+                # gather, delta merge and fallback see the same exclusions)
+                src = view if view is not None else self._store
+                dataset = MeshTiered(self._masked_int8(mask),
+                                     src if mask is None else _MaskedShardSource(
+                                         src, mask.to("cpu")))
+            elif p.tier == "int8":
+                dataset = TieredResident(self._masked_resident(mask), self._masked_int8(mask))
+            else:
+                dataset = self._masked_resident(mask)
             deltas = self._masked_delta(mask)
             out = self._run(p, qv, dataset, max_retries=request.max_retries,
                             allow_partial=request.allow_partial, delta=deltas)
@@ -707,6 +776,10 @@ class ExactKNN:
         if ctx.stream_stats is not None:
             stats["transfers"] = ctx.stream_stats.get("transfers", 0)
             stats["restarts"] = ctx.stream_stats.get("restarts", 0)
+        if ctx.device_bytes is not None:
+            # the mesh int8 executors: scan bytes split by device (the total,
+            # with the gather, delta and fallback traffic, is bytes_scanned)
+            stats["bytes_per_device"] = list(ctx.device_bytes)
         if ctx.phase_ms is not None:
             stats.update(ctx.phase_ms)
         if ctx.speculation is not None:

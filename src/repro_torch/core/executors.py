@@ -3,10 +3,12 @@
 Each executor is a callable ``execute(plan, queries, dataset, ctx) -> TopK``
 registered under the name the planner selects
 (``repro_torch.core.planner``). Executors wrap the entry points of
-``fdsq.py`` / ``fqsd.py`` / ``quantized.py`` / ``kernels.knn`` and add no
-numerics of their own. The streamed executors read host shards through the
-double buffer (``streaming.py``); their per-shard steps run on the plan's
-backend: the kernels on ``cuda``, plain ops on ``torch``.
+``fdsq.py`` / ``fqsd.py`` / ``quantized.py`` / ``sharded.py`` /
+``kernels.knn`` and add no numerics of their own. The streamed executors
+read host shards through the double buffer (``streaming.py``), the mesh
+executors run the functions of ``sharded.py`` over ``ExecContext.mesh``;
+the per-shard and per-device steps of both run on the plan's backend: the
+kernels on ``cuda``, plain ops on ``torch``.
 
 The module also owns the **executable cache**: every executor resolves
 its callable through :func:`_cached`, keyed by ``plan.cache_key()`` plus
@@ -28,6 +30,7 @@ from typing import Callable, Iterable, NamedTuple
 import torch
 
 from repro_torch.core import partition as part
+from repro_torch.core import sharded as sh
 from repro_torch.core.distance import direct_l2_sq
 from repro_torch.core.fdsq import fdsq_search
 from repro_torch.core.fqsd import (
@@ -48,6 +51,7 @@ from repro_torch.core.streaming import (
     ResilientShardSource,
     SpeculativeGather,
     _fresh_health,
+    make_ring_put,
 )
 from repro_torch.core.topk import TopK, sort_pairs
 
@@ -59,8 +63,14 @@ DEFAULT_SPEC_TRIGGER = 0.5
 
 @dataclasses.dataclass
 class ExecContext:
-    """Runtime state a plan cannot carry (plans are pure data). Executors
-    may write run observability back here (the int8 certificate)."""
+    """Runtime state a plan cannot carry (plans are pure data): the mesh,
+    its axis names and the streaming knobs. Executors may write run
+    observability back here (the int8 certificate)."""
+
+    #: the device mesh of the sharded executors (repro_torch.core.mesh.Mesh)
+    mesh: object = None
+    #: the mesh axes the dataset rows shard over
+    mesh_axes: tuple = ("data", "model")
 
     #: set by the int8 executors: (m,) bool, True where the on-chip
     #: candidates provably held the exact top-k
@@ -91,6 +101,10 @@ class ExecContext:
     #: "rows_topped_up", "rows_wasted", "failed"}; wasted speculative
     #: fetches are also charged to bytes_scanned
     speculation: dict | None = None
+    #: set by the mesh int8 executors: scan bytes each device moved (one
+    #: entry a mesh position); the total still lands on bytes_scanned,
+    #: which also carries the host-side gather, delta and fallback traffic
+    device_bytes: list | None = None
     #: a resident engine's delta shards on the device (PaddedDataset, a
     #: filter mask folded into their norms); fdsq-cuda merges them into its
     #: kernel queue, and the engine merges them after any other executor
@@ -118,6 +132,17 @@ class TieredResident(NamedTuple):
 
     f32: part.PaddedDataset
     quant: QuantizedDataset
+
+
+class MeshTiered(NamedTuple):
+    """Mesh-resident int8 tier (what fdsq-sharded-int8 reads): the quantised
+    channels row-sharded over the mesh axes (``sharded.ShardedRows``), plus
+    the backing store for the candidate-only f32 rescore (``gather_rows``)
+    and the exact streamed fallback. The f32 tier never lives on the mesh:
+    only candidate rows of it are read."""
+
+    quant: QuantizedDataset
+    store: object
 
 
 Executor = Callable[[ExecutionPlan, torch.Tensor, object, ExecContext], TopK]
@@ -613,3 +638,154 @@ def _fqsd_int8_mmap_streamed(plan, queries, store, ctx) -> TopK:
     the same body as fqsd-int8-streamed (see :func:`_int8_streamed`); the
     candidate gather reads its rows through the store's ``gather_rows``."""
     return _int8_streamed(plan, queries, store, ctx)
+
+
+# ---------------------------------------------------------- mesh executors
+def _mesh(ctx: ExecContext):
+    if ctx.mesh is None:
+        raise ValueError("plan requires a mesh but ExecContext.mesh is None")
+    return ctx.mesh, tuple(ctx.mesh_axes)
+
+
+@register_executor("fdsq-sharded")
+def _fdsq_sharded(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
+    """Mesh-distributed FD-SQ: replicated query, row-sharded dataset,
+    hierarchical exact merge (``sharded.fdsq_sharded``, its schedule stated
+    there); a resident engine's delta shards merge into the final queue on
+    the mesh's first device."""
+    mesh, axes = _mesh(ctx)
+    key = (plan.cache_key(), plan.backend, mesh, axes)
+    fn = _cached(key, lambda: sh.fdsq_sharded(mesh, plan.k, plan.metric, axes,
+                                              backend=plan.backend))
+    out = fn(queries, dataset.vectors, dataset.norms, shards=ctx.delta)
+    ctx.delta_folded = bool(ctx.delta)
+    return out
+
+
+@register_executor("fqsd-sharded")
+def _fqsd_sharded(plan, queries, dataset: part.PaddedDataset, ctx) -> TopK:
+    """Mesh-distributed FQ-SD through the ring with copies overlapped
+    (``sharded.fqsd_ring``, its schedule stated there): queries over the
+    first mesh axis, the dataset over the engine's mesh axes jointly. A
+    one-axis mesh (the Router's ``("data",)``) is a ring with no model axis;
+    the reference's ring reads a "model" axis there and raises. A batch
+    that does not split over the ring's positions is padded with zero rows,
+    whose answers are dropped."""
+    mesh, axes = _mesh(ctx)
+    if len(axes) > 2:
+        raise ValueError(f"the ring shards over (query, model) axes, got {axes}")
+    key = (plan.cache_key(), plan.backend, mesh, axes)
+    fn = _cached(key, lambda: sh.fqsd_ring(mesh, plan.k, plan.metric, axes[0],
+                                           axes[1] if len(axes) > 1 else None,
+                                           backend=plan.backend))
+    m = int(queries.shape[0])
+    pad = -m % mesh.shape[axes[0]]
+    if pad:
+        queries = torch.cat([queries, queries.new_zeros((pad, queries.shape[1]))])
+    out = fn(queries, dataset.vectors, dataset.norms, shards=ctx.delta)
+    ctx.delta_folded = bool(ctx.delta)
+    return TopK(out.scores[:m], out.indices[:m]) if pad else out
+
+
+@register_executor("fdsq-sharded-int8")
+def _fdsq_sharded_int8(plan, queries, dataset: MeshTiered, ctx) -> TopK:
+    """Mesh-resident certified int8: the quantised channels live row-sharded
+    over the mesh, every device bounds its rows only (1 B/element local
+    traffic) into a widened (m, r+1) queue, the queues merge hierarchically
+    (``sharded.fdsq_sharded_int8``), and the shared epilogue
+    (:func:`_rescore_certify`) gathers and rescores only candidate f32 rows
+    from the backing store: certified or recomputed, bit-identical to the
+    streamed f32 oracle either way. Per-device scan bytes land on
+    ctx.device_bytes."""
+    mesh, axes = _mesh(ctx)
+    t_start = time.perf_counter()
+    r = _rescore_budget(plan)
+    key = (plan.cache_key(), plan.backend, mesh, axes)
+    fn = _cached(key, lambda: sh.fdsq_sharded_int8(mesh, r, axes, backend=plan.backend))
+    q8 = dataset.quant
+    # validity (padding, tombstones, a filter mask) rides the exact-norms
+    # channel; fold it into qnorm so the scan reads a single channel
+    qnorm = sh.map_blocks(lambda nsq, qn: torch.where(torch.isfinite(nsq), qn, torch.inf),
+                          q8.norms_sq, q8.qnorm_sq)
+    state = fn(queries, q8.q, q8.scales, q8.err, qnorm)
+    rows, d = q8.q.rows, int(q8.q.shape[1])
+    per_dev = rows * d + 12 * rows
+    ctx.device_bytes = [per_dev] * q8.q.n_blocks
+    return _rescore_certify(plan, queries, dataset.store, ctx, state.scores, state.indices,
+                            per_dev * q8.q.n_blocks, t_start=t_start)
+
+
+def _int8_mesh_streamed(plan, queries, store, ctx) -> TopK:
+    """Shared body of the ring-streamed mesh int8 executors (host-RAM and
+    mapped shard sources run the same schedule).
+
+    The paper's FQ-SD stream fanned out over the mesh's P positions: shard
+    i of the store's int8 source is put on position i mod P
+    (:func:`~repro_torch.core.streaming.make_ring_put`) and merged into that
+    position's widened (m, r+1) bound queue by the single-device streamed
+    step (the same cached step: ``knn_int8_scan`` + ``knn_merge`` on
+    ``cuda``). The stream prefetches at least one shard a position. The P
+    queues then merge once on the first device (one ``knn_merge`` on
+    ``cuda``, a lexicographic sort otherwise: every position's top r+1
+    holds its rows' share of the global top r+1), and the shared epilogue
+    rescores candidate f32 rows as on the single-device path. A store
+    larger than every device's memory together serves: at most the
+    stream's depth of shards is in flight.
+
+    Per-device scan bytes land on ``ctx.device_bytes``; speculation stays
+    off on mesh paths."""
+    mesh, _ = _mesh(ctx)
+    t_start = time.perf_counter()
+    m = int(queries.shape[0])
+    r = _rescore_budget(plan)
+    # the single-device streamed step's key: a mesh adds no cache entry
+    bound_step = _cached(("int8-bound-step", r, plan.backend),
+                         lambda: make_int8_bound_step(r, plan.backend))
+    devices = list(mesh.devices.flat)
+    n_dev = len(devices)
+    qs = [queries.to(d) for d in devices]
+    lbs = [torch.full((m, r + 1), torch.inf, dtype=torch.float32, device=d) for d in devices]
+    lis = [torch.full((m, r + 1), -1, dtype=torch.int32, device=d) for d in devices]
+    stream = DoubleBufferedStream(_resilient_source(store, "int8", ctx),
+                                  depth=max(ctx.prefetch_depth, n_dev),
+                                  put_fn=make_ring_put(devices), put_retries=ctx.max_retries,
+                                  retry_backoff_s=ctx.retry_backoff_s,
+                                  health=_ctx_health(ctx), device=mesh.first)
+    dev_bytes = [0] * n_dev
+    direct_r1 = None
+    for shard_i, p in enumerate(stream):
+        d = shard_i % n_dev  # consumption order is the ring's put order
+        if isinstance(p, part.PaddedDataset):
+            # a quarantined shard's f32 rows (the source yields them before
+            # the ring put, so put and consume order stay in step): exact
+            # distances merge as their own lower bounds (see _int8_streamed)
+            if direct_r1 is None:
+                direct_r1 = cached_direct_step(r + 1)
+            lbs[d], lis[d] = direct_r1(lbs[d], lis[d], qs[d], p.vectors, p.norms,
+                                       p.base_index)
+            dev_bytes[d] += int(p.vectors.shape[0]) * int(p.vectors.shape[1]) * 4
+        else:
+            lbs[d], lis[d] = bound_step(lbs[d], lis[d], qs[d], p.q, p.scales, p.err,
+                                        p.qnorm, p.base_index)
+            dev_bytes[d] += p.scan_bytes()
+    ctx.stream_stats = {"transfers": stream.transfers, "restarts": stream.restarts}
+    ctx.device_bytes = dev_bytes
+    state = sh.merge_queues([TopK(s, i) for s, i in zip(lbs, lis)], mesh.first, plan.backend)
+    return _rescore_certify(plan, queries, store, ctx, state.scores, state.indices,
+                            sum(dev_bytes), t_start=t_start)
+
+
+@register_executor("fqsd-sharded-int8")
+def _fqsd_sharded_int8(plan, queries, store, ctx) -> TopK:
+    """Ring-streamed mesh int8 over host-RAM shards: shard i scans on
+    position i mod P, per-position widened queues, one global merge,
+    candidate-only f32 rescore (see :func:`_int8_mesh_streamed`)."""
+    return _int8_mesh_streamed(plan, queries, store, ctx)
+
+
+@register_executor("fqsd-sharded-int8-streamed")
+def _fqsd_sharded_int8_streamed(plan, queries, store, ctx) -> TopK:
+    """Ring-streamed mesh int8 over a store in files: the codes leave the
+    mapping inside each ring put at 1 B/element, so one store can exceed
+    the memory of every device together (see :func:`_int8_mesh_streamed`)."""
+    return _int8_mesh_streamed(plan, queries, store, ctx)

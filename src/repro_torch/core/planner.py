@@ -22,12 +22,11 @@ Names, against the JAX package this port mirrors:
     executor "fqsd-int8-torch"  <->  "fqsd-int8"
     executor "fqsd-int8-cuda"   <->  "fqsd-int8-pallas"
 
-The streamed executors keep the reference's names ("fqsd-streamed",
-"fqsd-mmap-streamed", "fqsd-int8-streamed", "fqsd-int8-mmap-streamed");
-their per-shard steps run on the plan's backend. This port plans resident
-and streamed single-device search over the f32 tier and the certified int8
-tier. Sharded plans raise ``NotImplementedError`` naming the slice of the
-port that brings them.
+The streamed and mesh executors keep the reference's names
+("fqsd-streamed", "fqsd-mmap-streamed", "fqsd-int8-streamed",
+"fqsd-int8-mmap-streamed"; "fdsq-sharded", "fqsd-sharded",
+"fdsq-sharded-int8", "fqsd-sharded-int8", "fqsd-sharded-int8-streamed");
+their per-shard and per-device steps run on the plan's backend.
 
 The one external fact a plan may carry is per-device tuning
 (``repro_torch.tuning``, a pure read of a JSON cache): the autotuned blocks
@@ -57,14 +56,17 @@ ModeHint = Literal["fdsq", "fqsd", "fqsd-streamed"]
 #: Executors the planner may select (must match the executor registry).
 PLANNABLE_EXECUTORS = ("fdsq-torch", "fqsd-torch", "fdsq-cuda", "fqsd-streamed",
                        "fqsd-mmap-streamed", "fqsd-int8-torch", "fqsd-int8-cuda",
-                       "fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
+                       "fqsd-int8-streamed", "fqsd-int8-mmap-streamed", "fdsq-sharded",
+                       "fqsd-sharded", "fdsq-sharded-int8", "fqsd-sharded-int8",
+                       "fqsd-sharded-int8-streamed")
 
 #: Executors whose block shapes the per-device autotuner may override.
 TUNABLE_EXECUTORS = ("fdsq-cuda", "fqsd-int8-cuda")
 
 #: Streamed executors whose pipeline knobs (prefetch depth, speculation
 #: trigger, rescore budget) the end-to-end autotuner may override.
-PIPELINE_TUNABLE_EXECUTORS = ("fqsd-int8-streamed", "fqsd-int8-mmap-streamed")
+PIPELINE_TUNABLE_EXECUTORS = ("fqsd-int8-streamed", "fqsd-int8-mmap-streamed",
+                              "fqsd-sharded-int8", "fqsd-sharded-int8-streamed")
 
 BACKENDS = ("torch", "cuda")
 
@@ -197,8 +199,12 @@ def plan(
       files), "fqsd-streamed" over a bare iterable of partitions otherwise.
       A store-backed non-resident plan with tier="int8" (l2 only) keeps the
       quantised tier: "fqsd-int8-mmap-streamed" for mmap shards,
-      "fqsd-int8-streamed" for host-RAM shards. chunk_rows is the shard
-      (``stream_rows``, else the store's rows per shard);
+      "fqsd-int8-streamed" for host-RAM shards, and on a mesh the ring over
+      its devices, "fqsd-sharded-int8-streamed" / "fqsd-sharded-int8".
+      Non-resident f32 mesh plans stream on one device. chunk_rows is the
+      shard (``stream_rows``, else the store's rows per shard);
+    * sharded resident -> "fdsq-sharded-int8" (store-backed tier="int8",
+      l2), else "fdsq-sharded" / "fqsd-sharded" by mode;
     * tier="int8", mode="fqsd", l2 -> "fqsd-int8-cuda" (backend "cuda",
       the int8 scan kernel) or "fqsd-int8-torch"; chunk_rows, a divisor of
       the padded rows, is the geometry of the exact fallback scan;
@@ -236,16 +242,25 @@ def plan(
     store_backed = isinstance(dataset_meta, DatasetStoreMeta)
     tier = dataset_meta.tier if store_backed else "f32"
 
-    if cfg.sharded or dataset_meta.sharded:
-        raise NotImplementedError("sharded (mesh) search is ported in the mesh slice")
+    sharded = bool(cfg.sharded or dataset_meta.sharded)
     if mode == "fqsd-streamed" or not dataset_meta.resident:
         if store_backed and tier == "int8" and metric == "l2":
-            # the paper's throughput deployment: out-of-core scan at
-            # 1 B/element with certified rescore reads of candidate rows
-            executor = ("fqsd-int8-mmap-streamed" if dataset_meta.mmap
-                        else "fqsd-int8-streamed")
-            mode = "fqsd-int8-streamed"
+            if sharded:
+                # the int8 shard source ring-streams over the mesh devices
+                # (shard i -> device i mod P), one global merge and the
+                # candidate-only rescore
+                executor = ("fqsd-sharded-int8-streamed" if dataset_meta.mmap
+                            else "fqsd-sharded-int8")
+                mode = "fqsd-sharded-int8"
+            else:
+                # the paper's throughput deployment: out-of-core scan at
+                # 1 B/element with certified rescore reads of candidate rows
+                executor = ("fqsd-int8-mmap-streamed" if dataset_meta.mmap
+                            else "fqsd-int8-streamed")
+                mode = "fqsd-int8-streamed"
         else:
+            # mesh f32 plans that are not resident land here too: only the
+            # int8 tier has a mesh streaming schedule
             executor = "fqsd-mmap-streamed" if store_backed else "fqsd-streamed"
             mode = "fqsd-streamed"
             tier = "f32"  # exact base tier (int8 needs a store + l2)
@@ -253,6 +268,16 @@ def plan(
             chunk = int(stream_rows)
         elif store_backed and dataset_meta.rows_per_shard:
             chunk = int(dataset_meta.rows_per_shard)
+    elif sharded:
+        if store_backed and tier == "int8" and metric == "l2":
+            # mesh-resident certified int8: row-sharded quantised channels,
+            # per-device widened queues, hierarchical merge, candidate-only
+            # rescore from the backing store
+            executor = mode = "fdsq-sharded-int8"
+        else:
+            executor = "fdsq-sharded" if mode == "fdsq" else "fqsd-sharded"
+            mode = f"{mode}-sharded"
+            tier = "f32"
     # the int8 tier serves l2 FQ-SD only; every other resident plan reads f32
     elif tier == "int8" and mode == "fqsd" and metric == "l2":
         executor = "fqsd-int8-cuda" if cfg.backend == "cuda" else "fqsd-int8-torch"
@@ -313,7 +338,7 @@ def plan(
         padded_rows=rows,
         padded_dim=int(dataset_meta.padded_dim),
         n_valid=int(dataset_meta.n_valid),
-        sharded=False,
+        sharded=sharded,
         tier=tier,
         rescore_factor=rescore_factor,
         n_shards=int(getattr(dataset_meta, "n_shards", 1)),

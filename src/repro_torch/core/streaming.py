@@ -85,15 +85,92 @@ def _on_device_put(p) -> None:
         inj.on_device_put(getattr(p, "base_index", -1))
 
 
-def _move(p, dev: torch.device):
+def _move(p, dev: torch.device, non_blocking: bool = False, copy: bool = False):
     """Every array field of a partition record on `dev` (a bare array moved
-    as it is), host scalars untouched."""
+    as it is), host scalars untouched; ``copy=True`` gives memory of its
+    own even where a field already lives on `dev`."""
     if not isinstance(p, tuple) or not hasattr(p, "_fields"):
-        return _as_tensor(p).to(dev) if _is_array(p) else p
+        return (_as_tensor(p).to(dev, non_blocking=non_blocking, copy=copy) if _is_array(p)
+                else p)
     arrays = _array_fields(p)
     if not arrays:
         return p
-    return p._replace(**{name: _as_tensor(v).to(dev) for name, v in arrays.items()})
+    return p._replace(**{name: _as_tensor(v).to(dev, non_blocking=non_blocking, copy=copy)
+                         for name, v in arrays.items()})
+
+
+def _tensors(p) -> list:
+    """The tensors of a partition record (or the bare tensor)."""
+    if isinstance(p, tuple) and hasattr(p, "_fields"):
+        return [v for v in _array_fields(p).values() if isinstance(v, torch.Tensor)]
+    return [p] if isinstance(p, torch.Tensor) else []
+
+
+_COPY_STREAMS: dict = {}
+_COPY_STREAMS_LOCK = threading.Lock()
+
+
+def _cuda_device(dev) -> torch.device:
+    """`dev` with its index (a bare "cuda" is the current device)."""
+    dev = torch.device(dev)
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+class CopyStreams:
+    """The process's copy stream of each CUDA device, and the ordering
+    every transfer on them keeps: a copy starts after the work queued so
+    far on its sources' compute streams; each device source is recorded on
+    the copy stream and each copy on its device's compute stream
+    (``record_stream``: neither is freed under the other side's work); the
+    compute stream waits for the copies (:meth:`join`) before it reads
+    them. The streamed scans' slot copies, ``make_ring_put`` and the mesh
+    ring's block shipping all run on one of these.
+
+    One stream a device for the whole process, made at first use: the
+    caching allocator keeps a block in the pool of the stream it was
+    allocated on, so a stream made anew for each search would find none of
+    the last search's copies free and allocate them again (a ring step's
+    four 1 GB blocks: a cudaMalloc each, and the cache growing until it
+    frees everything). An instance remembers the devices it used, for
+    :meth:`join`."""
+
+    def __init__(self):
+        self._streams: dict = {}
+
+    def stream(self, dev: torch.device) -> "torch.cuda.Stream":
+        dev = _cuda_device(dev)
+        cs = self._streams.get(dev)
+        if cs is None:
+            with _COPY_STREAMS_LOCK:
+                cs = _COPY_STREAMS.get(dev)
+                if cs is None:
+                    cs = _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
+            self._streams[dev] = cs
+        return cs
+
+    def put(self, p, dev: torch.device, copy: bool = False):
+        """Partition record (or bare array) `p` moved to CUDA device `dev` on
+        its copy stream, ordered as the class says; ``copy=True`` gives
+        memory of its own even where `p` already lives on `dev`."""
+        cs = self.stream(dev)
+        sources = [t for t in _tensors(p) if t.is_cuda]
+        for src in {t.device for t in sources}:
+            cs.wait_stream(torch.cuda.current_stream(src))
+        with torch.cuda.stream(cs):
+            out = _move(p, dev, non_blocking=True, copy=copy)
+        for t in sources:
+            t.record_stream(cs)
+        compute = torch.cuda.current_stream(dev)
+        for t in _tensors(out):
+            t.record_stream(compute)
+        return out
+
+    def join(self, dev: torch.device | None = None) -> None:
+        """The compute stream of `dev` (None: of every device this instance
+        copied to) waits for the copies queued so far on its copy stream."""
+        for d, cs in self._streams.items():
+            if dev is None or d == _cuda_device(dev):
+                torch.cuda.current_stream(d).wait_stream(cs)
 
 
 def device_put_partition(p, device=None):
@@ -233,7 +310,7 @@ class DoubleBufferedStream:
         self._health = health
         self._buf: collections.deque = collections.deque()
         self._banks: dict = {}
-        self._copy_stream = None
+        self._copies = CopyStreams()
         self._pool: ThreadPoolExecutor | None = None  # staging threads, one pass
         self._started = False
         self._next_i = 0  # stream position of the next item the source yields
@@ -265,8 +342,7 @@ class DoubleBufferedStream:
         banks = self._banks.get(key)
         if banks is None:
             banks = self._banks[key] = _Banks(arrays, self._depth, self._device)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self._device)
+        copy_stream = self._copies.stream(self._device)
         i = banks.next
         banks.next = (i + 1) % self._depth
         slot = banks.slots[i]
@@ -283,11 +359,11 @@ class DoubleBufferedStream:
                                                 thread_name_prefix="stream-stage")
             sources[name] = banks.bank(i, name, slot[name])
             stage(sources[name], v, self._pool)
-        with torch.cuda.stream(self._copy_stream):
-            self._copy_stream.wait_event(banks.consumed[i])
+        with torch.cuda.stream(copy_stream):
+            copy_stream.wait_event(banks.consumed[i])
             for name, v in sources.items():
                 slot[name].copy_(v, non_blocking=True)
-            banks.ready[i].record(self._copy_stream)
+            banks.ready[i].record(copy_stream)
         out = item._replace(**slot) if named else slot[""]
         return out, (banks, i)
 
@@ -349,10 +425,9 @@ class DoubleBufferedStream:
                     banks.consumed[i] = done
                 self._fill()  # the freed bank takes the next partition
         finally:
-            if self._copy_stream is not None:
-                # copies still in flight finish before the compute stream
-                # (and the allocator, in its order) moves on
-                compute.wait_stream(self._copy_stream)
+            # copies still in flight finish before the compute stream (and
+            # the allocator, in its order) moves on
+            self._copies.join()
             if self._pool is not None:
                 self._pool.shutdown(wait=True)
                 self._pool = None
@@ -361,6 +436,41 @@ class DoubleBufferedStream:
 def prefetch_to_device(host_iter: Iterable[T], depth: int = 2, put_fn=None, device=None):
     """Functional alias used by the data pipelines."""
     return iter(DoubleBufferedStream(host_iter, depth=depth, put_fn=put_fn, device=device))
+
+
+def make_ring_put(devices) -> Callable:
+    """Round-robin ``put_fn`` for mesh streaming: call i ships its partition
+    (or bare array) to ``devices[i % len(devices)]``, firing the active fault
+    injector's ``on_device_put`` first, as every streamed transfer does.
+
+    This is the paper's ring-streamed FQ-SD schedule generalised to a device
+    group: shard i lands on device i mod P and every device scans every
+    P-th shard, P double-buffered pipelines out of one host iterator. On a
+    CUDA device the copy runs on that device's copy stream (asynchronous
+    from page-locked memory), the moved tensors are recorded on the
+    device's compute stream, and the compute stream waits for the copy
+    before any work queued after the put: a stream deep enough to put
+    ahead of the consumer (the mesh executors use at least one shard a
+    device) keeps copies of later shards under the scans of earlier ones.
+    Devices may repeat (logical devices). Each call gives a fresh ring
+    (counter at device 0).
+    """
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("make_ring_put needs at least one device")
+    counter = iter(range(1 << 62))
+    copies = CopyStreams()
+
+    def put(p):
+        dev = devices[next(counter) % len(devices)]
+        _on_device_put(p)
+        if dev.type != "cuda":
+            return _move(p, dev)
+        out = copies.put(p, dev)
+        copies.join(dev)
+        return out
+
+    return put
 
 
 class ResilientShardSource:
@@ -524,4 +634,4 @@ class SpeculativeGather:
 
 
 __all__ = ["DoubleBufferedStream", "ResilientShardSource", "SpeculativeGather",
-           "device_put_partition", "prefetch_to_device"]
+           "device_put_partition", "make_ring_put", "prefetch_to_device"]

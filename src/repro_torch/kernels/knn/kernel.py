@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.distance import query_norms_sq
 from repro_torch.core.quantized import sqrt_rn
 from repro_torch.core.topk import topk_smallest, tree_merge_sorted
 
@@ -402,12 +403,16 @@ def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
 
     ``bd`` is checked against d and has no other effect on the card: the
     scan stages ``kDepth`` (32) features per slice whatever ``bd`` is. It
-    stays in the signature so the plan's blocks match the TPU kernel's."""
+    stays in the signature so the plan's blocks match the TPU kernel's.
+
+    The query norms are summed in one fixed order (``query_norms_sq``):
+    each pair's score is one FMA chain over d whatever bm, so a query's
+    scores have the same bits in any batch."""
     if q.shape[1] % bd:
         raise ValueError(f"d={q.shape[1]} not a multiple of bd={bd}")
     if q.device.type == "cpu":
         return knn_fused_plain(q, x, xn, k_eff, metric, bm, bn, bd, prune)
-    qn = torch.sum(q.to(torch.float32) ** 2, dim=-1)
+    qn = query_norms_sq(q)
     sv, si, skips = knn_scan(q, x, qn, xn, k_eff, metric, bm, bn, prune)
     v, i = knn_merge(sv, si)
     return v, i, skips.sum(dim=1, keepdim=True, dtype=torch.int32)
@@ -516,6 +521,6 @@ def knn_fused_plain(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
     blocks its skip count is the TPU kernel's."""
     if q.shape[1] % bd:
         raise ValueError(f"d={q.shape[1]} not a multiple of bd={bd}")
-    qn = torch.sum(q.to(torch.float32) ** 2, dim=-1)
+    qn = query_norms_sq(q)
     v, i, skips = knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, 1)
     return v[:, 0], i[:, 0], skips

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.distance import direct_l2_sq, row_norms_sq
+from repro_torch.core.distance import direct_l2_sq, query_norms_sq, row_norms_sq
 from repro_torch.core.partition import LANE, next_pow2, round_up
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK, sort_pairs, topk_smallest
@@ -137,7 +137,7 @@ def prepare(
         # rows (norm +inf) both become zero vectors -> ip 0 -> distance 1;
         # padded rows stay masked by xn = +inf.
         q32 = q.to(torch.float32)
-        qn_row = torch.sqrt(torch.sum(q32 * q32, dim=-1, keepdim=True))
+        qn_row = torch.sqrt(query_norms_sq(q32))[:, None]
         q = torch.where(qn_row > 0, q32 / torch.clamp_min(qn_row, 1e-30), 0.0)
         if not x_prenormalized:
             xn_row = torch.sqrt(xn)[:, None]
@@ -359,14 +359,35 @@ def knn_shard(v: torch.Tensor, i: torch.Tensor, q: torch.Tensor, x: torch.Tensor
     the shard (its rows normalised by :func:`prepare` for cos, unless
     ``x_prenormalized``), then :func:`merge_shard` into the running (m,
     next_pow2(k)) queue of kernel scores (ip form for cos:
-    :func:`finish_queue` adds the 1). Two launches a shard; the same kernel
-    scores every pair as a resident search does, and merging sorted queues
-    is exact, so the streamed result is the resident one bit for bit."""
-    call = prepare(q.to(x.dtype), x, k, metric, x_norms, x_prenormalized=x_prenormalized)
-    bm, bn, _ = call.blocks
-    qn = torch.sum(call.q.to(torch.float32) ** 2, dim=-1)
-    sv, si, _ = knn_scan(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
-    return merge_shard(v, i, sv[: call.m], si[: call.m], base_index)
+    :func:`finish_queue` adds the 1). Two launches a shard, three when its
+    rows are not a multiple of the scan's row tile (:func:`shard_parts`:
+    the aligned rows scan in place and only the tail is padded, so a
+    large block is never copied); the same kernel scores every pair as a
+    resident search does, and merging sorted queues is exact, so the
+    streamed result is the resident one bit for bit."""
+    svs, sis, qn = [], [], None
+    for a, b in shard_parts(x.shape[0], k, q.shape[1]):
+        call = prepare(q.to(x.dtype), x[a:b], k, metric, x_norms[a:b],
+                       x_prenormalized=x_prenormalized)
+        bm, bn, _ = call.blocks
+        if qn is None:  # the parts share the prepared queries
+            qn = query_norms_sq(call.q)
+        sv, si, _ = knn_scan(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
+        sv, si = sv[: call.m], si[: call.m]
+        svs.append(sv)
+        sis.append(torch.where(torch.isfinite(sv), si + a, si) if a else si)
+    if len(svs) == 1:
+        return merge_shard(v, i, svs[0], sis[0], base_index)
+    return merge_shard(v, i, torch.cat(svs, 1), torch.cat(sis, 1), base_index)
+
+
+def shard_parts(n: int, k: int, d: int) -> list[tuple[int, int]]:
+    """The row ranges :func:`knn_shard` scans of an n-row shard: the whole
+    shard when n is a multiple of the scan's row tile bn (or smaller than
+    it), else the aligned rows [0, n - n mod bn) and the tail."""
+    bn = resolved_blocks(k, d)[1]
+    head = n - n % bn
+    return [(0, n)] if head in (0, n) else [(0, head), (head, n)]
 
 
 def int8_shard_operands(q: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,

@@ -249,6 +249,9 @@ class AdaptiveScheduler:
         # speculation counters across dispatches that reported them
         self._phase_ms = {"scan_ms": 0.0, "gather_ms": 0.0, "rescore_ms": 0.0}
         self._phase_n = 0
+        # mesh dispatches: per-device scan bytes summed element-wise across
+        # the dispatches that reported them (the mesh int8 executors)
+        self._device_bytes: list[int] = []
         self._speculation = {"dispatches": 0, "rows_speculated": 0,
                              "rows_topped_up": 0, "rows_wasted": 0}
 
@@ -470,11 +473,17 @@ class AdaptiveScheduler:
             self._skip_rate_n += 1
         self._transfers += int(batch.stats.get("transfers", 0))
         self._restarts += int(batch.stats.get("restarts", 0))
-        if "scan_ms" in batch.stats:  # streamed int8 plans: the
-            # scan/gather/rescore wall-time split
+        if "scan_ms" in batch.stats:  # streamed and sharded int8 plans:
+            # the scan/gather/rescore wall-time split
             self._phase_n += 1
             for key in self._phase_ms:
                 self._phase_ms[key] += float(batch.stats.get(key, 0.0))
+        per_dev = batch.stats.get("bytes_per_device")
+        if per_dev is not None:
+            if len(per_dev) > len(self._device_bytes):
+                self._device_bytes.extend([0] * (len(per_dev) - len(self._device_bytes)))
+            for di, nbytes in enumerate(per_dev):
+                self._device_bytes[di] += int(nbytes)
         spec = batch.stats.get("speculation")
         if spec is not None:
             self._speculation["dispatches"] += 1
@@ -725,10 +734,12 @@ class AdaptiveScheduler:
             out["collection"] = self.collection
         if self._skip_rate_n:  # fused-kernel plans only
             out["prune_skip_rate"] = self._skip_rate_sum / self._skip_rate_n
-        if self._phase_n:  # streamed int8 plans: pipeline wall-time
-            # split (summed across dispatches) + speculation counters
+        if self._phase_n:  # streamed and sharded int8 plans: pipeline
+            # wall-time split (summed across dispatches) + speculation counters
             out["phase_ms"] = dict(self._phase_ms)
             out["speculation"] = dict(self._speculation)
+        if self._device_bytes:  # mesh dispatches: per-device scan traffic
+            out["bytes_per_device"] = list(self._device_bytes)
         return out
 
 

@@ -1256,7 +1256,9 @@ class DatasetStore:
 
     def gather_rows(self, ids) -> torch.Tensor:
         """Rows of the main shards by position -> (len(ids), padded_dim) f32
-        on the host (page-locked for a pinned store). The rescore of the
+        on the host (page-locked for a pinned store), or on the card where
+        every main shard lives on that card (a store built from a tensor
+        there): no round trip through host memory. The rescore of the
         streamed int8 executors reads only these candidate rows of the f32
         tier. Negative and out-of-range ids give zero rows (callers mask
         them by validity). The fault hook ``on_gather`` fires first; under
@@ -1272,13 +1274,18 @@ class DatasetStore:
             inj.on_gather(int(ids.shape[0]))
         shards = g.shards
         rows_per = self.rows_per_shard
+        devs = {p.vectors.device if isinstance(p.vectors, torch.Tensor) else None
+                for p in shards}
+        card = next(iter(devs)) if len(devs) == 1 else None
+        if card is not None and card.type != "cuda":
+            card = None
         # rows gathered from files for a card come back page-locked, as the
         # shards streamed from them are staged: the copy to the card is async
-        pin = self._pinned or (self.is_mmap and torch.cuda.is_available())
+        pin = card is None and (self._pinned or (self.is_mmap and torch.cuda.is_available()))
         out = torch.empty((ids.shape[0], self.padded_dim), dtype=torch.float32,
-                          pin_memory=pin)
+                          pin_memory=pin, device=card)
         ok = (ids >= 0) & (ids < len(shards) * rows_per)
-        out[~ok] = 0.0
+        out[(~ok).to(out.device)] = 0.0
         dest = torch.nonzero(ok).reshape(-1)
         sid, row = ids[dest] // rows_per, ids[dest] % rows_per
         for s in torch.unique(sid).tolist():
@@ -1297,7 +1304,8 @@ class DatasetStore:
                 # run of the output: one pass, straight into it
                 torch.index_select(src, 0, rows, out=out[a:b])
             else:
-                out[pos] = src[rows.to(src.device)].to(torch.float32).cpu()
+                out[pos.to(out.device)] = src[rows.to(src.device)].to(torch.float32).to(
+                    out.device)
             crcs = g.rowcrc[s]
             if self.verify_on_read and crcs is not None:
                 got_crc = _row_crcs(out[pos].numpy())

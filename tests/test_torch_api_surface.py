@@ -3,9 +3,9 @@
 ``tests/test_api_surface.py`` pins ``repro.api``: its ``__all__``, the
 request and result fields and defaults, and the deprecated shims, which
 must warn and keep working. The port's ``api`` must match it name for
-name, ``core.__all__`` must be the reference's less the seven mesh names
-(they come with the mesh slice), and ``serving``/``data`` export the
-reference's names less those of the LM and data-pipeline substrate.
+name, ``core.__all__`` must be the reference's, the seven mesh names
+included, and ``serving``/``data`` export the reference's names less those
+of the LM and data-pipeline substrate.
 """
 from __future__ import annotations
 
@@ -54,8 +54,9 @@ def test_api_all_snapshot():
 
 
 def test_core_all_is_the_reference_less_the_mesh():
-    assert list(core.__all__) == [n for n in jcore.__all__ if n not in MESH_NAMES]
-    assert MESH_NAMES <= set(jcore.__all__)
+    """The mesh names are ported now: ``core.__all__`` is the reference's."""
+    assert list(core.__all__) == list(jcore.__all__)
+    assert MESH_NAMES <= set(core.__all__)
     for name in core.__all__:
         obj = getattr(core, name)
         assert obj.__module__.startswith("repro_torch."), name

@@ -326,8 +326,10 @@ def test_plan_rejects_what_this_slice_lacks():
     # non-resident plans stream now; a bare DatasetMeta has no store behind it
     streamed = tplanner.plan((1, 128), dataclasses.replace(meta, resident=False), cfg, "fqsd")
     assert (streamed.executor, streamed.mode) == ("fqsd-streamed", "fqsd-streamed")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tplanner.plan((1, 128), dataclasses.replace(meta, sharded=True), cfg, "fdsq")
+    # sharded plans are ported now (tests/test_torch_mesh_engine.py)
+    sharded = tplanner.plan((1, 128), dataclasses.replace(meta, sharded=True), cfg, "fdsq")
+    assert (sharded.executor, sharded.mode, sharded.sharded) == (
+        "fdsq-sharded", "fdsq-sharded", True)
     with pytest.raises(ValueError, match="backend"):
         tplanner.plan((1, 128), meta, tplanner.EngineConfig(k=4, backend="pallas"), "fdsq")
 

@@ -865,3 +865,127 @@ def test_searches_over_the_wire_during_a_background_compaction(dev):
             assert (_wire_bits(body["scores"]) == _wire_bits(scores[i])).all()
             assert body["indices"] == ids[i]
     assert ids[0][0] == 200_000  # the upserted copy of query 0, found first
+
+
+# ------------------------------------------------------------------- the mesh
+def _mesh_engines(dev, metric="l2", int8=False):
+    """A (2, 2) mesh of four logical positions on the one card and a
+    single-device engine, fitted from one store (the mesh's blocks are views
+    of the single engine's rows). 6,000 rows pad to 6,144: blocks of 1,536,
+    not a multiple of the scan's row tile at k = 1024, so each block scans
+    its aligned rows and its tail."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _ints((6000, 256), g, dev)
+    x[5000] = x[9]
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    meng = ExactKNN(k=1024, metric=metric, backend="cuda", mesh=mesh)
+    store = DatasetStore.from_array(x, row_mult=meng._row_mult())
+    if int8:
+        store.ensure_tier("int8")
+    meng.fit_store(store)
+    single = ExactKNN(k=1024, metric=metric, backend="cuda", device=dev).fit_store(store)
+    q = _ints((16, 256), g, dev)
+    q[0] = x[9]
+    return meng, single, q
+
+
+@pytest.mark.parametrize("mode,m", [("fdsq", 1), ("fdsq", 16), ("fqsd", 16)])
+@pytest.mark.parametrize("k", [7, 1024])
+def test_mesh_of_logical_devices_equals_the_single_device_search(dev, mode, m, k):
+    """fdsq-sharded / fqsd-sharded (the ring) on ["cuda:0"] * 4 answer as
+    fdsq-cuda does, bit for bit, through the kernels: knn_scan a block (two
+    where the block has a tail) and knn_merge a block plus the hierarchical
+    merges (2 + 1 on a 2 x 2 mesh; the ring merges once a block and step,
+    then once a query block over "model")."""
+    meng, single, q = _mesh_engines(dev)
+    req = SearchRequest(queries=q[:m], k=k, mode_hint=mode)
+    want = single.search(req)
+    K.reset_launch_counts()
+    got = meng.search(req)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    assert got.plan.executor == ("fdsq-sharded" if mode == "fdsq" else "fqsd-sharded")
+    assert want.plan.executor == "fdsq-cuda"
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert torch.equal(got.topk.indices, want.topk.indices)
+    parts = len(ops.shard_parts(meng._ds.vectors.rows, k, 256))
+    blocks = 4 if mode == "fdsq" else 8  # the ring: every position at both steps
+    assert launches["knn_scan"] == blocks * parts
+    assert launches["knn_merge"] == blocks + (3 if mode == "fdsq" else 2)
+
+
+def test_mesh_int8_tier_has_the_direct_bits(dev):
+    """fdsq-sharded-int8 on ["cuda:0"] * 4: one knn_int8_scan a block, one
+    knn_merge a block and three hierarchical ones, bit-identical to
+    knn_exact_direct; four per-device byte counts summing to the scan."""
+    meng, single, q = _mesh_engines(dev, int8=True)
+    K.reset_launch_counts()
+    got = meng.search(SearchRequest(queries=q, tier="int8"))
+    torch.cuda.synchronize()
+    assert got.plan.executor == "fdsq-sharded-int8"
+    assert K.LAUNCHES["knn_int8_scan"] == 4 and K.LAUNCHES["knn_merge"] == 7
+    ds = single._ds
+    want = ops.knn_exact_direct(single._pad_queries(q), ds.vectors, ds.norms, 1024, 1024)
+    assert torch.equal(got.topk.scores, want.scores)
+    assert torch.equal(got.topk.indices, want.indices)
+    rows = meng._ds.vectors.rows
+    assert got.stats["bytes_per_device"] == [rows * 256 + 12 * rows] * 4
+
+
+def test_mesh_ring_int8_over_pinned_shards(dev):
+    """fqsd-sharded-int8: pinned host shards ring-put to four logical
+    positions, one knn_int8_scan and knn_merge a shard and one global merge,
+    bit-identical to knn_exact_direct."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.store import DatasetStore
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = _ints((5000, 256), g, dev)
+    q = _ints((8, 256), g, dev)
+    store = DatasetStore.from_array(x, rows_per_shard=1024, pin_memory=True)
+    mesh = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
+    eng = ExactKNN(k=100, backend="cuda", mesh=mesh, mesh_axes=("data",)).fit_store(
+        store, resident=False).enable_int8()
+    K.reset_launch_counts()
+    got = eng.search(SearchRequest(queries=q, tier="int8"))
+    torch.cuda.synchronize()
+    assert got.plan.executor == "fqsd-sharded-int8"
+    n = store.n_shards
+    assert K.LAUNCHES["knn_int8_scan"] == n and K.LAUNCHES["knn_merge"] == n + 1
+    assert got.stats["transfers"] == n and len(got.stats["bytes_per_device"]) == 4
+    one = ExactKNN(k=100, backend="cuda", device=dev).fit(x)
+    want = ops.knn_exact_direct(one._pad_queries(q), one._ds.vectors, one._ds.norms, 100, 1024)
+    assert torch.equal(got.topk.scores, want.scores)
+    assert torch.equal(got.topk.indices, want.indices)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cos"])
+def test_scores_do_not_depend_on_the_batch(dev, metric):
+    """On Gaussian rows (sums that round), a query's fdsq-cuda answer has
+    the same bits in a batch of 1, 3, 8, 16 and 40 (the scan's bm 1, 4, 8,
+    16): the query norms (and cos's query normalisation) are summed in one
+    fixed order, 16 rows at a time, and each pair's score is one FMA chain
+    over d whatever bm. So the l2 ring, whose blocks scan 8 queries,
+    answers a batch of 16 as fdsq-cuda does."""
+    from repro_torch.core.mesh import make_mesh
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(6000, 200, generator=g, device=dev)
+    q = torch.randn(40, 200, generator=g, device=dev)
+    single = ExactKNN(k=100, metric=metric, backend="cuda", device=dev).fit(x)
+    want = single.search(SearchRequest(queries=q, k=100)).topk
+    for m in (1, 3, 8, 16):
+        got = single.search(SearchRequest(queries=q[:m], k=100)).topk
+        assert torch.equal(got.scores, want.scores[:m])
+        assert torch.equal(got.indices, want.indices[:m])
+    if metric != "l2":
+        return  # a mesh engine keeps raw rows for cos, the single one normalised ones
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    meng = ExactKNN(k=100, metric=metric, backend="cuda", mesh=mesh).fit(x)
+    got = meng.search(SearchRequest(queries=q[:16], k=100, mode_hint="fqsd"))
+    assert got.plan.executor == "fqsd-sharded"
+    assert torch.equal(got.topk.scores, want.scores[:16])
+    assert torch.equal(got.topk.indices, want.indices[:16])

@@ -183,8 +183,18 @@ def test_engine_refuses_what_this_slice_lacks(data):
     # out-of-core stores are ported now (tests/test_torch_streaming.py)
     streamed = ExactKNN(k=3, device="cpu").fit_store(eng.store, resident=False)
     assert streamed.search(SearchRequest(queries=q)).plan.executor == "fqsd-mmap-streamed"
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # meshes are ported now: anything but a Mesh is refused, a Mesh fits
+    with pytest.raises(TypeError, match="Mesh"):
         ExactKNN(k=3, device="cpu", mesh=object())
+    from repro_torch.core.mesh import make_mesh
+
+    meshed = ExactKNN(k=3, device="cpu", mesh=make_mesh((2,), ("data",), ["cpu"] * 2),
+                      mesh_axes=("data",)).fit(x)
+    got = meshed.search(SearchRequest(queries=q, mode_hint="fdsq"))
+    want = ExactKNN(k=3, device="cpu").fit(x).search(SearchRequest(queries=q, mode_hint="fdsq"))
+    assert got.plan.executor == "fdsq-sharded"
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert torch.equal(got.topk.indices, want.topk.indices)
     with pytest.raises(ValueError, match="filter_mask"):
         eng.search(SearchRequest(queries=q, filter_mask=np.ones(7, bool)))
     with pytest.raises(TypeError):

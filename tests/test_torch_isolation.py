@@ -181,3 +181,36 @@ def test_store_read_side_keeps_its_own_copies(rel):
                                                  "numpy"}, rel
     port = importlib.import_module("repro_torch." + rel.removesuffix(".py").replace("/", "."))
     assert "repro." not in port.__name__ and port.__file__.startswith(str(PORT))
+
+
+def test_mesh_without_devices_needs_cuda():
+    """A mesh over CUDA devices (make_mesh with devices=None, explicit
+    "cuda" entries, Router.create(devices=N)) needs a card and raises where
+    there is none; logical CPU positions run when the caller names them.
+    The mesh modules stand alone (their imports checked on the source)."""
+    from repro_torch import ExactKNN
+    from repro_torch.api import Router
+    from repro_torch.core.mesh import make_mesh
+
+    for rel in ("core/mesh.py", "core/sharded.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module]
+        assert not [m for m in names if _forbidden(m)] and "torch" in names, rel
+    if torch.cuda.is_available():
+        mesh = make_mesh((1,), ("data",))
+        assert mesh.first.type == "cuda"
+        assert ExactKNN(k=1, mesh=mesh, mesh_axes=("data",)).device.type == "cuda"
+    else:
+        with pytest.raises(ValueError, match="CUDA devices"):
+            make_mesh((1,), ("data",))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh((2,), ("data",), devices=["cuda:0"] * 2)
+        with pytest.raises(ValueError, match="CUDA device"):
+            Router().create("a", torch.zeros(8, 4), k=1, devices=1)
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    eng = ExactKNN(k=1, mesh=mesh, mesh_axes=("data",))
+    assert eng.device.type == "cpu" and eng.mesh is mesh
+    with pytest.raises(ValueError, match="first device"):
+        ExactKNN(k=1, mesh=mesh, mesh_axes=("data",), device="meta")

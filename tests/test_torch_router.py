@@ -83,8 +83,12 @@ class TestCollections:
             router.create("", _mk(rng), k=5, **TKW)
 
     def test_devices_need_the_mesh(self, rng):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Router().create("a", _mk(rng), k=5, devices=1, **TKW)
+        """devices= places the collection on a ("data",) mesh of the group
+        (logical devices may repeat; tests/test_torch_mesh_engine.py)."""
+        router = Router()
+        eng = router.create("a", _mk(rng), k=5, devices=["cpu"] * 2, **TKW)
+        assert eng.mesh.shape == {"data": 2} and eng.mesh_axes == ("data",)
+        assert router.stats()["collections"]["a"]["devices"] == ["cpu", "cpu"]
 
     def test_tensor_vectors_are_fitted_as_they_are(self, rng):
         """create(vectors=tensor) hands the tensor to fit (no numpy round trip)
