@@ -256,10 +256,36 @@ Phases, in order (any failure makes the run exit non-zero):
              hierarchical knn_merge; the int8 block and shard scans and
              their merges), launches split by the schedule, beside their
              plain versions, library calls and bounds over d = 960.
+14. lm     — LM decode serving (repro_torch.models, serving.DecodeServer) at
+             minicpm-2b's full width and depth, nothing cut: 40 layers,
+             d_model 2,304, 36 heads (MHA), d_ff 5,760, V_padded 122,880,
+             bf16, 3.01 B parameters (6.0 GB) drawn on the card from a
+             seed. (a) `python -m repro_torch.launch.serve --mode lm --arch
+             minicpm-2b` in a subprocess exits 0 and prints the reference's
+             report line; (b) 4 sequences of 32 tokens through decode_step
+             one at a time from an empty cache, and after a prefill of 16,
+             against apply's logits at each position (within LM_BF16_TOL;
+             greedy tokens equal wherever apply's top-2 margin exceeds twice
+             it; no pad id), a cache one position off printed beside; (c)
+             the same weights cut to 2 layers and cast to f32: a prefill and
+             one decode_step on the card against the host's CPU (LM_F32_TOL,
+             TF32 off); (d) a prefill of one 4,096-token prompt through
+             _flash_blockwise and, with flash_threshold raised, through
+             _sdpa_full (each counted in all 40 layers), last-token logits
+             within LM_BF16_TOL, both timed; (e) DecodeServer, 8 slots,
+             max_len 512, 32 requests of 32 tokens, run twice: every request
+             completes with prompt + 32 tokens, no pad id, the second run's
+             tokens equal the first's; ms a step, tokens/s and the step's
+             bytes bound printed, then 4 steps traced (device busy ms, kernels
+             a step, idle share); (f) qwen3-moe-30b-a3b at full width (128
+             experts top 8, GQA 32/4, V 151,936) cut to 2 of 48 layers: (b)
+             at a capacity factor of E / top_k (neither path drops an
+             assignment), and (e) with 16 requests. No kernel of the port
+             runs in this phase (every op is a plain PyTorch op).
 
-Phases 3-10, 12 and 13 are the main path (phase 11 measures tuning, and its
-launches enter no entry; phase 10's launches are printed on a line of
-their own). The launch counters are set to 0 just before
+Phases 3-10, 12 and 13 are the main path of the kernels (phase 11 measures
+tuning, and its launches enter no entry; phase 10's launches are printed on
+a line of their own; phase 14 launches none). The launch counters are set to 0 just before
 each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
 and before each l2dist shape)
 and read just after; every
@@ -311,6 +337,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -409,6 +436,34 @@ MESH = dict(n=1_000_000, d=960, seed=3, shape=(2, 2), axes=("data", "model"), k=
             m=16, fdsq_ms=(1, 16), rows_per_shard=65_536,
             replay=dict(queries=128, burst_size=32, trickle=4, int8_min_depth=32),
             upserts=16, deletes=16, repeats=5, traced=8, traced_int8=3)
+#: phase 14: LM decode serving at LM["arch"]'s full width and depth (read from
+#: repro_torch.configs), weights drawn on the card from "seed": (b) "seqs"
+#: sequences of "positions" tokens decoded one at a time against apply, and
+#: after a prefill of "prefill" tokens; (c) "f32_layers" layers cast to f32, a
+#: prefill of "f32_prompt" tokens and one decode step, card against the host's
+#: CPU; (d) a prefill of "flash_prompt" tokens, flash against full attention;
+#: (e) DecodeServer over "server", run twice, "profile_steps" steps traced;
+#: (f) the MoE arch cut to "layers" layers: (b) and its own "server"
+LM = dict(arch="minicpm-2b", seed=0, seqs=4, positions=32, prefill=16, f32_layers=2,
+          f32_prompt=8, flash_prompt=4096, cli_timeout_s=300, profile_steps=4,
+          server=dict(slots=8, max_len=512, requests=32, tokens=32),
+          moe=dict(arch="qwen3-moe-30b-a3b", layers=2,
+                   server=dict(slots=8, max_len=512, requests=16, tokens=32)))
+#: Logit tolerances of phase 14 (the logits are O(1): unit-RMS activations
+#: through a head of N(0, 1/d)). bf16: two computations of the same model
+#: that differ in GEMM shapes (decode M = 4 rows against apply's 128, flash
+#: against full attention) round differently, one bf16 step (2^-8 relative)
+#: here and there, and 40 layers carry those steps to the logits. f32 (2
+#: layers, card against CPU, TF32 off): sums over d = 2304 and d_ff = 5760 in
+#: two orders differ by ~sqrt(d)·2^-24 relative each.
+LM_BF16_TOL, LM_F32_TOL = 0.125, 1e-3
+#: MoE routing: the largest gap between a token's k-th and (k+1)-th router
+#: probability at which two computations of one token may pick different
+#: experts. Past the first layer the router's input carries the bf16
+#: rounding of the residual stream: a step of 2^-8 moves its O(1) logits by
+#: ~4e-3 and a probability p by ~4e-3·p, so two such moves near the k-th
+#: probabilities (~0.01-0.05) can swap two experts ~4e-4 apart.
+LM_ROUTE_GAP = 1e-3
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -3389,6 +3444,417 @@ class Smoke:
             f"ok={ok and added == 0}")
         return ok and added == 0
 
+    # ------------------------------------------------------ phase 14: lm
+    def phase_lm(self) -> bool:
+        """LM decode serving at minicpm-2b's full width and depth, weights
+        drawn on the card from a seed; then the MoE arch cut to 2 layers."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.configs import get_config
+
+        ok = self._lm_cli()
+        cfg = get_config(LM["arch"]).model
+        p = self._lm_init(cfg)
+        ok &= self._lm_decode_vs_apply(cfg.name, p, cfg)
+        ok &= self._lm_card_vs_cpu(p, cfg)
+        ok &= self._lm_flash(p, cfg)
+        ok &= self._lm_server(cfg.name, p, cfg, LM["server"])
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = LM["moe"]
+        full = get_config(moe["arch"]).model
+        mcfg = dataclasses.replace(full, n_layers=moe["layers"])
+        pm = self._lm_init(mcfg, f" (cut to {moe['layers']} of {full.n_layers} layers)")
+        # (b) compares decode with the forward where neither drops an
+        # assignment: a capacity factor of E / top_k gives every expert room
+        # for every token
+        no_drop = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.expert_top_k)
+        ok &= self._lm_decode_vs_apply(f"{mcfg.name} (capacity factor {no_drop.capacity_factor})",
+                                       pm, no_drop)
+        ok &= self._lm_server(f"{mcfg.name} (2 layers)", pm, mcfg, moe["server"])
+        del pm
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok
+
+    def _lm_cli(self) -> bool:
+        """(a) python -m repro_torch.launch.serve --mode lm --arch ... on the card."""
+        import os
+
+        import repro_torch
+
+        env = dict(os.environ, PYTHONPATH=str(Path(repro_torch.__file__).resolve().parents[1]))
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm", "--arch",
+               LM["arch"]]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=LM["cli_timeout_s"])
+        out = run.stdout.strip().splitlines()
+        line = out[-1] if out else ""
+        ok = run.returncode == 0 and bool(re.fullmatch(
+            r"LM decode: 100 seqs, 544 tokens in \S+s \(\S+ tok/s, continuous batching over "
+            r"4 slots\)", line))
+        log(f"lm (a) {' '.join(cmd[1:])}: exit {run.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {line!r} (the reference's line: 100 seqs, 544 "
+            f"tokens) ok={ok} [{self.card}]")
+        if not ok:
+            log(run.stderr[-4000:])
+        return ok
+
+    def _lm_init(self, cfg, cut: str = ""):
+        """The LM's random weights, drawn on the card from LM["seed"]."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+
+        t0 = time.perf_counter()
+        p = T.init(torch.Generator(device=self.dev).manual_seed(LM["seed"]), cfg, self.dev)
+        self.sync()
+        n = sum(t.numel() for t in p.parameters())
+        nbytes = sum(t.numel() * t.element_size() for t in p.parameters())
+        log(f"lm: {cfg.name}{cut}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top "
+            f"{cfg.expert_top_k}, V_padded {cfg.vocab_padded}, {cfg.dtype}: {n:,} parameters "
+            f"(params_count {cfg.params_count():,}), {nbytes / 1e9:.3f} GB, drawn on the card "
+            f"from seed {LM['seed']} in {time.perf_counter() - t0:.1f} s")
+        return p
+
+    def _logits_err(self, got, want, keep=None) -> float:
+        """Max |got - want| over the finite logits (of the positions `keep`
+        marks); inf if the -inf (pad) masks differ."""
+        torch = self.torch
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            return math.inf
+        fin = torch.isfinite(want)
+        if keep is not None:
+            fin &= keep[..., None]
+        return float((got[fin] - want[fin]).abs().max()) if fin.any() else math.inf
+
+    def _greedy(self, got, want, tol, keep) -> tuple[bool, int, int, int]:
+        """Greedy tokens of got against want's at the positions `keep` marks,
+        wherever want's top-2 margin exceeds 2·tol (two logits each off by
+        at most tol cannot swap there): (all such equal, positions, such
+        positions, equal tokens)."""
+        top = want.topk(2, dim=-1).values
+        sure = ((top[..., 0] - top[..., 1]) > 2 * tol) & keep
+        same = (got.argmax(-1) == want.argmax(-1)) & keep
+        return (bool((same | ~sure).all()), int(keep.sum()), int(sure.sum()), int(same.sum()))
+
+    @contextlib.contextmanager
+    def _routes(self):
+        """Record every _moe_dense call's top-k expert set (sorted), the gap
+        between its k-th and (k+1)-th router probability and its router
+        probabilities, from the same ops on the same operands as the call's
+        own routing."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+
+        calls, orig = [], L._moe_dense
+
+        def traced(params, x, *, n_experts, top_k, capacity_factor):
+            probs = torch.softmax(
+                x.reshape(-1, x.shape[-1]).to(torch.float32) @ params["router"], dim=-1)
+            vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+            calls.append((idx[:, :top_k].sort(-1).values, vals[:, top_k - 1] - vals[:, top_k],
+                          probs))
+            return orig(params, x, n_experts=n_experts, top_k=top_k,
+                        capacity_factor=capacity_factor)
+
+        L._moe_dense = traced
+        try:
+            yield calls
+        finally:
+            L._moe_dense = orig
+
+    def _route_flips(self, calls, ref, b, n_layers, prefix=0):
+        """Where a run's top-k expert sets differ from apply's (`ref`): the
+        flipped (b, position) mask, and at each flip apply's k-th gap and the
+        largest change of a router probability between the two runs. `calls`
+        are one run's _moe_dense calls: a prefill of `prefix` positions (one
+        call a layer), then one call a layer for each decoded position."""
+        torch = self.torch
+        sets = [[] for _ in range(n_layers)]
+        probs = [[] for _ in range(n_layers)]
+        if prefix:
+            for layer, (idx, _, pr) in enumerate(calls[:n_layers]):
+                sets[layer].append(idx.reshape(b, prefix, -1))
+                probs[layer].append(pr.reshape(b, prefix, -1))
+            calls = calls[n_layers:]
+        for i, (idx, _, pr) in enumerate(calls):
+            sets[i % n_layers].append(idx.reshape(b, 1, -1))
+            probs[i % n_layers].append(pr.reshape(b, 1, -1))
+        flips = torch.zeros(ref[0][1].reshape(b, -1).shape, dtype=torch.bool, device=self.dev)
+        gaps, moves = [], []
+        for layer in range(n_layers):
+            got = torch.cat(sets[layer], 1)
+            n = got.shape[1]
+            here = (got != ref[layer][0].reshape(b, -1, got.shape[-1])[:, :n]).any(-1)
+            flips[:, :n] |= here
+            gaps.append(ref[layer][1].reshape(b, -1)[:, :n][here])
+            want = ref[layer][2].reshape(b, -1, ref[layer][2].shape[-1])
+            moves.append((torch.cat(probs[layer], 1) - want[:, :n]).abs().amax(-1)[here])
+        return flips, torch.cat(gaps), torch.cat(moves)
+
+    def _lm_decode_vs_apply(self, label, p, cfg) -> bool:
+        """(b) seqs x positions tokens decoded one at a time from an empty
+        cache, and after a prefill, against apply's logits at each position.
+
+        MoE: a token's top-k experts are a discrete choice. At another batch
+        shape the router's input carries other bf16 roundings (and its f32
+        product sums in another order), which can order the k-th and
+        (k+1)-th probabilities the other way round where they are that
+        close. Such a token, and every later position of its sequence
+        (which attends to it), is left out of the logit comparison; each
+        flip must sit at a gap below LM_ROUTE_GAP, and at least half the
+        positions must be compared."""
+        torch = self.torch
+        from repro_torch.models import transformer as T
+
+        b, s, s0 = LM["seqs"], LM["positions"], LM["prefill"]
+        g = torch.Generator(device=self.dev).manual_seed(LM["seed"] + 1)
+        tok = torch.randint(0, cfg.vocab, (b, s), generator=g, device=self.dev)
+        with self._routes() as ref:
+            full, _ = T.apply(p, cfg, tok)
+        cache = T.init_cache(cfg, b, s, device=self.dev)
+        dec = []
+        with self._routes() as dec_routes:
+            for pos in range(s):
+                logits, cache = T.decode_step(p, cfg, cache, tok[:, pos:pos + 1])
+                dec.append(logits)
+        dec = torch.stack(dec, 1)
+        with self._routes() as pre_routes:
+            last, cache = T.prefill(p, cfg, tok[:, :s0], max_len=s)
+            pre = [last]
+            for pos in range(s0, s - 1):
+                logits, cache = T.decode_step(p, cfg, cache, tok[:, pos:pos + 1])
+                pre.append(logits)
+        pre = torch.stack(pre, 1)  # positions s0-1 .. s-2
+        want_pre = full[:, s0 - 1:s - 1]
+        keep_dec = torch.ones((b, s), dtype=torch.bool, device=self.dev)
+        keep_pre = torch.ones((b, s - s0), dtype=torch.bool, device=self.dev)
+        routing = ""
+        gaps_ok = True
+        if cfg.is_moe:
+            fd, gd, md = self._route_flips(dec_routes, ref, b, cfg.n_layers)
+            fp, gp, mp = self._route_flips(pre_routes, ref, b, cfg.n_layers, prefix=s0)
+            fp = fp[:, :s - 1]
+            keep_dec = ~(fd.cumsum(1) > 0)
+            keep_pre = ~(fp.cumsum(1) > 0)[:, s0 - 1:]
+            gaps, moves = torch.cat([gd, gp]), torch.cat([md, mp])
+            gaps_ok = bool((gaps < LM_ROUTE_GAP).all())
+            routing = (f"; top-{cfg.expert_top_k} sets differing from apply's: decode "
+                       f"{int(fd.sum())}, prefill+decode {int(fp.sum())} of {b * s} (token, "
+                       f"any layer) at k-th gaps {[f'{v:.2e}' for v in gaps.tolist()]} "
+                       f"(gate < {LM_ROUTE_GAP}), the largest router probability moving by "
+                       f"{[f'{v:.2e}' for v in moves.tolist()]} there; positions compared "
+                       f"{int(keep_dec.sum())} / {int(keep_pre.sum())}")
+        # a cache one position off: a wrong slot must move the logits past the tolerance
+        _, off = T.prefill(p, cfg, tok[:, :s0], max_len=s)
+        shifted, _ = T.decode_step(p, cfg, dict(off, len=s0 + 1), tok[:, s0:s0 + 1])
+        shift_err = self._logits_err(shifted, full[:, s0])
+        err_dec = self._logits_err(dec, full, keep_dec)
+        err_pre = self._logits_err(pre, want_pre, keep_pre)
+        g_dec = self._greedy(dec, full, LM_BF16_TOL, keep_dec)
+        g_pre = self._greedy(pre, want_pre, LM_BF16_TOL, keep_pre)
+        pads = int((dec.argmax(-1) >= cfg.vocab).sum())
+        enough = keep_dec.sum() * 2 >= keep_dec.numel() and keep_pre.sum() * 2 >= keep_pre.numel()
+        ok = (err_dec <= LM_BF16_TOL and err_pre <= LM_BF16_TOL and g_dec[0] and g_pre[0]
+              and pads == 0 and shift_err > LM_BF16_TOL and gaps_ok and bool(enough))
+        log(f"lm (b) {label}: {b} x {s} tokens, decode_step from an empty cache against apply: "
+            f"max |dlogit| {err_dec:.6f}; prefill of {s0} then decode_step: {err_pre:.6f} "
+            f"(tolerance {LM_BF16_TOL}); greedy tokens (positions, with top-2 margin > 2 tol, "
+            f"equal): decode {g_dec[1:]}, prefill+decode {g_pre[1:]}; pad ids {pads}; a cache "
+            f"one position off moves the logits by {shift_err:.4f} (gate: > the tolerance)"
+            f"{routing}; ok={ok} [{self.card}]")
+        return ok
+
+    def _lm_card_vs_cpu(self, p, cfg) -> bool:
+        """(c) the same weights cut to f32_layers layers, cast to f32: a
+        prefill and one decode_step on the card against the host's CPU."""
+        torch = self.torch
+        import copy
+        import dataclasses
+
+        from repro_torch.models import transformer as T
+
+        n, s0 = LM["f32_layers"], LM["f32_prompt"]
+        c32 = dataclasses.replace(cfg, n_layers=n, dtype=torch.float32)
+
+        def cut(device):
+            return T.Transformer(c32, p.embed.to(device, torch.float32),
+                                 [copy.deepcopy(blk).to(device, torch.float32)
+                                  for blk in p.layers[:n]],
+                                 copy.deepcopy(p.final_norm).to(device),
+                                 p.head.to(device, torch.float32))
+
+        g = torch.Generator(device=self.dev).manual_seed(LM["seed"] + 2)
+        tok = torch.randint(0, cfg.vocab, (LM["seqs"], s0 + 1), generator=g, device=self.dev)
+        out = []
+        for device in (self.dev, torch.device("cpu")):
+            m = cut(device)
+            t = tok.to(device)
+            last, cache = T.prefill(m, c32, t[:, :s0], max_len=s0 + 1)
+            step, _ = T.decode_step(m, c32, cache, t[:, s0:])
+            out.append((last.cpu(), step.cpu()))
+            del m, cache
+        errs = [self._logits_err(a, b) for a, b in zip(*out)]
+        ok = max(errs) <= LM_F32_TOL and torch.backends.cuda.matmul.allow_tf32 is False
+        log(f"lm (c) {n} of {cfg.n_layers} layers in f32, {LM['seqs']} x {s0} tokens: card "
+            f"against the host CPU: prefill max |dlogit| {errs[0]:.3e}, decode_step "
+            f"{errs[1]:.3e} (tolerance {LM_F32_TOL}; TF32 off) ok={ok} [{self.card}]")
+        return ok
+
+    def _lm_flash(self, p, cfg) -> bool:
+        """(d) one flash_prompt-token prefill through _flash_blockwise, and
+        with flash_threshold raised so _sdpa_full runs: last-token logits."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.models import layers as L
+        from repro_torch.models import transformer as T
+
+        s = LM["flash_prompt"]
+        if not (s > cfg.flash_threshold and s % cfg.q_block == 0 and s % cfg.kv_block == 0):
+            raise ValueError(f"{s} tokens do not take the flash path of {cfg}")
+        full_cfg = dataclasses.replace(cfg, flash_threshold=s)
+        g = torch.Generator(device=self.dev).manual_seed(LM["seed"] + 3)
+        tok = torch.randint(0, cfg.vocab, (1, s), generator=g, device=self.dev)
+        calls = {"_flash_blockwise": 0, "_sdpa_full": 0}
+        saved = {name: getattr(L, name) for name in calls}
+
+        def counted(name):
+            def fn(*a, **kw):
+                calls[name] += 1
+                return saved[name](*a, **kw)
+            return fn
+
+        res = {}
+        try:
+            for name in calls:
+                setattr(L, name, counted(name))
+            for label, c in (("flash", cfg), ("full", full_cfg)):
+                before = dict(calls)
+                times = []
+                for _ in range(2):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    logits, cache = T.prefill(p, c, tok)
+                    self.sync()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                res[label] = (logits, times, {k: (calls[k] - before[k]) // 2 for k in calls})
+                del cache
+        finally:
+            for name, fn in saved.items():
+                setattr(L, name, fn)
+        err = self._logits_err(res["flash"][0], res["full"][0])
+        paths = (res["flash"][2] == {"_flash_blockwise": cfg.n_layers, "_sdpa_full": 0}
+                 and res["full"][2] == {"_flash_blockwise": 0, "_sdpa_full": cfg.n_layers})
+        same_top = bool((res["flash"][0].argmax(-1) == res["full"][0].argmax(-1)).all())
+        ok = err <= LM_BF16_TOL and paths
+        log(f"lm (d) prefill of {s} tokens, {cfg.n_layers} layers: blockwise flash (q_block "
+            f"{cfg.q_block}, kv_block {cfg.kv_block}) {res['flash'][1][1]:.1f} ms against "
+            f"_sdpa_full {res['full'][1][1]:.1f} ms (host clock, synchronised, second call; "
+            f"first {res['flash'][1][0]:.1f} / {res['full'][1][0]:.1f}); calls a prefill "
+            f"{res['flash'][2]} / {res['full'][2]}; last-token max |dlogit| {err:.6f} "
+            f"(tolerance {LM_BF16_TOL}), same argmax {same_top}; ok={ok} [{self.card}]")
+        return ok
+
+    def _lm_server(self, label, p, cfg, sv) -> bool:
+        """(e) DecodeServer: requests of tokens each over slots, run twice;
+        ms a step, tokens/s and the step's bytes bound; a traced window."""
+        torch = self.torch
+        from repro_torch.serving import DecodeServer
+
+        runs = []
+        for _ in range(2):
+            srv = DecodeServer(p, cfg, n_slots=sv["slots"], max_len=sv["max_len"])
+            for rid in range(sv["requests"]):
+                srv.submit(rid, prompt_token=(rid % (cfg.vocab - 1)) + 1, n_tokens=sv["tokens"])
+            steps = []
+            t0 = time.perf_counter()
+            while srv.queue or any(srv.slots):
+                t1 = time.perf_counter()
+                srv.step()  # ends in the copy of the sampled ids to the host
+                steps.append((time.perf_counter() - t1) * 1e3)
+            wall = time.perf_counter() - t0
+            runs.append(({s.rid: s.tokens for s in srv.completed}, steps, wall))
+        done = runs[0][0]
+        complete = (sorted(done) == list(range(sv["requests"]))
+                    and all(len(t) == 1 + sv["tokens"] for t in done.values()))
+        pads = sum(1 for t in done.values() for x in t[1:] if not 0 <= x < cfg.vocab)
+        same = runs[0][0] == runs[1][0]
+        ok = complete and pads == 0 and same
+        # bytes a step must move: every weight but the embedding table once
+        # (its slots rows gathered), the whole K/V cache read (the decode
+        # attends over all max_len positions, masked), one position a layer
+        # written, the f32 logits written
+        params = sum(t.numel() * t.element_size() for t in p.parameters())
+        emb = p.embed.numel() * p.embed.element_size()
+        cache = srv.cache["k"].numel() * srv.cache["k"].element_size() * 2
+        step_bytes = (params - emb + sv["slots"] * cfg.d_model * p.embed.element_size() + cache
+                      + cache // sv["max_len"] + sv["slots"] * cfg.vocab_padded * 4)
+        bound = step_bytes / self.bw * 1e3
+        n_tok = sv["requests"] * sv["tokens"]
+        for i, (_, steps, wall) in enumerate(runs):
+            log(f"lm (e) {label} DecodeServer run {i + 1}: {sv['slots']} slots, max_len "
+                f"{sv['max_len']}, {sv['requests']} requests x {sv['tokens']} tokens: "
+                f"{len(steps)} steps in {wall:.3f} s, {statistics.median(steps):.3f} ms a step "
+                f"(median; min {min(steps):.3f}, max {max(steps):.3f}; first {steps[0]:.3f}), "
+                f"{n_tok / wall:.1f} tokens/s; bytes bound {step_bytes / 1e9:.3f} GB a step "
+                f"(weights {(params - emb) / 1e9:.3f} + cache {cache / 1e9:.3f}) / "
+                f"{self.bw / 1e12:.2f} TB/s = {bound:.3f} ms [{self.card}]")
+        log(f"lm (e) {label}: every request complete with prompt + {sv['tokens']} tokens "
+            f"{complete}, pad ids {pads}, second run the same tokens {same}; ok={ok}")
+        self._lm_profile(label, p, cfg, sv)
+        return ok
+
+    def _lm_profile(self, label, p, cfg, sv) -> None:
+        """A traced window of steady DecodeServer steps: device ms by kind
+        (GEMMs, others), kernels a step, and the device's idle share."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serving import DecodeServer
+
+        srv = DecodeServer(p, cfg, n_slots=sv["slots"], max_len=sv["max_len"])
+        for rid in range(sv["slots"]):
+            srv.submit(rid, prompt_token=rid + 1, n_tokens=sv["tokens"])
+        for _ in range(2):
+            srv.step()
+        n = LM["profile_steps"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                srv.step()
+            wall = (time.perf_counter() - t0) * 1e3
+        gemm = other = 0.0
+        kernels = 0
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            row = by_name.setdefault(e.name[:60], [0, 0.0])
+            row[0] += 1
+            row[1] += us / 1e3 / n
+            if "Memcpy" in e.name or "Memset" in e.name:
+                other += us / 1e3
+                continue
+            kernels += 1
+            if any(w in e.name.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+                gemm += us / 1e3
+            else:
+                other += us / 1e3
+        busy = gemm + other
+        log(f"lm (e) {label} traced: {n} steps in {wall:.3f} ms ({wall / n:.3f} ms a step under "
+            f"the profiler); device busy {busy / n:.3f} ms a step (GEMM/GEMV {gemm / n:.3f}, "
+            f"other kernels and copies {other / n:.3f}); {kernels / n:.0f} kernels a step; "
+            f"device idle share {1 - busy / wall:.3f} [{self.card}]")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        log(f"lm (e) {label} traced, device ms a step by kernel (launches in {n} steps): "
+            + "; ".join(f"{name} {ms:.3f} ({cnt})" for name, (cnt, ms) in top))
+
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
         over its runs (one of each shape), per-shape numbers beside."""
@@ -3886,7 +4352,7 @@ class Listen:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "listen", "tune", "kernels", "mesh")
+          "listen", "tune", "kernels", "mesh", "lm")
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,11 @@
-"""Carry search state from the JAX package into the port.
+"""Carry search state and LM parameters from the JAX package into the port.
 
 Every function takes plain arrays (anything ``np.asarray`` reads, so a JAX
 device array works) and never imports JAX or ``repro``: the JAX engine is
 duck-typed. The parity tests use them so that both packages search the
 identical padded state — the same vectors, the same +inf norms, the same
-pre-normalised cos rows, the same int8 codes and side channels.
+pre-normalised cos rows, the same int8 codes and side channels — and run
+an LM on the same weights, bf16 bits carried unchanged.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 from repro_torch.core.engine import ExactKNN, resolve_device
 from repro_torch.core.partition import PaddedDataset
 from repro_torch.core.quantized import QuantizedDataset
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.store import DatasetStore
 
 _BACKENDS = {"xla": "torch", "pallas": "cuda"}
@@ -102,3 +105,36 @@ def engine_state_from_jax(jax_engine, device=None) -> ExactKNN:
     if q8 is not None:
         eng._int8 = quantized_from_numpy(*q8, device=device)
     return eng
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def lm_params_from_numpy(params, cfg: T.LMConfig, device=None) -> T.Transformer:
+    """The port's LM over a reference param tree (``repro.models.transformer
+    .init``'s layout: layer weights stacked on a leading L axis).
+
+    The stack is split into one ``Block`` a layer; every weight keeps the
+    reference's (in, out) layout (``wq (d, H·dh)``, ``wo (H·dh, d)``,
+    ``head (d, V_padded)``, ``moe.w_gate (E, d, de)``, the router in f32) and
+    its dtype, bf16 bits unchanged. ``device`` as in
+    :func:`padded_from_numpy`.
+    """
+    device = resolve_device(device)
+    p = _numpy_tree(params)
+    lay = p["layers"]
+
+    def block(i):
+        def at(group):
+            return {k: _tensor(v[i], device) for k, v in lay[group].items()}
+
+        ffn = ({"moe": L.MoE(**at("moe"))} if cfg.is_moe else {"mlp": L.MLP(**at("mlp"))})
+        return T.Block(L.RMSNorm(**at("ln1")), L.RMSNorm(**at("ln2")),
+                       L.Attention(**at("attn")), **ffn)
+
+    return T.Transformer(cfg, _tensor(p["embed"], device), [block(i) for i in range(cfg.n_layers)],
+                         L.RMSNorm(_tensor(p["final_norm"]["scale"], device)),
+                         _tensor(p["head"], device))

@@ -104,11 +104,12 @@ def _deprecated_shim(old: str, new: str) -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """The engine's device: ``None`` means CUDA, which must exist."""
+    """The device of the port's entry points (the engine, the LM): ``None``
+    means CUDA, which must exist."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "ExactKNN runs on a CUDA device and none is available; pass "
+                "the port runs on a CUDA device and none is available; pass "
                 "device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)

@@ -1,8 +1,10 @@
-"""Serving entry point: replay kNN retrieval traffic (the paper's workloads).
+"""Serving entry point: kNN retrieval (the paper's workloads) or LM decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode knn --n 20000 \
         --d 128 --k 10 --queries 200 --policy {latency,throughput,adaptive} \
         --collection passages [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --arch minicpm-2b \
+        [--device cpu]
 
 The knn mode builds a named collection in an ``api.Router`` on the card's
 kernels (``backend="cuda"``), replays a bursty arrival stream (dense bursts
@@ -24,8 +26,13 @@ Router, scheduler and kernels. ``--max-inflight``, ``--tenant-qps`` and
         --listen 127.0.0.1:8440 --collection passages \
         --max-inflight 512 --tenant-qps 100 --queue-timeout-ms 2000
 
+The lm mode draws the arch's smoke model from seed 0 and decodes
+``--queries`` requests of 8 tokens each through ``DecodeServer``
+(continuous batching over 4 slots, ``max_len`` 128), then prints one report
+line.
+
 It runs on the CUDA device and raises where there is none; ``--device cpu``
-runs the kernels' plain versions on the CPU instead.
+runs the kernels' plain versions (and the LM) on the CPU instead.
 """
 from __future__ import annotations
 
@@ -281,13 +288,36 @@ def serve_knn(args):
     return sched, router
 
 
+def serve_lm(args):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import DecodeServer
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    cfg = get_config(args.arch).smoke_model
+    params = T.init(torch.Generator(device).manual_seed(0), cfg, device)
+    srv = DecodeServer(params, cfg, n_slots=4, max_len=128)
+    for rid in range(args.queries):
+        srv.submit(rid, prompt_token=(rid % (cfg.vocab - 1)) + 1, n_tokens=8)
+    t0 = time.perf_counter()
+    done = srv.run_until_drained()
+    dt = time.perf_counter() - t0
+    tok = sum(len(s.tokens) - 1 for s in done)
+    print(f"LM decode: {len(done)} seqs, {tok} tokens in {dt:.2f}s "
+          f"({tok/dt:.1f} tok/s, continuous batching over 4 slots)")
+    return srv
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=["knn"], default="knn")
+    ap.add_argument("--mode", choices=["knn", "lm"], default="knn")
     ap.add_argument("--device", default="cuda",
-                    help="device the collection lives on: cuda (the card's "
-                         "kernels; raises where there is no card) or cpu "
-                         "(the kernels' plain versions)")
+                    help="device the collection or the LM lives on: cuda (the "
+                         "card's kernels; raises where there is no card) or "
+                         "cpu (the kernels' plain versions)")
     ap.add_argument("--n", type=int, default=20000)
     ap.add_argument("--d", type=int, default=128)
     ap.add_argument("--k", type=int, default=10)
@@ -360,11 +390,14 @@ def parser() -> argparse.ArgumentParser:
                     help="bound on time a request may wait in the live "
                          "queue before the server answers 503; default: "
                          "wait for dispatch (--listen only)")
+    ap.add_argument("--arch", default="minicpm-2b",
+                    help="LM architecture whose smoke model --mode lm serves")
     return ap
 
 
 def main(argv=None):
-    serve_knn(parser().parse_args(argv))
+    args = parser().parse_args(argv)
+    return serve_knn(args) if args.mode == "knn" else serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""Online serving: the adaptive FD-SQ/FQ-SD retrieval scheduler.
+"""Online serving: the adaptive FD-SQ/FQ-SD retrieval scheduler and LM decode.
 
 The retrieval scheduler speaks the request-first API (``repro_torch.api``):
 streams of ``SearchRequest`` in, per-request ``SearchResult`` out.
-``Request``/``Result`` are deprecated compatibility names. The LM decode
-server of the JAX package (``DecodeServer``) is not part of the port yet.
+``Request``/``Result`` are deprecated compatibility names. ``DecodeServer``
+serves an LM of ``repro_torch.models`` by continuous batching.
 """
 from repro_torch.api.types import SearchRequest, SearchResult
 from repro_torch.serving.retrieval import (
@@ -13,10 +13,11 @@ from repro_torch.serving.retrieval import (
     RetrievalServer,
     bursty_requests,
 )
+from repro_torch.serving.lm import DecodeServer
 
 __all__ = [
     "AdaptiveScheduler", "RetrievalServer",
     "SearchRequest", "SearchResult",
     "Request", "Result",
-    "bursty_requests",
+    "DecodeServer", "bursty_requests",
 ]

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card, against their plain versions: knn_scan,
-knn_merge, knn_int8_scan, l2dist and topk.
+knn_merge, knn_int8_scan, l2dist and topk; and the LM decode path
+(repro_torch.models, DecodeServer) on the card against itself and the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (the library is built on
 first launch); elsewhere they skip. They import neither JAX nor the JAX
@@ -989,3 +990,76 @@ def test_scores_do_not_depend_on_the_batch(dev, metric):
     assert got.plan.executor == "fqsd-sharded"
     assert torch.equal(got.topk.scores, want.scores[:16])
     assert torch.equal(got.topk.indices, want.indices[:16])
+
+
+def _lm(arch, dev, **overrides):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch).smoke_model, **overrides)
+    return cfg, T.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-30b-a3b", "qwen2.5-14b"])
+def test_lm_decode_steps_equal_the_forward_on_the_card(dev, arch):
+    """Smoke width in f32: decode_step one token at a time from an empty
+    cache, and after a prefill, gives apply's logits at each position
+    (f32 sums over GEMMs of another shape: rtol 1e-4, atol 1e-4). The MoE
+    runs at a capacity factor where neither path drops an assignment."""
+    from repro_torch.models import transformer as T
+
+    cfg, p = _lm(arch, dev, capacity_factor=8.0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (3, 12), generator=g, device=dev)
+    full, _ = T.apply(p, cfg, tok)
+    cache = T.init_cache(cfg, 3, 12, device=dev)
+    steps = []
+    for pos in range(12):
+        logits, cache = T.decode_step(p, cfg, cache, tok[:, pos:pos + 1])
+        steps.append(logits)
+    torch.testing.assert_close(torch.stack(steps, 1), full, rtol=1e-4, atol=1e-4)
+    last, cache = T.prefill(p, cfg, tok[:, :7], max_len=12)
+    torch.testing.assert_close(last, full[:, 6], rtol=1e-4, atol=1e-4)
+    logits, _ = T.decode_step(p, cfg, cache, tok[:, 7:8])
+    torch.testing.assert_close(logits, full[:, 7], rtol=1e-4, atol=1e-4)
+    assert (full[..., cfg.vocab:] == -torch.inf).all()
+
+
+def test_lm_on_the_card_equals_the_cpu(dev):
+    """The same smoke weights (f32, TF32 off) on the card and on the CPU:
+    a prefill and two decode steps within rtol 1e-4, atol 1e-4."""
+    import copy
+
+    from repro_torch.models import transformer as T
+
+    cfg, p = _lm("qwen2.5-14b", dev)
+    host = copy.deepcopy(p).to("cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(2))
+    out = []
+    for params, device in ((p, dev), (host, torch.device("cpu"))):
+        t = tok.to(device)
+        last, cache = T.prefill(params, cfg, t[:, :8], max_len=10)
+        a, cache = T.decode_step(params, cfg, cache, t[:, 8:9])
+        b, _ = T.decode_step(params, cfg, cache, t[:, 9:10])
+        out.append([x.cpu() for x in (last, a, b)])
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_server_on_the_card_repeats_its_tokens(dev):
+    """bf16 at smoke width: every request completes, no pad id, and a second
+    server on the same weights gives the same tokens."""
+    from repro_torch.serving import DecodeServer
+
+    cfg, p = _lm("minicpm-2b", dev, dtype=torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        srv = DecodeServer(p, cfg, n_slots=4, max_len=64)
+        for rid in range(10):
+            srv.submit(rid, prompt_token=rid + 1, n_tokens=6)
+        runs.append({s.rid: s.tokens for s in srv.run_until_drained()})
+    assert runs[0] == runs[1]
+    assert sorted(runs[0]) == list(range(10))
+    assert all(len(t) == 7 and all(0 <= x < cfg.vocab for x in t) for t in runs[0].values())

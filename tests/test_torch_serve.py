@@ -80,8 +80,29 @@ def test_serve_cli_needs_a_card_unless_told_cpu():
         pytest.skip("a CUDA device is present: the default runs on it")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(SMALL)
-    with pytest.raises(SystemExit):
-        serve.main(SMALL + ["--mode", "lm"])  # the LM mode is not offered
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--mode", "lm", "--arch", "minicpm-2b"])
+
+
+_LM_LINE = re.compile(r"LM decode: (\d+) seqs, (\d+) tokens in \S+s \(\S+ tok/s, "
+                      r"continuous batching over 4 slots\)")
+
+
+@pytest.mark.parametrize("arch,queries", [("minicpm-2b", "100"), ("qwen3-moe-30b-a3b", "9")])
+def test_serve_lm_prints_the_reference_report(capsys, arch, queries):
+    """``--mode lm --device cpu``: the reference's report line, with the same
+    sequence and token counts (100 requests run the 128-position cache past
+    max_len - 1, where every later sequence ends after one token). The
+    served tokens stay in the vocabulary."""
+    argv = ["--mode", "lm", "--arch", arch, "--queries", queries]
+    srv = serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    jserve.main(argv)
+    want = capsys.readouterr().out.strip().splitlines()
+    assert len(got) == len(want) == 1
+    assert _LM_LINE.fullmatch(got[0]).groups() == _LM_LINE.fullmatch(want[0]).groups()
+    assert len(srv.completed) == int(queries)
+    assert all(0 <= t < srv.cfg.vocab for s in srv.completed for t in s.tokens)
 
 
 def test_quickstart_runs_the_reference_plans(capsys, monkeypatch):
