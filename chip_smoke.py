@@ -282,10 +282,38 @@ Phases, in order (any failure makes the run exit non-zero):
              at a capacity factor of E / top_k (neither path drops an
              assignment), and (e) with 16 requests. No kernel of the port
              runs in this phase (every op is a plain PyTorch op).
+15. train  — LM training (repro_torch.optim, checkpoint, runtime.fault,
+             launch.train) at minicpm-2b's full width. (a) `python -m
+             repro_torch.launch.train --arch minicpm-2b --smoke --steps 20
+             --ckpt-dir build/train_ckpt --inject-failure 7` in a subprocess
+             exits 0 with restarts=1 and a loss trajectory (the directory
+             removed before and after); (b) the full width (d_model 2,304,
+             36 heads, d_ff 5,760, V_padded 122,880) cut to 2 layers in f32,
+             a batch of 2 x 256: loss and every gradient on the card against
+             the host's CPU, then one AdamW step from the same (the CPU's)
+             gradients, updates and params, each within TRAIN_TOL of its
+             leaf's largest value (TF32 off); (d) that model and its f32
+             moments saved async under build/train_ckpt_card and restored
+             into a fresh template on the card, bit for bit, write and read
+             GB/s printed, the files deleted; (c) the whole model, 40 layers,
+             bf16 weights, remat, f32 moments (3.01 B parameters), weights
+             drawn on the card from a seed, the train cell of
+             repro_torch.launch.steps on one fixed batch of 1 x 4,096 tokens
+             (train_4k's sequence, its global batch of 256 cut to 1), 6 steps:
+             every loss finite and the last below the first; ms a step
+             (median of steps 2-6), tokens/s, peak allocated memory, one
+             traced step (kernels, device-busy ms, idle share) beside the
+             bound (model FLOPs over the bf16 peak plus the optimizer's bytes
+             over the memory rate); (e) the smoke model's supervised run of
+             12 steps (checkpoints every 5) with failures injected at steps 2
+             and 7 against a clean run, under
+             torch.use_deterministic_algorithms(True): 2 restarts, the final
+             params and moments bit-equal. No kernel of the port runs in this
+             phase.
 
 Phases 3-10, 12 and 13 are the main path of the kernels (phase 11 measures
 tuning, and its launches enter no entry; phase 10's launches are printed on
-a line of their own; phase 14 launches none). The launch counters are set to 0 just before
+a line of their own; phases 14 and 15 launch none). The launch counters are set to 0 just before
 each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
 and before each l2dist shape)
 and read just after; every
@@ -464,6 +492,20 @@ LM_BF16_TOL, LM_F32_TOL = 0.125, 1e-3
 #: ~4e-3 and a probability p by ~4e-3·p, so two such moves near the k-th
 #: probabilities (~0.01-0.05) can swap two experts ~4e-4 apart.
 LM_ROUTE_GAP = 1e-3
+#: phase 15: LM training at TRAIN["arch"]'s full width: (a) the CLI at
+#: --smoke for "cli_steps" with a failure at "cli_failure"; (b) "cut_layers"
+#: layers in f32 on a batch of "cut_batch" (rows, tokens), card against CPU,
+#: one AdamW step at "lr"; (d) that state through a checkpoint; (c) the whole
+#: model for "steps" steps on one batch of "batch"; (e) the smoke model for
+#: "recovery_steps" steps, checkpoints every "recovery_interval", failures at
+#: "recovery_fail_at"
+TRAIN = dict(arch="minicpm-2b", seed=0, cli_steps=20, cli_failure=7, cli_timeout_s=300,
+             cut_layers=2, cut_batch=(2, 256), lr=1e-4, batch=(1, 4096), steps=6,
+             recovery_steps=12, recovery_interval=5, recovery_fail_at=(2, 7))
+#: Phase 15's card-against-CPU gate, relative to each leaf's largest value:
+#: f32 sums over d = 2,304, d_ff = 5,760 and 512 tokens taken in other orders
+#: differ by ~sqrt(n)·2^-24 relative (~1e-5 expected)
+TRAIN_TOL = 1e-3
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -3809,25 +3851,12 @@ class Smoke:
         self._lm_profile(label, p, cfg, sv)
         return ok
 
-    def _lm_profile(self, label, p, cfg, sv) -> None:
-        """A traced window of steady DecodeServer steps: device ms by kind
-        (GEMMs, others), kernels a step, and the device's idle share."""
+    @staticmethod
+    def _device_ms(prof, n: int) -> tuple[float, float, int, dict]:
+        """A trace's device time: GEMM ms, other kernels' and copies' ms,
+        kernels launched, and (launches, ms a step) by name over n steps."""
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
 
-        from repro_torch.serving import DecodeServer
-
-        srv = DecodeServer(p, cfg, n_slots=sv["slots"], max_len=sv["max_len"])
-        for rid in range(sv["slots"]):
-            srv.submit(rid, prompt_token=rid + 1, n_tokens=sv["tokens"])
-        for _ in range(2):
-            srv.step()
-        n = LM["profile_steps"]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                srv.step()
-            wall = (time.perf_counter() - t0) * 1e3
         gemm = other = 0.0
         kernels = 0
         by_name: dict[str, list] = {}
@@ -3846,6 +3875,27 @@ class Smoke:
                 gemm += us / 1e3
             else:
                 other += us / 1e3
+        return gemm, other, kernels, by_name
+
+    def _lm_profile(self, label, p, cfg, sv) -> None:
+        """A traced window of steady DecodeServer steps: device ms by kind
+        (GEMMs, others), kernels a step, and the device's idle share."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serving import DecodeServer
+
+        srv = DecodeServer(p, cfg, n_slots=sv["slots"], max_len=sv["max_len"])
+        for rid in range(sv["slots"]):
+            srv.submit(rid, prompt_token=rid + 1, n_tokens=sv["tokens"])
+        for _ in range(2):
+            srv.step()
+        n = LM["profile_steps"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                srv.step()
+            wall = (time.perf_counter() - t0) * 1e3
+        gemm, other, kernels, by_name = self._device_ms(prof, n)
         busy = gemm + other
         log(f"lm (e) {label} traced: {n} steps in {wall:.3f} ms ({wall / n:.3f} ms a step under "
             f"the profiler); device busy {busy / n:.3f} ms a step (GEMM/GEMV {gemm / n:.3f}, "
@@ -3854,6 +3904,301 @@ class Smoke:
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
         log(f"lm (e) {label} traced, device ms a step by kernel (launches in {n} steps): "
             + "; ".join(f"{name} {ms:.3f} ({cnt})" for name, (cnt, ms) in top))
+
+    # --------------------------------------------------- phase 15: train
+    def phase_train(self) -> bool:
+        """LM training at minicpm-2b's full width: the CLI, card against CPU
+        at 2 layers, a checkpoint of that state, the whole model, recovery."""
+        ok = True
+        for step in (self._train_cli, self._train_cut, self._train_full, self._train_recovery):
+            t0 = time.perf_counter()
+            ok &= step()
+            log(f"train: {step.__name__} {time.perf_counter() - t0:.1f} s")
+        return ok
+
+    def _train_cli(self) -> bool:
+        """(a) python -m repro_torch.launch.train --smoke with an injected
+        failure, in a subprocess on the card."""
+        import os
+        import shutil
+
+        import repro_torch
+
+        directory = ROOT / "build" / "train_ckpt"
+        shutil.rmtree(directory, ignore_errors=True)  # the manager resumes what it finds
+        env = dict(os.environ, PYTHONPATH=str(Path(repro_torch.__file__).resolve().parents[1]))
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN["arch"],
+               "--smoke", "--steps", str(TRAIN["cli_steps"]), "--ckpt-dir",
+               str(directory.relative_to(ROOT)), "--inject-failure", str(TRAIN["cli_failure"])]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                                 timeout=TRAIN["cli_timeout_s"])
+        finally:
+            written = sorted(p.name for p in directory.glob("step_*"))
+            shutil.rmtree(directory, ignore_errors=True)
+        out = run.stdout.strip().splitlines()
+        report = next((line for line in out if line.startswith("arch=")), "")
+        traj = next((line for line in out if line.startswith("loss trajectory: [")), "")
+        ok = (run.returncode == 0 and traj != "" and bool(re.fullmatch(
+            rf"arch={TRAIN['arch']} steps={TRAIN['cli_steps']} restarts=1 stragglers=\d+ "
+            r"wall=\S+s", report)) and not directory.exists())
+        log(f"train (a) {' '.join(cmd[1:])}: exit {run.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s: {report!r}, {traj!r}; checkpoints written "
+            f"{written}, directory removed; ok={ok} [{self.card}]")
+        if not ok:
+            log(run.stderr[-4000:])
+        return ok
+
+    def _leaf_err(self, got: dict, want: dict) -> tuple[float, str]:
+        """The largest |got - want| over a leaf's largest |want|, and where."""
+        worst, where = 0.0, ""
+        for name, w in want.items():
+            g = got[name].detach().to(w.device, self.torch.float32)
+            w = w.detach().to(self.torch.float32)
+            err = float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+            if err > worst:
+                worst, where = err, name
+        return worst, where
+
+    def _train_cut(self) -> bool:
+        """(b) the full width cut to TRAIN["cut_layers"] layers in f32: loss,
+        gradients and one AdamW step on the card against the CPU; (d) that
+        state through an async checkpoint and back into a fresh template."""
+        torch = self.torch
+        import copy
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, apply_updates
+
+        full = get_config(TRAIN["arch"]).model
+        cfg = dataclasses.replace(full, n_layers=TRAIN["cut_layers"], dtype=torch.float32)
+        p = self._lm_init(cfg, f" (cut to {cfg.n_layers} of {full.n_layers} layers, f32)")
+        host = copy.deepcopy(p).to("cpu")
+        p.requires_grad_(True)
+        host.requires_grad_(True)
+        b, s = TRAIN["cut_batch"]
+        g = torch.Generator(device=self.dev).manual_seed(TRAIN["seed"] + 4)
+        tok = torch.randint(0, cfg.vocab, (b, s + 1), generator=g, device=self.dev)
+        t0 = time.perf_counter()
+        (loss, _), grads = T.value_and_grad(p, cfg, {"tokens": tok})
+        self.sync()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (hloss, _), hgrads = T.value_and_grad(host, cfg, {"tokens": tok.cpu()})
+        t_cpu = time.perf_counter() - t0
+        loss_err = abs(float(loss) - float(hloss)) / abs(float(hloss))
+        grad_err, grad_at = self._leaf_err(grads, hgrads)
+        opt_cfg = AdamWConfig(lr=TRAIN["lr"], moment_dtype="f32")
+        opt, hopt = adamw_init(p, opt_cfg), adamw_init(host, opt_cfg)
+        u, opt = adamw_update({n: v.to(self.dev) for n, v in hgrads.items()}, opt, p, opt_cfg)
+        hu, hopt = adamw_update(hgrads, hopt, host, opt_cfg)
+        upd_err, upd_at = self._leaf_err(u, hu)
+        apply_updates(p, u)
+        apply_updates(host, hu)
+        par_err, par_at = self._leaf_err(dict(p.named_parameters()), dict(host.named_parameters()))
+        del grads, hgrads, u, hu, host, hopt
+        ok = max(loss_err, grad_err, upd_err, par_err) <= TRAIN_TOL
+        log(f"train (b) {cfg.name} cut to {cfg.n_layers} layers, f32, {b} x {s} tokens, card "
+            f"against the host CPU (TF32 off): loss {float(loss):.6f} / {float(hloss):.6f}, "
+            f"relative {loss_err:.3e}; gradients {grad_err:.3e} of their leaf's largest ({grad_at}); "
+            f"one AdamW step (lr {TRAIN['lr']}) from the CPU's gradients: updates {upd_err:.3e} "
+            f"({upd_at}), params after it {par_err:.3e} ({par_at}) (gate {TRAIN_TOL}); loss and "
+            f"backward {t_card * 1e3:.1f} ms on the card (first call), {t_cpu:.1f} s on the CPU; "
+            f"ok={ok} [{self.card}]")
+        ok &= self._train_checkpoint(cfg, p, opt)
+        del p, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok
+
+    def _train_checkpoint(self, cfg, p, opt) -> bool:
+        """(d) (params, f32 moments) saved async from the card and restored
+        into a fresh template on the card: bit-equal, write and read GB/s."""
+        torch = self.torch
+        import shutil
+
+        from repro_torch.checkpoint import ckpt
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import AdamWConfig, adamw_init
+        from repro_torch.tree import reference_layout, tree_leaves
+
+        directory = ROOT / "build" / "train_ckpt_card"
+        shutil.rmtree(directory, ignore_errors=True)
+        try:
+            self.sync()
+            t0 = time.perf_counter()
+            path = ckpt.save_checkpoint(directory, 1, (p, opt), blocking=False)
+            t_call = time.perf_counter() - t0
+            ckpt.wait_for_pending()
+            t_write = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            fresh = T.init(torch.Generator(device=self.dev).manual_seed(TRAIN["seed"] + 9), cfg,
+                           self.dev)
+            tmpl = (fresh, adamw_init(fresh, AdamWConfig(moment_dtype="f32")))
+            self.sync()
+            t0 = time.perf_counter()
+            got, manifest = ckpt.load_checkpoint(directory, tmpl)
+            self.sync()
+            t_read = time.perf_counter() - t0
+            pairs = list(zip(tree_leaves(reference_layout((p, opt))),
+                             tree_leaves(reference_layout(got))))
+            same = all(torch.equal(x, y) and y.device.type == self.dev.type
+                       for a, b in pairs for x, y in zip(getattr(a, "parts", [a]),
+                                                         getattr(b, "parts", [b])))
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        ok = same and manifest["n_leaves"] == len(pairs) and not directory.exists()
+        log(f"train (d) checkpoint of the {cfg.n_layers}-layer f32 model and its f32 moments: "
+            f"{manifest['n_leaves']} leaves, {nbytes / 1e9:.3f} GB; save call {t_call:.2f} s (the "
+            f"copy to the host), written in {t_write:.2f} s ({nbytes / t_write / 1e9:.2f} GB/s), "
+            f"read into a fresh template on the card in {t_read:.2f} s ({nbytes / t_read / 1e9:.2f} "
+            f"GB/s, warm page cache); bit-equal {same}; files deleted; ok={ok} [{self.card}]")
+        return ok
+
+    def _train_full(self) -> bool:
+        """(c) the whole model, bf16, remat, f32 moments: the train cell of
+        launch.steps on one fixed batch for TRAIN["steps"] steps; ms a
+        step, tokens/s, peak memory, one traced step, the bound."""
+        torch = self.torch
+        import numpy as np
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import demo, steps
+        from repro_torch.optim.adamw import AdamWConfig, adamw_init
+        from repro_torch.roofline.hw import H100_SXM
+
+        arch = get_config(TRAIN["arch"])
+        cfg = arch.model
+        b, s = TRAIN["batch"]
+        full = arch.shape("train_4k")
+        cut = ShapeSpec(f"{full.name} cut to a batch of {b}", "train",
+                        {"seq_len": s, "global_batch": b})
+        if s != full["seq_len"]:
+            raise ValueError(f"the sequence of {full.name} is {full['seq_len']}, not {s}")
+        cell = steps.build_lm_cell(arch, cut)
+        torch.cuda.reset_peak_memory_stats()
+        p = self._lm_init(cfg).requires_grad_(True)
+        opt = adamw_init(p, AdamWConfig(moment_dtype=arch.train_moment_dtype))
+        batch = demo.lm_batch(np.random.default_rng(TRAIN["seed"]), cfg.vocab, cell.inputs[2],
+                              self.dev)
+        losses, times = [], []
+        for _ in range(TRAIN["steps"]):
+            self.sync()
+            t0 = time.perf_counter()
+            p, opt, metrics = cell.fn(p, opt, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        ms = statistics.median(times[1:])
+        # device activity only: a step launches ~180,000 kernels, and the
+        # host-side op events would cost the trace more than the step
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            self.sync()
+            t0 = time.perf_counter()
+            p, opt, metrics = cell.fn(p, opt, batch)
+            losses.append(float(metrics["loss"]))
+            wall = (time.perf_counter() - t0) * 1e3
+        gemm, other, kernels, by_name = self._device_ms(prof, 1)
+        busy = gemm + other
+        # the bound: the model's FLOPs (launch.steps' meta: 6 x params x
+        # tokens) at the bf16 peak, then the optimizer's bytes (each param,
+        # gradient and moment read once, each param and moment written once)
+        # at the memory rate
+        n = sum(t.numel() for t in p.parameters())
+        opt_bytes = sum(t.numel() * (3 * t.element_size() + 4 * (4 if arch.train_moment_dtype
+                                                                   == "f32" else 2))
+                        for t in p.parameters())
+        t_flops = cell.meta["model_flops"] / H100_SXM.peak_flops_bf16 * 1e3
+        t_bytes = opt_bytes / self.bw * 1e3
+        bound = t_flops + t_bytes
+        finite = all(math.isfinite(x) for x in losses)
+        ok = finite and losses[TRAIN["steps"] - 1] < losses[0]
+        log(f"train (c) {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, remat {cfg.remat}, "
+            f"{arch.train_moment_dtype} moments, {n:,} parameters, one batch of {b} x {s} tokens "
+            f"(train_4k's sequence; its global batch of {full['global_batch']} cut to {b}): losses "
+            f"{[round(x, 4) for x in losses[:TRAIN['steps']]]} (finite {finite}, last below first "
+            f"{losses[TRAIN['steps'] - 1] < losses[0]}); step ms {[round(t, 1) for t in times]}, "
+            f"{ms:.1f} ms a step (median of steps 2-{TRAIN['steps']}), {b * s / ms * 1e3:.1f} "
+            f"tokens/s; peak allocated {peak / 1e9:.2f} GB; bound {bound:.1f} ms = model FLOPs "
+            f"{cell.meta['model_flops']:.3e} / {H100_SXM.peak_flops_bf16 / 1e12:.0f} TFLOP/s "
+            f"{t_flops:.1f} ms + optimizer {opt_bytes / 1e9:.2f} GB / {self.bw / 1e12:.2f} TB/s "
+            f"{t_bytes:.1f} ms ({bound / ms:.3f} of the step); ok={ok} [{self.card}]")
+        log(f"train (c) traced step: {wall:.1f} ms under the profiler, {kernels} kernels, device "
+            f"busy {busy:.1f} ms (GEMM {gemm:.1f}, other kernels and copies {other:.1f}), device "
+            f"idle share {1 - busy / wall:.3f} (against the untraced median step: "
+            f"{1 - busy / ms:.3f}) [{self.card}]")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+        log("train (c) traced step, device ms by kernel (launches): "
+            + "; ".join(f"{name} {ms_:.1f} ({cnt})" for name, (cnt, ms_) in top))
+        del p, opt, batch, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ok
+
+    def _train_recovery(self) -> bool:
+        """(e) the smoke model's supervised run with failures injected, under
+        deterministic algorithms, against a clean run: bit-equal."""
+        torch = self.torch
+        import os
+        import shutil
+
+        from repro_torch.checkpoint import CheckpointManager
+        from repro_torch.configs import get_config
+        from repro_torch.launch import demo, train
+        from repro_torch.runtime.fault import FailureInjector, supervised_train
+        from repro_torch.tree import reference_layout, tree_leaves
+
+        arch = get_config(TRAIN["arch"])
+        shape = arch.shape("train_4k")
+        saved = (torch.are_deterministic_algorithms_enabled(),
+                 os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        dirs = [ROOT / "build" / f"train_recovery_{i}" for i in range(2)]
+        runs = []
+        try:
+            # cuBLAS is deterministic only with a fixed workspace
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            torch.use_deterministic_algorithms(True)
+            for directory, fail_at in zip(dirs, ((), TRAIN["recovery_fail_at"])):
+                shutil.rmtree(directory, ignore_errors=True)
+                cell, (p, opt, _) = demo.materialize(arch, shape, smoke=True,
+                                                     seed=TRAIN["seed"], device=self.dev)
+
+                def step_fn(state, batch, cell=cell):
+                    params, o, metrics = cell.fn(*state, batch)
+                    return (params, o), metrics
+
+                state, rep = supervised_train(
+                    step_fn, (p, opt), train.build_batches(arch, cell, True, self.dev),
+                    TRAIN["recovery_steps"],
+                    CheckpointManager(directory, interval=TRAIN["recovery_interval"], keep=2),
+                    injector=FailureInjector(fail_at) if fail_at else None)
+                runs.append((state, rep))
+        finally:
+            torch.use_deterministic_algorithms(saved[0])
+            if saved[1] is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[1]
+            for directory in dirs:
+                shutil.rmtree(directory, ignore_errors=True)
+        (clean, rep0), (crashy, rep1) = runs
+        pairs = list(zip(tree_leaves(reference_layout(clean)), tree_leaves(reference_layout(crashy))))
+        same = all(torch.equal(x, y) for a, b in pairs
+                   for x, y in zip(getattr(a, "parts", [a]), getattr(b, "parts", [b])))
+        ok = (rep0.restarts == 0 and rep1.restarts == len(TRAIN["recovery_fail_at"]) and same
+              and rep1.steps_done == TRAIN["recovery_steps"])
+        log(f"train (e) {arch.smoke_model.name}, {TRAIN['recovery_steps']} supervised steps, "
+            f"checkpoints every {TRAIN['recovery_interval']}, deterministic algorithms: clean run "
+            f"restarts {rep0.restarts}, losses {[round(x, 4) for x in rep0.losses]}; failures at "
+            f"{TRAIN['recovery_fail_at']}: restarts {rep1.restarts}, {len(rep1.losses)} steps run; "
+            f"final params and moments bit-equal ({len(pairs)} leaves) {same}; ok={ok} "
+            f"[{self.card}]")
+        return ok
 
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
@@ -4352,7 +4697,7 @@ class Listen:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "listen", "tune", "kernels", "mesh", "lm")
+          "listen", "tune", "kernels", "mesh", "lm", "train")
 
 
 def main(argv=None) -> int:

@@ -1,23 +1,33 @@
-"""Carry search state and LM parameters from the JAX package into the port.
+"""Carry search state, LM parameters and training state between the JAX
+package and the port.
 
 Every function takes plain arrays (anything ``np.asarray`` reads, so a JAX
 device array works) and never imports JAX or ``repro``: the JAX engine is
 duck-typed. The parity tests use them so that both packages search the
 identical padded state — the same vectors, the same +inf norms, the same
 pre-normalised cos rows, the same int8 codes and side channels — and run
-an LM on the same weights, bf16 bits carried unchanged.
+and train an LM on the same weights and optimizer state, bf16 bits carried
+unchanged.
+
+Training state goes both ways in the reference's layout
+(``repro_torch.tree.reference_layout``: the param tree with layer weights
+stacked on a leading L axis, ``AdamWState`` as (step, m, v), an int8 moment
+as (q, scale)), the same leaves a checkpoint of either package holds.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core.engine import ExactKNN, resolve_device
 from repro_torch.core.partition import PaddedDataset
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.store import DatasetStore
+from repro_torch.tree import reference_layout, tree_leaves, tree_map
 
 _BACKENDS = {"xla": "torch", "pallas": "cuda"}
 
@@ -138,3 +148,48 @@ def lm_params_from_numpy(params, cfg: T.LMConfig, device=None) -> T.Transformer:
     return T.Transformer(cfg, _tensor(p["embed"], device), [block(i) for i in range(cfg.n_layers)],
                          L.RMSNorm(_tensor(p["final_norm"]["scale"], device)),
                          _tensor(p["head"], device))
+
+
+def state_to_numpy(tree, bf16=None):
+    """A port tree (a ``Transformer``, an ``AdamWState`` of its moments,
+    gradients by parameter name, tuples of these) as the reference's numpy
+    tree: the same nesting, stacked layer leaves, the port's NamedTuples
+    (``AdamWState``, ``_Q8``) holding numpy arrays. bf16 leaves are their
+    bits as ``uint16``, or viewed as ``bf16`` when given a numpy bfloat16
+    dtype (the reference's ``jnp.bfloat16``; the port does not import
+    ``ml_dtypes``)."""
+    def leaf(x):
+        a = ckpt.host_array(x)
+        if bf16 is not None and ckpt.dtype_name(x) == "bfloat16":
+            a = a.view(bf16)
+        return a
+
+    return tree_map(leaf, reference_layout(tree))
+
+
+def state_from_numpy(tree, template):
+    """Write a reference numpy tree (``repro``'s params, ``AdamWState``,
+    anything in the reference's layout) into the port ``template`` of the
+    same layout, in place, each leaf cast to the template's dtype; returns
+    ``template``. Leaf count and shapes are checked first."""
+    src = [np.asarray(a) for a in tree_leaves(tree)]
+    return ckpt.restore(template, [
+        (a.shape, a.dtype.name,  # "bfloat16" for an ml_dtypes array: its bits
+         lambda a=a: a.view(np.uint16) if a.dtype.name == "bfloat16" else a) for a in src])
+
+
+def adamw_state_from_numpy(state, params):
+    """The port's ``AdamWState`` for ``params`` (a ``Transformer`` or a tree
+    of tensors, whose device it takes) over a reference ``AdamWState``: its
+    step and its f32, bf16 or int8 (``_Q8``) moments, bits unchanged."""
+    first = state.m
+    while isinstance(first, dict):
+        first = first[sorted(first)[0]]
+    if isinstance(first, tuple) and getattr(first, "_fields", None) == ("q", "scale"):
+        moments = "int8"
+    elif np.asarray(first).dtype.name == "bfloat16":
+        moments = "bf16"
+    else:
+        moments = "f32"
+    return state_from_numpy(state, adamw_init(params, AdamWConfig(moment_dtype=moments)))
+

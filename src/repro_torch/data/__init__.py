@@ -1,4 +1,5 @@
-"""repro_torch.data — seeded synthetic datasets and query streams."""
-from repro_torch.data.synthetic import query_stream, vector_dataset
+"""repro_torch.data — seeded synthetic data and the double-buffered input pipeline."""
+from repro_torch.data.pipeline import DataPipeline
+from repro_torch.data.synthetic import query_stream, token_stream, vector_dataset
 
-__all__ = ["vector_dataset", "query_stream"]
+__all__ = ["token_stream", "vector_dataset", "query_stream", "DataPipeline"]

@@ -1,12 +1,28 @@
-"""Seeded synthetic vector data (numpy), for the tests and the card check.
+"""Seeded synthetic data (numpy), for training, the tests and the card check.
 
 Real corpora are unavailable offline; these generators reproduce the
-structure a kNN engine cares about — shapes, dtypes, cluster structure
-with many near-ties — deterministically from a seed.
+structure the system cares about — shapes, dtypes, id distributions,
+cluster structure with many near-ties — deterministically from a seed,
+with the reference's draws (``repro.data.synthetic``).
 """
 from __future__ import annotations
 
+from typing import Iterator
+
 import numpy as np
+
+
+def token_stream(
+    vocab: int, batch: int, seq_len: int, seed: int = 0,
+    zipf_a: float = 1.2,
+) -> Iterator[dict]:
+    """Endless LM batches with a Zipfian token distribution (real-text-like
+    marginals, so embedding-gather traffic patterns are realistic)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        z = rng.zipf(zipf_a, size=(batch, seq_len + 1))
+        tokens = np.minimum(z - 1, vocab - 1).astype(np.int32)
+        yield {"tokens": tokens}
 
 
 def vector_dataset(

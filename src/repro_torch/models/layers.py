@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class ParamModule(nn.Module):
@@ -35,15 +36,25 @@ class ParamModule(nn.Module):
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     # serving holds the weights fixed: no autograd graph unless a caller
-    # asks for one with requires_grad_()
+    # asks for one with requires_grad_(), as training does
     return nn.Parameter(t, requires_grad=False)
 
 
-def dense_init(generator: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
-    """N(0, 1) / sqrt(fan_in) in f32, drawn on the generator's device, then cast."""
+def draw_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where ``generator``'s draws are made: on its own device, or on the
+    meta device when ``device`` is meta (shapes only, nothing drawn)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return generator.device
+
+
+def dense_init(generator: torch.Generator, shape, dtype, scale=None, device=None) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in) in f32, drawn on the generator's device (see
+    :func:`draw_device`), then cast."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    w = torch.randn(shape, generator=generator, device=draw_device(generator, device),
+                    dtype=torch.float32)
     return (w * scale).to(dtype)
 
 
@@ -95,13 +106,14 @@ class Attention(ParamModule):
         return attention(self, x, positions, **kw)
 
 
-def init_attention(generator, d_model, n_heads, n_kv_heads, d_head, qkv_bias, dtype):
-    w = [dense_init(generator, s, dtype) for s in (
+def init_attention(generator, d_model, n_heads, n_kv_heads, d_head, qkv_bias, dtype,
+                   device=None):
+    w = [dense_init(generator, s, dtype, device=device) for s in (
         (d_model, n_heads * d_head), (d_model, n_kv_heads * d_head),
         (d_model, n_kv_heads * d_head), (n_heads * d_head, d_model))]
     biases = {}
     if qkv_bias:
-        dev = generator.device
+        dev = draw_device(generator, device)
         biases = {"bq": torch.zeros(n_heads * d_head, dtype=dtype, device=dev),
                   "bk": torch.zeros(n_kv_heads * d_head, dtype=dtype, device=dev),
                   "bv": torch.zeros(n_kv_heads * d_head, dtype=dtype, device=dev)}
@@ -145,7 +157,8 @@ def _sdpa_full(q, k, v, causal: bool):
 
 def _flash_blockwise(q, k, v, causal: bool, q_block: int, kv_block: int):
     """Memory-efficient (flash-style) attention: a loop over KV blocks with
-    running (max, sumexp, acc); no (S, S) intermediate materialises.
+    running (max, sumexp, acc); no (S, S) intermediate materialises, in the
+    backward neither.
 
     Shapes: q (B, Sq, H, dh); k/v (B, Skv, KVH, dh). GQA handled by
     repeating each KV block's heads per q block.
@@ -185,6 +198,9 @@ def _flash_blockwise(q, k, v, causal: bool, q_block: int, kv_block: int):
             "bhqk,bkhd->bhqd", p.to(q.dtype), v_rep).to(torch.float32)
         return m_new, l_new, acc_new
 
+    # the backward recomputes each KV step (the reference's jax.checkpoint
+    # of kv_step): its working set stays one (q_block, kv_block) tile
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
     for qi in range(nq):
         q_tile = qb[:, qi]  # (b, q_block, h, dh)
@@ -195,7 +211,10 @@ def _flash_blockwise(q, k, v, causal: bool, q_block: int, kv_block: int):
         # diagonal contribute nothing
         last_kj = nk if not causal else min(nk, ((qi + 1) * q_block + kv_block - 1) // kv_block)
         for kj in range(last_kj):
-            carry = kv_step(carry, qi, q_tile, kj)
+            if remat:
+                carry = checkpoint(kv_step, carry, qi, q_tile, kj, use_reentrant=False)
+            else:
+                carry = kv_step(carry, qi, q_tile, kj)
         _, l, acc = carry
         l = torch.clamp_min(l, 1e-30)
         out = acc / l[..., None]
@@ -261,10 +280,9 @@ class MLP(ParamModule):
         return mlp(self, x)
 
 
-def init_mlp(generator, d_model, d_ff, dtype):
-    return MLP(dense_init(generator, (d_model, d_ff), dtype),
-               dense_init(generator, (d_model, d_ff), dtype),
-               dense_init(generator, (d_ff, d_model), dtype))
+def init_mlp(generator, d_model, d_ff, dtype, device=None):
+    return MLP(*(dense_init(generator, s, dtype, device=device)
+                 for s in ((d_model, d_ff), (d_model, d_ff), (d_ff, d_model))))
 
 
 def mlp(params, x):
@@ -285,11 +303,11 @@ class MoE(ParamModule):
         return moe(self, x, **kw)
 
 
-def init_moe(generator, d_model, n_experts, d_expert, dtype):
-    return MoE(dense_init(generator, (d_model, n_experts), torch.float32),
-               dense_init(generator, (n_experts, d_model, d_expert), dtype),
-               dense_init(generator, (n_experts, d_model, d_expert), dtype),
-               dense_init(generator, (n_experts, d_expert, d_model), dtype))
+def init_moe(generator, d_model, n_experts, d_expert, dtype, device=None):
+    return MoE(dense_init(generator, (d_model, n_experts), torch.float32, device=device),
+               *(dense_init(generator, s, dtype, device=device) for s in (
+                   (n_experts, d_model, d_expert), (n_experts, d_model, d_expert),
+                   (n_experts, d_expert, d_model))))
 
 
 def moe(params, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25):

@@ -1,4 +1,4 @@
-"""Transformer LM (dense + MoE, GQA + RoPE): the decode-serving path.
+"""Transformer LM (dense + MoE, GQA + RoPE): training and decode serving.
 
 Covers the five LM architectures of ``repro_torch.configs`` through one
 config-driven implementation. The parameters are a ``Transformer`` module
@@ -10,10 +10,20 @@ reference's scan over stacked layers is a Python loop over its
 Entry points:
     init(generator, cfg, device=None) -> Transformer (the parameters)
     apply(params, cfg, tokens)        -> (logits (B, S, V) f32, moe aux loss)
-    loss_fn(params, cfg, batch)       -> (loss, aux)  (forward only)
+    loss_fn(params, cfg, batch)       -> (loss, aux)
+    value_and_grad(params, cfg, batch) -> ((loss, aux), grads by parameter name)
     prefill(params, cfg, tokens, max_len=None) -> (last-token logits, cache)
     init_cache(cfg, batch, max_len, dtype=None, device=None) -> cache
     decode_step(params, cfg, cache, tokens) -> (logits (B, V), cache)
+
+Training: the weights are ``requires_grad=False`` as ``init`` makes them
+(serving builds no graph); ``params.requires_grad_()`` makes them
+trainable, and ``loss_fn``'s backward is autograd's. With ``cfg.remat``
+and grad enabled each layer of ``apply`` runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its scan
+body): the backward keeps one activation a layer and recomputes the rest.
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``, so a model
+being trained is served without a graph.
 
 The cache is ``{"k", "v": (L, B, S_max, KVH, dh), "len": int}`` with a
 global length kept on the host. ``decode_step`` writes the new position
@@ -33,6 +43,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
@@ -55,7 +66,7 @@ class LMConfig:
     rope_theta: float = 1e4
     norm_eps: float = 1e-6
     capacity_factor: float = 1.25
-    remat: bool = True  # read by training (not ported yet)
+    remat: bool = True  # checkpoint each layer in the backward (apply)
     scan_unroll: bool = False  # the reference's dry-run knob; the port loops
     dtype: Any = torch.bfloat16
     flash_threshold: int = 2048
@@ -118,6 +129,12 @@ class Transformer(ParamModule):
     def forward(self, tokens):
         return apply(self, self.cfg, tokens)
 
+    def reference_ndim(self, name: str) -> int:
+        """The rank of parameter ``name``'s leaf in the reference's param
+        tree, whose layer weights carry a leading L axis (an ``ln1`` scale
+        is (d,) here and (L, d) there): AdamW decays by it."""
+        return self.get_parameter(name).ndim + name.startswith("layers.")
+
 
 def _exact_matmuls(device: torch.device) -> None:
     if device.type == "cuda":
@@ -128,22 +145,25 @@ def _exact_matmuls(device: torch.device) -> None:
 # ------------------------------------------------------------------- init
 def init(generator: torch.Generator, cfg: LMConfig, device=None) -> Transformer:
     """Random parameters drawn from ``generator`` on its own device, then
-    placed on ``device`` (``None`` means CUDA and raises without a card)."""
+    placed on ``device`` (``None`` means CUDA and raises without a card).
+    On ``device="meta"`` nothing is drawn: the parameters' shapes and dtypes
+    only (``launch.steps``' cells)."""
     device = resolve_device(device)
     g = generator
-    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=g.device)  # noqa: E731
+    dev = L.draw_device(g, device)
+    ones = lambda: torch.ones(cfg.d_model, dtype=torch.float32, device=dev)  # noqa: E731
     vp = cfg.vocab_padded
-    embed = (torch.randn((vp, cfg.d_model), generator=g, device=g.device) * 0.02).to(cfg.dtype)
+    embed = (torch.randn((vp, cfg.d_model), generator=g, device=dev) * 0.02).to(cfg.dtype)
     layers = []
     for _ in range(cfg.n_layers):
         attn = L.init_attention(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                                cfg.qkv_bias, cfg.dtype)
+                                cfg.qkv_bias, cfg.dtype, device)
         if cfg.is_moe:
-            ffn = {"moe": L.init_moe(g, cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.dtype)}
+            ffn = {"moe": L.init_moe(g, cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.dtype, device)}
         else:
-            ffn = {"mlp": L.init_mlp(g, cfg.d_model, cfg.d_ff, cfg.dtype)}
+            ffn = {"mlp": L.init_mlp(g, cfg.d_model, cfg.d_ff, cfg.dtype, device)}
         layers.append(Block(L.RMSNorm(ones()), L.RMSNorm(ones()), attn, **ffn))
-    head = (torch.randn((cfg.d_model, vp), generator=g, device=g.device)
+    head = (torch.randn((cfg.d_model, vp), generator=g, device=dev)
             / math.sqrt(cfg.d_model)).to(cfg.dtype)
     return Transformer(cfg, embed, layers, L.RMSNorm(ones()), head).to(device)
 
@@ -167,6 +187,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _layer_forward(cfg: LMConfig, lp, x, positions):
+    """One layer: (x out, its MoE aux loss or None)."""
+    x = x + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
+                        **_attn_kw(cfg))
+    m, a = _ffn(cfg, lp, L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.capacity_factor)
+    return x + m, a
+
+
 def apply(params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, V_padded) f32, moe aux loss)."""
     _exact_matmuls(tokens.device)
@@ -174,11 +202,12 @@ def apply(params, cfg: LMConfig, tokens: torch.Tensor):
     x = params["embed"][tokens]
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
-        x = x + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps), positions,
-                            **_attn_kw(cfg))
-        m, a = _ffn(cfg, lp, L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg.capacity_factor)
-        x = x + m
+        if remat:
+            x, a = checkpoint(_layer_forward, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x, a = _layer_forward(cfg, lp, x, positions)
         if a is not None:
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -195,7 +224,7 @@ def _mask_pad_vocab(logits: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 def loss_fn(params, cfg: LMConfig, batch):
     """Causal LM loss; batch = {"tokens": (B, S+1)} or {"tokens", "labels"}.
-    Forward only here: the backward comes with the port's training path."""
+    Differentiable through autograd once the weights require grad."""
     if "labels" in batch:
         tokens, labels = batch["tokens"], batch["labels"]
     else:
@@ -208,6 +237,18 @@ def loss_fn(params, cfg: LMConfig, batch):
     return total, {"nll": nll, "moe_aux": aux}
 
 
+def value_and_grad(params: Transformer, cfg: LMConfig, batch):
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: ((loss, aux), grads),
+    the grads a dict by parameter name (``named_parameters``' order), each
+    in its parameter's dtype. The weights must require grad; nothing is
+    accumulated into ``.grad``."""
+    names, weights = zip(*params.named_parameters())
+    loss, aux = loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, weights, materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()}), dict(zip(names, grads))
+
+
+@torch.no_grad()
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int | None = None):
     """Serving prefill: (B, S) tokens -> (last-token logits (B, V), cache).
 
@@ -245,6 +286,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
             "len": 0}
 
 
+@torch.no_grad()
 def decode_step(params, cfg: LMConfig, cache, tokens: torch.Tensor):
     """One decode step: tokens (B, 1) -> logits (B, V); the cache advances by
     one, its tensors written in place."""

@@ -4,8 +4,9 @@
 request and result fields and defaults, and the deprecated shims, which
 must warn and keep working. The port's ``api`` must match it name for
 name, ``core.__all__`` must be the reference's, the seven mesh names
-included, ``serving`` exports the reference's names (``DecodeServer``
-too) and ``data`` the reference's less those of the data pipeline.
+included, ``serving``, ``optim`` and ``checkpoint`` export the reference's
+names (``DecodeServer`` too) and ``data`` the reference's less
+``click_log_stream``, which comes with the recommender models.
 """
 from __future__ import annotations
 
@@ -17,12 +18,16 @@ import pytest
 import torch
 
 import repro.api as japi
+import repro.checkpoint as jcheckpoint
 import repro.core as jcore
 import repro.data as jdata
+import repro.optim as joptim
 import repro.serving as jserving
 import repro_torch.api as api
+import repro_torch.checkpoint as checkpoint
 import repro_torch.core as core
 import repro_torch.data as data
+import repro_torch.optim as optim
 import repro_torch.serving as serving
 from repro.configs import get_config as jget_config
 from repro_torch.api import SearchRequest, SearchResult
@@ -64,7 +69,9 @@ def test_core_all_is_the_reference_less_the_mesh():
 
 @pytest.mark.parametrize("port,ref,left_out", [
     (serving, jserving, set()),
-    (data, jdata, {"token_stream", "click_log_stream", "DataPipeline"}),
+    (data, jdata, {"click_log_stream"}),
+    (optim, joptim, set()),
+    (checkpoint, jcheckpoint, set()),
 ])
 def test_serving_and_data_all(port, ref, left_out):
     assert list(port.__all__) == [n for n in ref.__all__ if n not in left_out]

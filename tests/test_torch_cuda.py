@@ -1063,3 +1063,63 @@ def test_decode_server_on_the_card_repeats_its_tokens(dev):
     assert runs[0] == runs[1]
     assert sorted(runs[0]) == list(range(10))
     assert all(len(t) == 7 and all(0 <= x < cfg.vocab for x in t) for t in runs[0].values())
+
+
+def test_lm_train_step_on_the_card_equals_the_cpu(dev, tmp_path):
+    """The smoke train cell (minicpm, f32, TF32 off) from the same weights
+    and batch on the card and on the CPU: the loss within 1e-5, every
+    gradient within 1e-4 of its leaf's largest value, and the parameters
+    after the step (lr 1e-4) within 1e-6."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import demo
+    from repro_torch.models import transformer as T
+
+    arch = get_config("minicpm-2b")
+    cell, (p, opt, batch) = demo.materialize(arch, arch.shape("train_4k"), device=dev)
+    cpu = lambda t: t.to("cpu", copy=True)  # noqa: E731
+    host = (copy.deepcopy(p).to("cpu"),
+            type(opt)(cpu(opt.step), {k: cpu(v) for k, v in opt.m.items()},
+                      {k: cpu(v) for k, v in opt.v.items()}),
+            {k: cpu(v) for k, v in batch.items()})
+    cfg = arch.smoke_model
+    (loss, _), grads = T.value_and_grad(p, cfg, batch)
+    (hloss, _), hgrads = T.value_and_grad(host[0], cfg, host[2])
+    assert abs(float(loss) - float(hloss)) <= 1e-5
+    for n, g in grads.items():
+        want = hgrads[n]
+        torch.testing.assert_close(g.cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    p, _, m = cell.fn(p, opt, batch)
+    hp, _, hm = cell.fn(*host)
+    assert abs(float(m["loss"]) - float(hm["loss"])) <= 1e-5
+    for (n, a), b in zip(p.named_parameters(), hp.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=1e-6)
+
+
+def test_checkpoint_round_trip_from_the_card(dev, tmp_path):
+    """A train state on the card (bf16 weights, int8 moments) saved async and
+    restored into a fresh template on the card, bit for bit."""
+    import dataclasses
+
+    from repro_torch.checkpoint import ckpt, load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import reference_layout, tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b").smoke_model, dtype=torch.bfloat16)
+    p = T.init(torch.Generator(device=dev).manual_seed(4), cfg, dev)
+    opt = adamw_init(p, AdamWConfig(moment_dtype="int8"))
+    for v in opt.m.values():
+        v.q.random_(-127, 128)
+        v.scale.uniform_()
+    save_checkpoint(tmp_path, 5, (p, opt), blocking=False)
+    ckpt.wait_for_pending()
+    fresh = T.init(torch.Generator(device=dev).manual_seed(5), cfg, dev)
+    tmpl = (fresh, adamw_init(fresh, AdamWConfig(moment_dtype="int8")))
+    got, mani = load_checkpoint(tmp_path, tmpl)
+    assert mani["step"] == 5
+    for a, b in zip(tree_leaves(reference_layout((p, opt))), tree_leaves(reference_layout(got))):
+        for x, y in zip(getattr(a, "parts", [a]), getattr(b, "parts", [b])):
+            assert y.device.type == dev.type and torch.equal(x, y)

@@ -1,8 +1,9 @@
 """The port stands apart from the JAX package and runs where it is asked to.
 
 * No module of ``repro_torch``, no ``examples/torch_*.py`` and not
-  ``chip_smoke.py`` imports JAX or the JAX package ``repro`` (only the
-  parity tests import both).
+  ``chip_smoke.py`` imports JAX, the JAX package ``repro`` or
+  ``ml_dtypes`` (only the parity tests import both packages; the card's
+  machine has no ``ml_dtypes``).
 * Entry points run on a CUDA device unless the caller passes
   ``device="cpu"``; on a host without one they raise instead of quietly
   running on the CPU. That holds for the streamed path too: the double
@@ -32,7 +33,7 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,7 +58,7 @@ def test_every_port_module_imports_without_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         f"import importlib\nfor m in {mods!r}: importlib.import_module(m)\n"
