@@ -310,12 +310,55 @@ Phases, in order (any failure makes the run exit non-zero):
              torch.use_deterministic_algorithms(True): 2 restarts, the final
              params and moments bit-equal. No kernel of the port runs in this
              phase.
+16. recsys — the recommenders (repro_torch.models.recsys) of dlrm-rm2,
+             two-tower-retrieval, bst and wide-deep, weights drawn on the
+             card from a seed, batches from launch.demo's draws (the
+             reference's). (a) each at full width with every table cut to
+             65,536 rows, a batch of 256: serve_scores, the loss and every
+             gradient on the card against the host's CPU within MODEL_TOL of
+             each leaf's largest value (TF32 off); (b) serve_p99 (batch 512)
+             at full size, two-tower's 34.4 GB table included: ms a call
+             (median of 20) beside the bytes bound of the rows gathered plus
+             the dense weights; (c) retrieval_cand (1 x 1,000,000 x 256, k =
+             100) through two-tower's retrieve_topk and dlrm-rm2's generic
+             retrieval (d = 64) on the fused kernel (one knn_scan + one
+             knn_merge, metric ip), each against the plain chunk_step on the
+             card (scores within RETRIEVAL_TOL, indices equal where the plain
+             scores around them are more than it apart), then knn_scan and
+             knn_merge at the shape against their plain versions, beside
+             torch.topk(u @ cand.T) and their bounds; (d) train_batch
+             (65,536) at full size for dlrm-rm2, bst and wide-deep, f32
+             moments, 4 steps on launch.train's per-step batches: finite
+             losses, ms a step, examples/s, peak memory, one traced step,
+             the bound (model FLOPs over the f32 peak plus 28 B a parameter
+             over the memory rate), then one step with every leaf updated
+             whole (no row chunks) and its peak; (e)
+             examples/torch_dense_retrieval.py (recall@10 >= 0.95) and
+             examples/torch_image_retrieval_streaming.py ("streamed result ==
+             resident result") as subprocesses, exit 0.
+17. gnn    — MeshGraphNet (repro_torch.models.gnn, .sampler) at full width
+             and depth (15 layers, d_hidden 128, remat, f32 moments). (a) the
+             smoke model on its smoke batch and the full width cut to 2 layers
+             on full_graph_sm at full size (2,708 nodes x 1,433, 131,072
+             edges): loss and every gradient on the card against the host's
+             CPU within MODEL_TOL; (b) 4 train steps on full_graph_sm (its
+             10,556 edges valid, the padding to 131,072 masked; the loss of
+             materialize's batch, every padded edge valid, printed first),
+             molecule (128 graphs of 30 nodes and 64 edges) and minibatch_lg
+             (the sampler over a synthetic graph of 232,965 nodes and
+             114,615,892 edges with 602 features: 1,024 seeds, fanouts 15 and
+             10, padded to 169,984 nodes and 168,960 edges): finite losses,
+             ms a step, edges/s, peak memory, one traced step, the host's
+             sampling ms a subgraph, the bound (model FLOPs over the f32
+             peak); (c) examples/torch_gnn_world_edges.py as a subprocess:
+             exit 0, its edge counts and finite=True.
 
-Phases 3-10, 12 and 13 are the main path of the kernels (phase 11 measures
-tuning, and its launches enter no entry; phase 10's launches are printed on
-a line of their own; phases 14 and 15 launch none). The launch counters are set to 0 just before
+Phases 3-10, 12, 13 and 16 (c) are the main path of the kernels (phase 11
+measures tuning, and its launches enter no entry; phase 10's launches are
+printed on a line of their own; phases 14, 15 and 17 launch none, and phase
+16 outside (c) none but its examples' own). The launch counters are set to 0 just before
 each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
-and before each l2dist shape)
+and before each l2dist shape; phase 16: before each retrieval call)
 and read just after; every
 kernel of the path must have launched, knn_merge exactly once (phases 6
 and 7: once a shard, beside knn_scan or knn_int8_scan once a shard; phase
@@ -506,6 +549,34 @@ TRAIN = dict(arch="minicpm-2b", seed=0, cli_steps=20, cli_failure=7, cli_timeout
 #: f32 sums over d = 2,304, d_ff = 5,760 and 512 tokens taken in other orders
 #: differ by ~sqrt(n)·2^-24 relative (~1e-5 expected)
 TRAIN_TOL = 1e-3
+#: phase 16: the recommenders of RECSYS["archs"] (read from repro_torch.configs),
+#: weights drawn on the card from "seed", batches from launch.demo's draws:
+#: (a) each at full width with every table cut to "cut_rows" rows, a batch
+#: of "cut_batch", card against CPU; (b) serve_p99 at full size, "serve_calls"
+#: calls timed; (c) retrieval_cand of "retrieval" on the kernel; (d)
+#: train_batch at full size for "train_archs", "train_steps" steps; (e) the
+#: "examples" as subprocesses
+RECSYS = dict(seed=0, archs=("dlrm-rm2", "two-tower-retrieval", "bst", "wide-deep"),
+              cut_rows=1 << 16, cut_batch=256, serve_calls=20,
+              retrieval=("two-tower-retrieval", "dlrm-rm2"),
+              train_archs=("dlrm-rm2", "bst", "wide-deep"), train_steps=4,
+              examples=("torch_dense_retrieval", "torch_image_retrieval_streaming"),
+              example_timeout_s=300)
+#: phase 17: MeshGraphNet at full width and depth (GNN["arch"]): (a) its
+#: smoke model and the full width cut to "cut_layers" layers on "cut_shape",
+#: card against CPU; (b) "steps" train steps on each of "shapes"
+#: (minibatch_lg through the sampler over a synthetic graph of the shape's
+#: nodes and edges); (c) the "example" as a subprocess
+GNN = dict(arch="meshgraphnet", seed=0, cut_layers=2, cut_shape="full_graph_sm",
+           shapes=("full_graph_sm", "molecule", "minibatch_lg"), steps=4,
+           example="torch_gnn_world_edges", example_timeout_s=300)
+#: Phases 16 and 17's card-against-CPU gate, relative to each leaf's largest
+#: value: f32 sums in other orders (the card's scatters use atomics)
+MODEL_TOL = 1e-4
+#: Phase 16 (c)'s retrieval gate: scores within it, indices equal wherever
+#: the plain scores around them are more than it apart (|u| = 1 against
+#: N(0, 1) rows of d = 256: scores of O(5), f32 sums of 256 products)
+RETRIEVAL_TOL = 1e-5
 #: f32 operations per (query, row) pair in the l2 epilogue: double, subtract,
 #: add, clamp; in the int8 epilogue: scale, double, subtract, add, clamp,
 #: sqrt, subtract, clamp, square
@@ -991,9 +1062,10 @@ class Smoke:
                 torch.cuda.empty_cache()
         return None, None
 
-    def _close(self, v, i, pv, pi, tol):
+    def _close(self, v, i, pv, pi, tol, gap=None):
         """Scores within tol; indices equal where the plain neighbours' gaps
-        exceed 2·tol. Returns (ok, max |d| over finite scores, indices checked)."""
+        exceed ``gap`` (2·tol by default). Returns (ok, max |d| over finite
+        scores, indices checked)."""
         torch = self.torch
         fin = torch.isfinite(pv)
         if not torch.equal(torch.isfinite(v), fin):
@@ -1003,9 +1075,10 @@ class Smoke:
         tol = tol.expand_as(pv)
         ok = bool((diff[fin] <= tol[fin]).all())
         gaps = pv.diff(dim=-1)
+        gap = 2 * tol if gap is None else gap.expand_as(pv)
         sep = fin.clone()
-        sep[..., 1:] &= gaps > 2 * tol[..., 1:]
-        sep[..., :-1] &= gaps > 2 * tol[..., :-1]
+        sep[..., 1:] &= gaps > gap[..., 1:]
+        sep[..., :-1] &= gaps > gap[..., :-1]
         sep[..., -1] = False  # the next score is unknown
         ok &= bool((i[sep] == pi[sep]).all())
         return ok, err, int(sep.sum())
@@ -3950,14 +4023,23 @@ class Smoke:
             log(run.stderr[-4000:])
         return ok
 
-    def _leaf_err(self, got: dict, want: dict) -> tuple[float, str]:
-        """The largest |got - want| over a leaf's largest |want|, and where."""
+    def _tree_err(self, got, want) -> tuple[float, str]:
+        """The largest |got - want| over its leaf's largest |want|, over two
+        trees of one structure (dicts, lists, tuples of tensors), and the
+        leaf's path."""
+        def paths(tree, at=""):
+            if isinstance(tree, dict):
+                return [p for k in sorted(tree) for p in paths(tree[k], f"{at}.{k}")]
+            if isinstance(tree, (list, tuple)):
+                return [p for i, x in enumerate(tree) for p in paths(x, f"{at}[{i}]")]
+            return [(at.lstrip(".") or ".", tree)]
+
         worst, where = 0.0, ""
-        for name, w in want.items():
-            g = got[name].detach().to(w.device, self.torch.float32)
+        for (name, g), (_, w) in zip(paths(got), paths(want), strict=True):
+            g = g.detach().to(w.device, self.torch.float32)
             w = w.detach().to(self.torch.float32)
             err = float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
-            if err > worst:
+            if err > worst or not math.isfinite(err):
                 worst, where = err, name
         return worst, where
 
@@ -3990,15 +4072,15 @@ class Smoke:
         (hloss, _), hgrads = T.value_and_grad(host, cfg, {"tokens": tok.cpu()})
         t_cpu = time.perf_counter() - t0
         loss_err = abs(float(loss) - float(hloss)) / abs(float(hloss))
-        grad_err, grad_at = self._leaf_err(grads, hgrads)
+        grad_err, grad_at = self._tree_err(grads, hgrads)
         opt_cfg = AdamWConfig(lr=TRAIN["lr"], moment_dtype="f32")
         opt, hopt = adamw_init(p, opt_cfg), adamw_init(host, opt_cfg)
         u, opt = adamw_update({n: v.to(self.dev) for n, v in hgrads.items()}, opt, p, opt_cfg)
         hu, hopt = adamw_update(hgrads, hopt, host, opt_cfg)
-        upd_err, upd_at = self._leaf_err(u, hu)
+        upd_err, upd_at = self._tree_err(u, hu)
         apply_updates(p, u)
         apply_updates(host, hu)
-        par_err, par_at = self._leaf_err(dict(p.named_parameters()), dict(host.named_parameters()))
+        par_err, par_at = self._tree_err(dict(p.named_parameters()), dict(host.named_parameters()))
         del grads, hgrads, u, hu, host, hopt
         ok = max(loss_err, grad_err, upd_err, par_err) <= TRAIN_TOL
         log(f"train (b) {cfg.name} cut to {cfg.n_layers} layers, f32, {b} x {s} tokens, card "
@@ -4199,6 +4281,539 @@ class Smoke:
             f"final params and moments bit-equal ({len(pairs)} leaves) {same}; ok={ok} "
             f"[{self.card}]")
         return ok
+
+    # ------------------------------------------------- phase 16: recsys
+    def phase_recsys(self) -> bool:
+        """The recommenders: card against CPU at full width with cut tables,
+        serving at full size, two-tower retrieval on the kernel, training at
+        full size, the examples."""
+        ok = True
+        for step in (self._recsys_cut, self._recsys_serve, self._recsys_retrieval,
+                     self._recsys_train, self._examples_recsys):
+            t0 = time.perf_counter()
+            ok &= step()
+            log(f"recsys: {step.__name__} {time.perf_counter() - t0:.1f} s")
+        return ok
+
+    def _to_host(self, tree):
+        """A copy of a tree of tensors on the host CPU (trainable leaves stay
+        trainable)."""
+        from repro_torch.tree import tree_map
+
+        return tree_map(lambda t: t.detach().to("cpu", copy=True).requires_grad_(t.requires_grad),
+                        tree)
+
+    def _free(self) -> None:
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def _recsys_cut(self) -> bool:
+        """(a) each config at full width, every table cut to RECSYS["cut_rows"]
+        rows, a batch of RECSYS["cut_batch"]: serve_scores, the loss and every
+        gradient on the card against the host's CPU."""
+        torch = self.torch
+        import dataclasses
+
+        import numpy as np
+
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import demo, steps
+        from repro_torch.models import recsys as R
+        from repro_torch.tree import requires_grad_, tree_leaves
+
+        ok = True
+        for arch_id in RECSYS["archs"]:
+            arch = get_config(arch_id)
+            cfg = dataclasses.replace(arch.model, table_sizes=tuple(
+                min(s, RECSYS["cut_rows"]) for s in arch.model.table_sizes))
+            b = RECSYS["cut_batch"]
+            cell = steps.build_recsys_cell(dataclasses.replace(arch, model=cfg), ShapeSpec(
+                f"train_batch cut to {b}", "train", {"batch": b}))
+            p = requires_grad_(R.init(torch.Generator(device=self.dev).manual_seed(RECSYS["seed"]),
+                                      cfg, self.dev))
+            batch = demo.recsys_batch(np.random.default_rng(RECSYS["seed"]), cfg, cell.inputs[2],
+                                      self.dev)
+            host, hbatch = self._to_host(p), self._to_host(batch)
+            (loss, _), grads = R.value_and_grad(p, cfg, batch)
+            (hloss, _), hgrads = R.value_and_grad(host, cfg, hbatch)
+            scores, hscores = R.serve_scores(p, cfg, batch), R.serve_scores(host, cfg, hbatch)
+            loss_err = abs(float(loss) - float(hloss)) / abs(float(hloss))
+            grad_err, at = self._tree_err(grads, hgrads)
+            serve_err, _ = self._tree_err(scores, hscores)
+            finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+            good = finite and max(loss_err, grad_err, serve_err) <= MODEL_TOL
+            ok &= good
+            log(f"recsys (a) {arch_id} at full width, tables cut to {cfg.table_sizes[:4]}... "
+                f"({cfg.padded_rows:,} rows x {cfg.embed_dim}), batch {b}, card against the "
+                f"host CPU (TF32 off): loss {float(loss):.6f} / {float(hloss):.6f} relative "
+                f"{loss_err:.3e}; gradients {grad_err:.3e} of their leaf's largest ({at}); "
+                f"serve_scores {serve_err:.3e} (gate {MODEL_TOL}); ok={good} [{self.card}]")
+            del p, host, grads, hgrads, batch, hbatch
+            self._free()
+        return ok
+
+    @staticmethod
+    def _table_bytes(cfg, batch_rows: int) -> int:
+        """The embedding rows one forward gathers for ``batch_rows`` examples."""
+        per = {"dlrm": cfg.n_sparse * cfg.embed_dim, "two_tower": 2 * cfg.embed_dim,
+               "bst": (cfg.seq_len + 1) * cfg.embed_dim,
+               "wide_deep": cfg.n_sparse * (cfg.embed_dim + 1)}[cfg.kind]
+        return batch_rows * per * 4
+
+    def _recsys_serve(self) -> bool:
+        """(b) serve_p99 (batch 512) of each config at full size: ms a call
+        (CUDA events, median of RECSYS["serve_calls"]) beside the bytes
+        bound of the rows gathered plus the dense weights read."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import demo
+        from repro_torch.tree import tree_leaves
+
+        ok = True
+        for arch_id in RECSYS["archs"]:
+            arch = get_config(arch_id)
+            cfg = arch.model
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell, (p, batch) = demo.materialize(arch, arch.shape("serve_p99"), smoke=False,
+                                                seed=RECSYS["seed"], device=self.dev)
+            self.sync()
+            t_init = time.perf_counter() - t0
+            out = cell.fn(p, batch)
+            self.sync()
+            good = tuple(out.shape) == (cell.meta["batch"],) and bool(torch.isfinite(out).all())
+            ms = self.ms(lambda: cell.fn(p, batch), repeats=RECSYS["serve_calls"])
+            tables = ("embed", "wide")
+            dense = sum(t.numel() * t.element_size() for k, v in p.items() if k not in tables
+                        for t in tree_leaves(v))
+            nbytes = (self._table_bytes(cfg, cell.meta["batch"]) + dense
+                      + sum(t.numel() * t.element_size() for t in batch.values())
+                      + out.numel() * 4)
+            bb, by = self.bound(nbytes, cell.meta["model_flops"])
+            ok &= good
+            log(f"recsys (b) {arch_id} serve_p99 at full size: table {tuple(p['embed'].shape)} "
+                f"({p['embed'].numel() * 4 / 1e9:.2f} GB) drawn on the card in {t_init:.1f} s; "
+                f"{ms:.4f} ms a call of {cell.meta['batch']} (median of {RECSYS['serve_calls']}), "
+                f"{cell.meta['batch'] / ms * 1e3:,.0f} examples/s; bound {bb:.4f} ms ({by}: "
+                f"{nbytes / 1e6:.2f} MB of gathered rows, dense weights, ids and scores; "
+                f"{cell.meta['model_flops']:.3e} FLOPs), {bb / ms:.3f} of the call; peak "
+                f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; finite, shape "
+                f"{tuple(out.shape)}: {good} [{self.card}]")
+            del p, batch, out
+            self._free()
+        return ok
+
+    def _recsys_retrieval(self) -> bool:
+        """(c) retrieval_cand on the fused kernel: two-tower retrieve_topk
+        and dlrm-rm2's generic retrieval, each against the plain chunk_step
+        on the card, with knn_scan and knn_merge timed at the shape."""
+        torch, K, ops = self.torch, self.K, self.ops
+        from repro_torch.configs import get_config
+        from repro_torch.core.fqsd import chunk_step
+        from repro_torch.core.topk import empty_topk
+        from repro_torch.launch import demo
+        from repro_torch.models import recsys as R
+
+        ok = True
+        for arch_id in RECSYS["retrieval"]:
+            arch = get_config(arch_id)
+            cfg = arch.model
+            cell, (p, uid, cand) = demo.materialize(arch, arch.shape("retrieval_cand"),
+                                                    smoke=False, seed=RECSYS["seed"],
+                                                    device=self.dev)
+            k = 100
+            self.sync()
+            K.reset_launch_counts()
+            out = cell.fn(p, uid, cand)
+            self.sync()
+            launches = dict(K.LAUNCHES)
+            with torch.no_grad():  # the user rows as the cell computes them
+                if cfg.kind == "two_tower":
+                    u = R._two_tower_embed(p, cfg, uid, "user_tower")
+                else:
+                    u = R.embedding_lookup(p["embed"], uid)
+            m, (n, d) = u.shape[0], cand.shape
+            plain = chunk_step(empty_topk((m,), k, device=self.dev), u, cand, None, 0, n, "ip")
+            tol = torch.tensor(RETRIEVAL_TOL, device=self.dev)
+            ok_end, err_end, checked = self._close(out.scores, out.indices, plain.scores,
+                                                   plain.indices, tol, gap=tol)
+            ok_end &= launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
+            retrieve_ms = self.ms(lambda: cell.fn(p, uid, cand))
+            label = f"retrieval_{arch_id}_m{m}_n{n}_d{d}_k{k}"
+            log(f"{label}: {cell.shape_name} through the cell (one knn_scan + one knn_merge, "
+                f"metric ip) launches={launches}; against the plain chunk_step on the card: "
+                f"max|d|={err_end:.3e} (tol {RETRIEVAL_TOL}), indices checked {checked}/{k} "
+                f"(gaps over {RETRIEVAL_TOL}); whole call {retrieve_ms:.4f} ms; ok={ok_end} "
+                f"[{self.card}]")
+            ok &= self._retrieval_kernels(label, u, cand, k, launches, retrieve_ms) and ok_end
+            del p, uid, cand, u, out, plain
+            self._free()
+        return ok
+
+    def _retrieval_kernels(self, label, u, cand, k, launches, retrieve_ms) -> bool:
+        """knn_scan and knn_merge at the retrieval shape on the operands the
+        wrapper prepares, each against its plain version, timed beside it,
+        the library call and the bound; one shape of the kernels line."""
+        torch, K, ops = self.torch, self.K, self.ops
+        call = ops.prepare(u, cand, k, "ip")
+        bm, bn, _ = call.blocks
+        cq, cx, cxn = call.q, call.x, call.xn
+        qn = self.qnorm(cq)
+        m_tiles, n_tiles = cq.shape[0] // bm, cx.shape[0] // bn
+        splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        sv, si, _ = K.knn_scan(cq, cx, qn, cxn, call.k_eff, "ip", bm, bn, True, splits)
+        pv, pi, _ = K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "ip", bm, bn, True, splits)
+        mv, mi = K.knn_merge(sv, si)
+        mpv, mpi = K.knn_merge_plain(sv, si)
+        self.sync()
+        tol = torch.tensor(RETRIEVAL_TOL, device=self.dev)
+        ok_scan, err_scan, _ = self._close(sv, si, pv, pi, tol, gap=tol)
+        merge_exact = torch.equal(mv, mpv) and torch.equal(mi, mpi)
+        scan_ms = self.ms(lambda: K.knn_scan(cq, cx, qn, cxn, call.k_eff, "ip", bm, bn, True,
+                                             splits))
+        merge_ms = self.ms(lambda: K.knn_merge(sv, si))
+        plain_scan_ms = self.ms(lambda: K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "ip",
+                                                         bm, bn, True, splits))
+        plain_merge_ms = self.ms(lambda: K.knn_merge_plain(sv, si))
+        lib_scan_ms = self.ms(lambda: torch.topk(u @ cand.T, k))
+        flat = sv.reshape(sv.shape[0], -1)
+        lib_merge_ms = self.ms(lambda: torch.topk(flat, call.k_eff, largest=False))
+        m, (n, d) = u.shape[0], cand.shape
+        # the function: the candidates and users read once, the (m, k)
+        # answer written once; 2·d + the ip epilogue's negation per pair
+        scan_bytes = (n + m) * d * 4 + m * k * 8
+        scan_ops = m * n * (2 * d + 1)
+        merge_bytes, merge_ops = self.merge_work(sv, si, mv, mi)
+        shape = {"shape": label, "splits": splits, "blocks": list(call.blocks),
+                 "search_ms": retrieve_ms, "kernels": {}}
+        for name, t, tp, tl, lib, (bb, by), err in (
+                ("knn_scan", scan_ms, plain_scan_ms, lib_scan_ms, f"torch.topk(u @ cand.T, {k})",
+                 self.bound(scan_bytes, scan_ops), err_scan),
+                ("knn_merge", merge_ms, plain_merge_ms, lib_merge_ms,
+                 "torch.topk(queues.reshape(m, -1))", self.bound(merge_bytes, merge_ops),
+                 0.0 if merge_exact else math.inf)):
+            shape["kernels"][name] = {
+                "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
+                "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": lib}
+            log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl:.4f} "
+                f"bound_ms={bb:.4f} ({by}) launches={launches[name]} [{self.card}]")
+        log(f"{label}: scan against its plain version max|d|={err_scan:.3e}, merge "
+            f"bit-identical={merge_exact}; splits={splits} blocks={call.blocks}; the wrapper's "
+            f"padding copies the {n:,} x {d} candidates to {cx.shape[0]:,} rows a call")
+        self.shapes.append(shape)
+        return ok_scan and merge_exact
+
+    def _train_steps(self, label, cell, args, batches, steps):
+        """``steps`` train steps of ``cell`` from ``args`` on ``batches(i)``
+        (drawn before each step's clock starts), then one traced step:
+        (state, losses, step ms, peak bytes, traced (wall, busy, kernels,
+        by_name))."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        p, opt = args[0], args[1]
+        losses, times = [], []
+        for i in range(steps):
+            batch = batches(i)
+            self.sync()
+            t0 = time.perf_counter()
+            p, opt, metrics = cell.fn(p, opt, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        batch = batches(steps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            self.sync()
+            t0 = time.perf_counter()
+            p, opt, metrics = cell.fn(p, opt, batch)
+            losses.append(float(metrics["loss"]))
+            wall = (time.perf_counter() - t0) * 1e3
+        gemm, other, kernels, by_name = self._device_ms(prof, 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        log(f"{label} traced step: {wall:.1f} ms under the profiler, {kernels} kernels, device "
+            f"busy {gemm + other:.1f} ms (GEMM {gemm:.1f}, other kernels and copies "
+            f"{other:.1f}), device idle share {1 - (gemm + other) / wall:.3f} (against the "
+            f"untraced median step: {1 - (gemm + other) / statistics.median(times[1:]):.3f}); "
+            f"device ms by kernel (launches): "
+            + "; ".join(f"{name} {ms_:.2f} ({cnt})" for name, (cnt, ms_) in top))
+        return (p, opt), losses, times, peak
+
+    def _recsys_train(self) -> bool:
+        """(d) train_batch (65,536) at full size, f32 moments, for
+        RECSYS["train_archs"]: finite losses, ms a step, examples/s, peak
+        memory, a traced step, the bound; then one step with each leaf
+        updated whole (the optimizer before its row chunks), its peak."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import demo, train
+        from repro_torch.optim import adamw
+
+        ok = True
+        for arch_id in RECSYS["train_archs"]:
+            arch = get_config(arch_id)
+            shape = arch.shape("train_batch")
+            torch.cuda.reset_peak_memory_stats()
+            cell, args = demo.materialize(arch, shape, smoke=False, seed=RECSYS["seed"],
+                                          device=self.dev)
+            batches = train.build_batches(arch, cell, False, self.dev)
+            label = f"recsys (d) {arch_id} train_batch"
+            state, losses, times, peak = self._train_steps(label, cell, args, batches,
+                                                           RECSYS["train_steps"])
+            ms = statistics.median(times[1:])
+            n = cell.meta["params_total"]
+            t_flops = cell.meta["model_flops"] / self.flops * 1e3
+            # the optimizer: each param, gradient and both moments read
+            # once, each param and moment written once (f32: 28 B a param)
+            t_bytes = n * 28 / self.bw * 1e3
+            bound = t_flops + t_bytes
+            finite = all(math.isfinite(x) for x in losses)
+            ok &= finite
+            b = cell.meta["batch"]
+            log(f"{label} at full size ({n:,} parameters, {arch.train_moment_dtype} moments, "
+                f"batch {b}): losses {[round(x, 5) for x in losses]} (finite {finite}); step ms "
+                f"{[round(t, 1) for t in times]}, {ms:.1f} ms a step (median of steps "
+                f"2-{RECSYS['train_steps']}), {b / ms * 1e3:,.0f} examples/s; peak allocated "
+                f"{peak / 1e9:.2f} GB; bound {bound:.2f} ms = model FLOPs "
+                f"{cell.meta['model_flops']:.3e} / {self.flops / 1e12:.0f} TFLOP/s {t_flops:.2f} "
+                f"ms + optimizer {n * 28 / 1e9:.2f} GB / {self.bw / 1e12:.2f} TB/s {t_bytes:.2f} "
+                f"ms ({bound / ms:.3f} of the step) [{self.card}]")
+            saved = adamw.CHUNK_ELEMS
+            batch = batches(0)
+            try:
+                adamw.CHUNK_ELEMS = 1 << 62
+                torch.cuda.reset_peak_memory_stats()
+                p, opt, _ = cell.fn(*state, batch)
+                self.sync()
+                whole = f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            except torch.cuda.OutOfMemoryError:
+                whole = "out of device memory"
+            finally:
+                adamw.CHUNK_ELEMS = saved
+            log(f"{label}: one step with every leaf updated whole (no row chunks): peak "
+                f"allocated {whole}; with chunks of {saved:,} elements: {peak / 1e9:.2f} GB "
+                f"[{self.card}]")
+            del args, state, batch
+            p = opt = None
+            self._free()
+        return ok
+
+    def _example(self, name: str, timeout: int):
+        """examples/<name>.py on the card in a subprocess: (exit code, stdout,
+        stderr, seconds)."""
+        import os
+
+        import repro_torch
+
+        env = dict(os.environ, PYTHONPATH=str(Path(repro_torch.__file__).resolve().parents[1]))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, str(ROOT / "examples" / f"{name}.py")],
+                             capture_output=True, text=True, env=env, cwd=ROOT, timeout=timeout)
+        return run.returncode, run.stdout, run.stderr, time.perf_counter() - t0
+
+    def _examples_recsys(self) -> bool:
+        """(e) the dense retrieval and streamed image retrieval examples."""
+        ok = True
+        checks = {"torch_dense_retrieval": r"recall@10 of source passage: (\S+)",
+                  "torch_image_retrieval_streaming": r"streamed result == resident result"}
+        for name in RECSYS["examples"]:
+            rc, out, err, secs = self._example(name, RECSYS["example_timeout_s"])
+            hit = re.search(checks[name], out)
+            good = rc == 0 and hit is not None
+            if name == "torch_dense_retrieval" and good:
+                good = float(hit.group(1)) >= 0.95
+            ok &= good
+            log(f"recsys (e) examples/{name}.py: exit {rc} in {secs:.1f} s; ok={good} "
+                f"[{self.card}]")
+            for line in out.strip().splitlines():
+                log(f"  {line}")
+            if not good:
+                log(err[-4000:])
+        return ok
+
+    # ---------------------------------------------------- phase 17: gnn
+    def phase_gnn(self) -> bool:
+        """MeshGraphNet: card against CPU (smoke, and full width cut to 2
+        layers), training at full width and depth on three shapes, the
+        world-edges example."""
+        ok = True
+        for step in (self._gnn_cut, self._gnn_train, self._example_gnn):
+            t0 = time.perf_counter()
+            ok &= step()
+            log(f"gnn: {step.__name__} {time.perf_counter() - t0:.1f} s")
+        return ok
+
+    def _gnn_cut(self) -> bool:
+        """(a) loss and gradients on the card against the host's CPU: the
+        smoke model on its smoke batch, and the full width cut to
+        GNN["cut_layers"] layers on GNN["cut_shape"] at full size."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch import demo
+        from repro_torch.models import gnn as G
+        from repro_torch.tree import tree_leaves
+
+        arch = get_config(GNN["arch"])
+        cut = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=GNN["cut_layers"]))
+        ok = True
+        for what, a, smoke in (("smoke model", arch, True),
+                               (f"full width cut to {GNN['cut_layers']} layers", cut, False)):
+            cell, (p, _, batch) = demo.materialize(a, a.shape(GNN["cut_shape"]), smoke=smoke,
+                                                   seed=GNN["seed"], device=self.dev)
+            base = a.smoke_model if smoke else a.model
+            cfg = dataclasses.replace(base, d_node_in=batch["graph"]["nodes"].shape[-1])
+            host, hbatch = self._to_host(p), self._to_host(batch)
+            (loss, _), grads = G.value_and_grad(p, cfg, batch)
+            t0 = time.perf_counter()
+            (hloss, _), hgrads = G.value_and_grad(host, cfg, hbatch)
+            t_cpu = time.perf_counter() - t0
+            loss_err = abs(float(loss) - float(hloss)) / abs(float(hloss))
+            grad_err, at = self._tree_err(grads, hgrads)
+            finite = all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+            good = finite and max(loss_err, grad_err) <= MODEL_TOL
+            ok &= good
+            log(f"gnn (a) {cfg.name} {what} on {GNN['cut_shape']} ({cfg.n_layers} layers, "
+                f"d_hidden {cfg.d_hidden}, {tuple(batch['graph']['nodes'].shape)} nodes, "
+                f"{tuple(batch['graph']['edges'].shape)} edges), card against the host CPU: "
+                f"loss {float(loss):.6e} / {float(hloss):.6e} relative {loss_err:.3e}; "
+                f"gradients {grad_err:.3e} of their leaf's largest ({at}) (gate "
+                f"{MODEL_TOL}); CPU {t_cpu:.1f} s; ok={good} [{self.card}]")
+            del p, host, grads, hgrads, batch, hbatch
+            self._free()
+        return ok
+
+    def _minibatch_source(self, shape):
+        """minibatch_lg's batches: the sampler over a synthetic graph of the
+        shape's nodes and edges (receivers drawn, then laid out sorted, so the
+        CSR build sorts a sorted array), N(0, 1) features of d_feat; each
+        step's subgraph with N(0, 1) edge features and targets, the loss on
+        its seeds. Returns (batches(step), host seconds to build the graph,
+        sampling ms per subgraph so far (a list))."""
+        import numpy as np
+
+        from repro_torch.models.sampler import CSRGraph, minibatch_stream
+
+        torch = self.torch
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(GNN["seed"])
+        n, e = shape["n_nodes"], shape["n_edges"]
+        counts = np.bincount(rng.integers(0, n, e, dtype=np.int32), minlength=n)
+        receivers = np.repeat(np.arange(n, dtype=np.int32), counts)
+        senders = rng.integers(0, n, e, dtype=np.int32)
+        graph = CSRGraph(n, senders, receivers)
+        del senders, receivers
+        feat = rng.standard_normal((n, shape["d_feat"]), dtype=np.float32)
+        build_s = time.perf_counter() - t0
+        stream = minibatch_stream(graph, feat, shape["batch_nodes"],
+                                  (shape["fanout0"], shape["fanout1"]), seed=GNN["seed"])
+        sample_ms = []
+
+        def batches(step: int):
+            t1 = time.perf_counter()
+            sub = next(stream)
+            sample_ms.append((time.perf_counter() - t1) * 1e3)
+            g = torch.Generator().manual_seed(step)
+            on = lambda a: torch.from_numpy(a).to(self.dev)  # noqa: E731
+            e_pad, n_pad = sub.senders.shape[0], sub.node_feat.shape[0]
+            return {"graph": {"nodes": on(sub.node_feat),
+                              "edges": torch.randn(e_pad, 4, generator=g).to(self.dev),
+                              "senders": on(sub.senders), "receivers": on(sub.receivers),
+                              "edge_mask": on(sub.edge_mask)},
+                    "targets": torch.randn(n_pad, 2, generator=g).to(self.dev),
+                    "node_mask": on(sub.seed_mask.astype(np.float32))}
+
+        return batches, build_s, sample_ms
+
+    def _masked_padding(self, arch, cell, args, batches, shape):
+        """A full-batch shape's batches with only its graph's n_edges edges
+        valid and the padding up to the cell's edge count masked, as the
+        shape describes its graph. materialize's batch marks every padded
+        edge valid (131,072 edges into 2,708 nodes, 48 a node): through 15
+        sum layers with no normalisation its activations grow past f32, and
+        its loss, computed once first, is printed beside."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.models import gnn as G
+
+        cfg = dataclasses.replace(arch.model, d_node_in=args[2]["graph"]["nodes"].shape[-1])
+        with torch.no_grad():
+            loss, _ = G.loss_fn(args[0], cfg, args[2])
+        n_edges = shape["n_edges"]
+        log(f"gnn (b) {cell.arch_id} {cell.shape_name}: materialize's batch, every one of its "
+            f"{args[2]['graph']['edge_mask'].shape[0]:,} edges valid: loss {float(loss):.4e} "
+            f"(15 layers of sum aggregation, no normalisation); the steps below mask the "
+            f"padding past the graph's {n_edges:,} edges [{self.card}]")
+
+        def masked(step: int):
+            batch = batches(step)
+            batch["graph"]["edge_mask"][n_edges:] = False
+            return batch
+
+        return masked
+
+    def _gnn_train(self) -> bool:
+        """(b) the whole model (15 layers, d_hidden 128, remat, f32 moments)
+        for GNN["steps"] steps on each of GNN["shapes"]: finite losses, ms a
+        step, edges/s, peak memory, a traced step, the bound."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch import demo, train
+
+        arch = get_config(GNN["arch"])
+        ok = True
+        for name in GNN["shapes"]:
+            shape = arch.shape(name)
+            torch.cuda.reset_peak_memory_stats()
+            cell, args = demo.materialize(arch, shape, smoke=False, seed=GNN["seed"],
+                                          device=self.dev)
+            extra = ""
+            if shape.kind == "train_sampled":
+                batches, build_s, sample_ms = self._minibatch_source(shape)
+                extra = f"; the graph built on the host in {build_s:.1f} s"
+            else:
+                batches, sample_ms = train.build_batches(arch, cell, False, self.dev), []
+            if shape.kind == "train":  # full batch: the padding masked
+                batches = self._masked_padding(arch, cell, args, batches, shape)
+            label = f"gnn (b) {arch.arch_id} {name}"
+            state, losses, times, peak = self._train_steps(label, cell, args, batches,
+                                                           GNN["steps"])
+            ms = statistics.median(times[1:])
+            edges = cell.meta["edges"]
+            bound = cell.meta["model_flops"] / self.flops * 1e3
+            finite = all(math.isfinite(x) for x in losses)
+            ok &= finite
+            graph = args[2]["graph"]
+            if sample_ms:
+                extra += (f"; sampling {statistics.median(sample_ms):.1f} ms a subgraph on the "
+                          f"host (median of {len(sample_ms)})")
+            log(f"{label} ({cell.meta['params_total']:,} parameters, nodes "
+                f"{tuple(graph['nodes'].shape)}, edges {tuple(graph['edges'].shape)}): losses "
+                f"{[f'{x:.4e}' for x in losses]} (finite {finite}); step ms "
+                f"{[round(t, 1) for t in times]}, {ms:.1f} ms a step (median of steps "
+                f"2-{GNN['steps']}), {edges / ms * 1e3:,.0f} edges/s; peak allocated "
+                f"{peak / 1e9:.2f} GB; bound {bound:.2f} ms (model FLOPs "
+                f"{cell.meta['model_flops']:.3e} / {self.flops / 1e12:.0f} TFLOP/s), "
+                f"{bound / ms:.3f} of the step{extra} [{self.card}]")
+            del args, state
+            self._free()
+        return ok
+
+    def _example_gnn(self) -> bool:
+        """(c) the world-edges example: exit 0, its edge counts, finite."""
+        rc, out, err, secs = self._example(GNN["example"], GNN["example_timeout_s"])
+        good = (rc == 0 and "finite=True" in out
+                and re.search(r"mesh edges: \d+, world \(collision\) edges: \d+", out) is not None)
+        log(f"gnn (c) examples/{GNN['example']}.py: exit {rc} in {secs:.1f} s; ok={good} "
+            f"[{self.card}]")
+        for line in out.strip().splitlines():
+            log(f"  {line}")
+        if not good:
+            log(err[-4000:])
+        return good
 
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
@@ -4697,7 +5312,7 @@ class Listen:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "listen", "tune", "kernels", "mesh", "lm", "train")
+          "listen", "tune", "kernels", "mesh", "lm", "train", "recsys", "gnn")
 
 
 def main(argv=None) -> int:

@@ -1,10 +1,8 @@
 """Architecture registry: --arch <id> resolution for launch/ and tests.
 
-The port carries the kNN paper's workloads (``knn-search``) and the five LM
-architectures, whose decode-serving path (``repro_torch.models``,
-``serving.DecodeServer``) is ported. The graph and recommender
-architectures of the JAX package come with the rest of its non-kNN
-substrate.
+The port carries every architecture of the JAX package, in its order: the
+five LMs, MeshGraphNet, the four recommenders and the kNN paper's
+workloads (``knn-search``).
 """
 from __future__ import annotations
 
@@ -18,6 +16,11 @@ _MODULES = {
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
     "minicpm-2b": "repro_torch.configs.minicpm_2b",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
+    "two-tower-retrieval": "repro_torch.configs.two_tower_retrieval",
+    "bst": "repro_torch.configs.bst",
+    "wide-deep": "repro_torch.configs.wide_deep",
     "knn-search": "repro_torch.configs.knn_paper",  # the paper's own workloads
 }
 

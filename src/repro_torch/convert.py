@@ -1,4 +1,4 @@
-"""Carry search state, LM parameters and training state between the JAX
+"""Carry search state, model parameters and training state between the JAX
 package and the port.
 
 Every function takes plain arrays (anything ``np.asarray`` reads, so a JAX
@@ -6,8 +6,8 @@ device array works) and never imports JAX or ``repro``: the JAX engine is
 duck-typed. The parity tests use them so that both packages search the
 identical padded state — the same vectors, the same +inf norms, the same
 pre-normalised cos rows, the same int8 codes and side channels — and run
-and train an LM on the same weights and optimizer state, bf16 bits carried
-unchanged.
+and train an LM, a recommender or MeshGraphNet on the same weights and
+optimizer state, bf16 bits carried unchanged.
 
 Training state goes both ways in the reference's layout
 (``repro_torch.tree.reference_layout``: the param tree with layer weights
@@ -150,6 +150,29 @@ def lm_params_from_numpy(params, cfg: T.LMConfig, device=None) -> T.Transformer:
                          _tensor(p["head"], device))
 
 
+def _tensor_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensor_tree(v, device) for v in tree)
+    return _tensor(tree, device)
+
+
+def recsys_params_from_numpy(params, device=None) -> dict:
+    """The port's recommender params over a reference param tree
+    (``repro.models.recsys.init``'s layout: the fused table, MLPs as lists
+    of ``{"w", "b"}``): the same tree of tensors, each leaf's dtype and
+    bits unchanged. ``device`` as in :func:`padded_from_numpy`."""
+    return _tensor_tree(params, resolve_device(device))
+
+
+def gnn_params_from_numpy(params, device=None) -> dict:
+    """The port's MeshGraphNet params over a reference param tree
+    (``repro.models.gnn.init``'s layout: ``procs`` stacked on a leading L
+    axis, as the port holds it). ``device`` as in :func:`padded_from_numpy`."""
+    return _tensor_tree(params, resolve_device(device))
+
+
 def state_to_numpy(tree, bf16=None):
     """A port tree (a ``Transformer``, an ``AdamWState`` of its moments,
     gradients by parameter name, tuples of these) as the reference's numpy
@@ -180,11 +203,11 @@ def state_from_numpy(tree, template):
 
 def adamw_state_from_numpy(state, params):
     """The port's ``AdamWState`` for ``params`` (a ``Transformer`` or a tree
-    of tensors, whose device it takes) over a reference ``AdamWState``: its
+    of tensors — recommender and GNN params —, whose device it takes) over a reference ``AdamWState``: its
     step and its f32, bf16 or int8 (``_Q8``) moments, bits unchanged."""
     first = state.m
-    while isinstance(first, dict):
-        first = first[sorted(first)[0]]
+    while isinstance(first, (dict, list)):  # down to the first leaf or _Q8
+        first = first[sorted(first)[0]] if isinstance(first, dict) else first[0]
     if isinstance(first, tuple) and getattr(first, "_fields", None) == ("q", "scale"):
         moments = "int8"
     elif np.asarray(first).dtype.name == "bfloat16":

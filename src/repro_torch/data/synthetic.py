@@ -25,6 +25,25 @@ def token_stream(
         yield {"tokens": tokens}
 
 
+def click_log_stream(
+    table_sizes: tuple[int, ...], n_dense: int, batch: int, seed: int = 0,
+    ctr: float = 0.25,
+) -> Iterator[dict]:
+    """Recsys impressions: Zipfian categorical ids, log-normal dense
+    features, label with a planted logistic signal on feature 0."""
+    rng = np.random.default_rng(seed)
+    while True:
+        dense = rng.lognormal(0.0, 1.0, size=(batch, n_dense)).astype(np.float32)
+        cols = []
+        for size in table_sizes:
+            z = rng.zipf(1.1, size=(batch, 1))
+            cols.append(np.minimum(z - 1, size - 1))
+        sparse = np.concatenate(cols, axis=1).astype(np.int32)
+        logit = 1.5 * np.tanh(dense[:, 0] - 1.0) + rng.normal(0, 1, batch)
+        label = (logit > np.quantile(logit, 1 - ctr)).astype(np.float32)
+        yield {"dense": dense, "sparse": sparse, "label": label}
+
+
 def vector_dataset(
     n: int, d: int, n_clusters: int = 64, seed: int = 0, dtype=np.float32
 ) -> np.ndarray:

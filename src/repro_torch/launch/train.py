@@ -24,13 +24,17 @@ DEFAULT_CKPT_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "trai
 
 def build_batches(arch, cell, smoke: bool, device):
     """Step -> the batch the reference's ``materialize(seed=step)`` draws,
-    drawn alone (no model is initialised for it)."""
-    from repro_torch.launch.demo import lm_batch
+    drawn alone (no model is initialised for it), for a train cell of any
+    family."""
+    from repro_torch.launch.demo import gnn_batch, lm_batch, recsys_batch
 
     cfg = arch.smoke_model if smoke else arch.model
+    draw = {"lm": lambda rng: lm_batch(rng, cfg.vocab, cell.inputs[2], device),
+            "gnn": lambda rng: gnn_batch(rng, cell.inputs[2], device),
+            "recsys": lambda rng: recsys_batch(rng, cfg, cell.inputs[2], device)}[arch.family]
 
     def batches(step: int):
-        return lm_batch(np.random.default_rng(step), cfg.vocab, cell.inputs[2], device)
+        return draw(np.random.default_rng(step))
 
     return batches
 

@@ -1,1 +1,2 @@
-"""The LM substrate: layers and the transformer (decode-serving path)."""
+"""The model substrate: the LM (layers, transformer), the recommenders
+(recsys), MeshGraphNet (gnn) and its neighbour sampler (sampler)."""

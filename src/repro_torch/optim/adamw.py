@@ -16,6 +16,10 @@ back. What differs is the PyTorch idiom around it:
   new moments into the state's tensors and ``apply_updates`` the new
   values into the parameters (a full-width model has no room for a second
   copy of either);
+* a leaf of more than ``CHUNK_ELEMS`` elements (an embedding table) is
+  updated in row chunks, so the update's f32 temporaries take a chunk's
+  size, not the leaf's: the ops are elementwise, so the bits are the
+  whole-leaf update's;
 * weight decay goes by the rank of the reference's leaf: a module that
   stacks nothing (the port's ``Transformer`` holds one tensor a layer where
   the reference stacks L of them) says so through ``reference_ndim(name)``,
@@ -111,6 +115,25 @@ def _ndims(params):
     return tree_map(lambda p: p.ndim, tree)
 
 
+#: Elements of a leaf updated at once: a larger leaf (an embedding table)
+#: is updated in row chunks, so the update's f32 temporaries take a chunk's
+#: size and not the leaf's. The ops are elementwise: the bits are the same.
+CHUNK_ELEMS = 1 << 26
+
+
+def _chunk_rows(p: torch.Tensor) -> int:
+    """Rows of ``p`` (of rank >= 2) a chunk of the update takes. A leaf of
+    lower rank is updated whole: an int8 moment of a vector has one scale
+    for the whole of it."""
+    return max(1, CHUNK_ELEMS // max(1, p[0].numel()))
+
+
+def _rows(x, sl: slice):
+    """Rows ``sl`` of a moment: views, so a store into them writes the
+    moment in place (an int8 moment's scales are per row)."""
+    return _Q8(x.q[sl], x.scale[sl]) if isinstance(x, _Q8) else x[sl]
+
+
 def adamw_init(params, cfg: AdamWConfig = AdamWConfig()) -> AdamWState:
     tree = _tree(params)
     zeros = lambda p: _encode(torch.zeros(p.shape, dtype=F32, device=p.device),  # noqa: E731
@@ -143,7 +166,7 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfi
     bc1 = 1.0 - torch.pow(b1, step.to(F32))
     bc2 = 1.0 - torch.pow(b2, step.to(F32))
 
-    def upd(g, m, v, p, ndim):
+    def upd_rows(g, m, v, p, decay):
         # the reference's clip multiplies by an f32 array, so the clipped
         # gradient is f32 whatever the param's dtype
         g32 = g.to(F32) if scale is None else g.to(F32) * scale
@@ -152,11 +175,22 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig = AdamWConfi
         mhat = m32 / bc1
         vhat = v32 / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        if cfg.weight_decay and ndim >= 2:  # no decay on norms/biases
+        if decay:
             delta = delta + cfg.weight_decay * p.to(F32)
         _store(m, m32, cfg.moment_dtype)
         _store(v, v32, cfg.moment_dtype)
         return (-lr * delta).to(p.dtype)
+
+    def upd(g, m, v, p, ndim):
+        decay = bool(cfg.weight_decay) and ndim >= 2  # no decay on norms/biases
+        rows = _chunk_rows(p) if p.ndim >= 2 else None
+        if rows is None or rows >= p.shape[0]:
+            return upd_rows(g, m, v, p, decay)
+        out = torch.empty_like(p)
+        for s in range(0, p.shape[0], rows):
+            sl = slice(s, s + rows)
+            out[sl] = upd_rows(g[sl], _rows(m, sl), _rows(v, sl), p[sl], decay)
+        return out
 
     updates = tree_map(upd, grads, state.m, state.v, tree, _ndims(params))
     return updates, AdamWState(step=step, m=state.m, v=state.v)

@@ -7,6 +7,10 @@ NamedTuples in field order (``AdamWState`` as (step, m, v), an int8 moment
 as (q, scale)), ``None`` as a subtree without leaves. Anything else is a
 leaf.
 
+``requires_grad_`` and ``value_and_grad`` train a tree of tensors (the
+recommenders' and MeshGraphNet's params) as ``nn.Module.requires_grad_``
+and ``jax.value_and_grad`` do.
+
 ``reference_layout`` maps the port's objects onto the reference's param
 tree: an ``nn.Module`` becomes the nested dict of its parameters by dotted
 name, a dict keyed by dotted names (the optimizer's moments of a module)
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import torch
 from torch import nn
 
 
@@ -76,6 +81,26 @@ def tree_structure(tree) -> str:
     inner = ", ".join(f"{k}: {tree_structure(c)}" if kind == "{" else tree_structure(c)
                       for k, c in zip(keys, node[0]))
     return f"{type(tree).__name__}{kind}{inner}{'}' if kind == '{' else ')'}"
+
+
+def requires_grad_(tree):
+    """``nn.Module.requires_grad_()`` for a tree of tensors: every leaf made
+    trainable in place; returns ``tree``."""
+    for leaf in tree_leaves(tree):
+        leaf.requires_grad_(True)
+    return tree
+
+
+def value_and_grad(fn: Callable, params):
+    """``jax.value_and_grad(fn, has_aux=True)(params)`` for a tree of
+    tensors that require grad: ((loss, aux), grads), the grads a tree of
+    ``params``' structure, each in its leaf's dtype. Nothing is
+    accumulated into ``.grad``."""
+    leaves = tree_leaves(params)
+    loss, aux = fn(params)
+    grads = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
+    return ((loss.detach(), tree_map(lambda t: t.detach(), aux)),
+            tree_map(lambda _: next(grads), params))
 
 
 class Stack:

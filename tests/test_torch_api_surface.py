@@ -4,9 +4,8 @@
 request and result fields and defaults, and the deprecated shims, which
 must warn and keep working. The port's ``api`` must match it name for
 name, ``core.__all__`` must be the reference's, the seven mesh names
-included, ``serving``, ``optim`` and ``checkpoint`` export the reference's
-names (``DecodeServer`` too) and ``data`` the reference's less
-``click_log_stream``, which comes with the recommender models.
+included, and ``serving``, ``optim``, ``checkpoint`` and ``data`` export the
+reference's names (``DecodeServer`` and ``click_log_stream`` too).
 """
 from __future__ import annotations
 
@@ -69,7 +68,7 @@ def test_core_all_is_the_reference_less_the_mesh():
 
 @pytest.mark.parametrize("port,ref,left_out", [
     (serving, jserving, set()),
-    (data, jdata, {"click_log_stream"}),
+    (data, jdata, set()),
     (optim, joptim, set()),
     (checkpoint, jcheckpoint, set()),
 ])
@@ -106,8 +105,9 @@ def test_knn_paper_config_matches_the_reference():
                                                              b.n_queries)
         assert a.dtype is torch.float32
     assert got.shape("gist_fqsd")["n"] == 1_000_000
+    assert get_config("dlrm-rm2").family == "recsys"  # the recommenders are ported
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("dlrm-rm2")  # the recommender configs are not ported yet
+        get_config("resnet-50")
 
 
 class TestShimDeprecations:

@@ -6,7 +6,8 @@ other, bit for bit: minicpm's smoke params (f32, and cast to bf16) with f32,
 bf16 and int8 ``AdamWState``s, a bf16 leaf beside them and the int32 step.
 The port holds one tensor a layer where the reference stacks L of them; the
 files hold the reference's stacked leaves in its flatten order, so the
-leaf counts, shapes, dtypes and bytes agree. Then the manager's rotation
+leaf counts, shapes, dtypes and bytes agree. The same holds for the train
+states of a recommender (dlrm-rm2, wide-deep) and of MeshGraphNet. Then the manager's rotation
 and resume. Every test writes under its own ``tmp_path`` and waits for its
 async saves before it asserts.
 """
@@ -198,6 +199,82 @@ def test_the_manifest_names_the_reference_dtypes(tmp_path):
     got = json.loads((tmp_path / "port" / "step_00000003" / "manifest.json").read_text())
     assert got["leaves"] == want["leaves"] and got["n_leaves"] == want["n_leaves"]
     assert {leaf["dtype"] for leaf in got["leaves"]} == {"bfloat16", "float32", "int8", "int32"}
+
+
+# ------------------------------------------ recommender and GNN train states
+@functools.cache
+def _reference_model_state(arch_id: str):
+    """The reference's smoke params of a recsys or GNN arch and an f32
+    AdamWState three updates in, as numpy trees (lists of layers, the GNN's
+    procs stacked on L, wide-deep's 0-d bias)."""
+    from repro.models import gnn as JG
+    from repro.models import recsys as JR
+
+    jarch = jget_config(arch_id)
+    init = JG.init if jarch.family == "gnn" else JR.init
+    jp = jax.jit(init, static_argnums=1)(jax.random.key(1), jarch.smoke_model)
+    ocfg = JA.AdamWConfig(lr=1e-2)
+    opt = JA.adamw_init(jp, ocfg)
+    rng = np.random.default_rng(3)
+    upd = jax.jit(lambda g, st, q: JA.adamw_update(g, st, q, ocfg))
+    for _ in range(3):
+        g = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape), a.dtype), jp)
+        _, opt = upd(g, opt, jp)
+    return jax.device_get((jp, opt))
+
+
+def _port_model_state(arch_id: str, ref=None):
+    """The port's (params, AdamWState): over the reference's trees, or a
+    fresh template of the same layout."""
+    from repro_torch.convert import gnn_params_from_numpy, recsys_params_from_numpy
+    from repro_torch.models import gnn as G
+    from repro_torch.models import recsys as R
+
+    arch = get_config(arch_id)
+    if ref is None:
+        init = G.init if arch.family == "gnn" else R.init
+        p = init(torch.Generator().manual_seed(9), arch.smoke_model, device="cpu")
+        return p, adamw_init(p, AdamWConfig())
+    convert = gnn_params_from_numpy if arch.family == "gnn" else recsys_params_from_numpy
+    p = convert(ref[0], device="cpu")
+    return p, adamw_state_from_numpy(ref[1], p)
+
+
+_MODEL_ARCHS = ["dlrm-rm2", "wide-deep", "meshgraphnet"]
+
+
+@pytest.mark.parametrize("arch_id", _MODEL_ARCHS)
+def test_recsys_and_gnn_states_open_in_either_package(tmp_path, arch_id):
+    """A train state written by the reference opens in the port, and one
+    written by the port opens in the reference: leaf order (list order,
+    then ``b`` before ``w``), shapes, dtypes and bits."""
+    ref = _reference_model_state(arch_id)
+    jsave(tmp_path / "ref", 3, ref)
+    tmpl = _port_model_state(arch_id)
+    got, mani = load_checkpoint(tmp_path / "ref", tmpl)
+    assert mani["step"] == 3 and got is tmpl and int(tmpl[1].step) == 3
+    _same_leaves(state_to_numpy(got), ref)
+
+    save_checkpoint(tmp_path / "port", 3, _port_model_state(arch_id, ref), blocking=False)
+    ckpt.wait_for_pending()
+    jgot, jmani = jload(tmp_path / "port", jax.tree.map(jnp.zeros_like, ref))
+    assert jmani["step"] == 3
+    _same_leaves(jax.tree.leaves(jgot), ref)
+    want = json.loads((tmp_path / "ref" / "step_00000003" / "manifest.json").read_text())
+    port = json.loads((tmp_path / "port" / "step_00000003" / "manifest.json").read_text())
+    assert port["leaves"] == want["leaves"]
+
+
+def test_layer_lists_flatten_in_list_order_b_before_w():
+    """A recsys MLP is a Python list of {"w", "b"} layers of different
+    shapes: its leaves are the layers in order, each b then w, as the
+    reference flattens them; nothing is stacked."""
+    p, opt = _port_model_state("dlrm-rm2")
+    leaves = tree_leaves(p)
+    bot = p["bot"]
+    assert leaves[:2 * len(bot)] == [t for lyr in bot for t in (lyr["b"], lyr["w"])]
+    assert leaves[2 * len(bot)] is p["embed"]
+    assert len(tree_leaves(opt)) == 1 + 2 * len(leaves)
 
 
 # ------------------------------------------------------------------ manager

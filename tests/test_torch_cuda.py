@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain versions: knn_scan,
-knn_merge, knn_int8_scan, l2dist and topk; and the LM decode path
-(repro_torch.models, DecodeServer) on the card against itself and the CPU.
+knn_merge, knn_int8_scan, l2dist and topk; the LM decode path
+(repro_torch.models, DecodeServer) on the card against itself and the CPU;
+two-tower retrieval on the kernel, and recommender and GNN train steps on
+the card against the CPU.
 
 These tests need an NVIDIA card with ``nvcc`` (the library is built on
 first launch); elsewhere they skip. They import neither JAX nor the JAX
@@ -1123,3 +1125,53 @@ def test_checkpoint_round_trip_from_the_card(dev, tmp_path):
     for a, b in zip(tree_leaves(reference_layout((p, opt))), tree_leaves(reference_layout(got))):
         for x, y in zip(getattr(a, "parts", [a]), getattr(b, "parts", [b])):
             assert y.device.type == dev.type and torch.equal(x, y)
+
+
+def test_retrieve_topk_on_the_card_equals_its_plain_version(dev):
+    """two-tower retrieval on the card runs knn_scan + knn_merge (metric ip)
+    and equals the plain chunk_step on the same user rows: integer-valued
+    candidates over 8 and a user vector rounded to 1/8, so every inner
+    product is exact and both sides hold the same scores and indices."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fqsd import chunk_step
+    from repro_torch.core.topk import empty_topk
+    from repro_torch.models import recsys as R
+
+    cfg = get_config("two-tower-retrieval").smoke_model
+    p = R.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    cand = torch.randint(-64, 65, (50_000, cfg.tower_mlp[-1]), generator=g, device=dev) / 8
+    users = torch.tensor([3, 500], dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    got = R.retrieve_topk(p, cfg, users, cand, 100)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] == 1
+    with torch.no_grad():
+        u = torch.round(R._two_tower_embed(p, cfg, users, "user_tower") * 8) / 8
+    got = R.mips_topk(u, cand, 100)
+    want = chunk_step(empty_topk((2,), 100, device=dev), u, cand, None, 0, cand.shape[0], "ip")
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+
+
+@pytest.mark.parametrize("arch_id,shape", [("dlrm-rm2", "train_batch"), ("bst", "train_batch"),
+                                           ("meshgraphnet", "full_graph_sm"),
+                                           ("meshgraphnet", "molecule")])
+def test_recsys_and_gnn_train_steps_on_the_card_equal_the_cpu(dev, arch_id, shape):
+    """A smoke train step from the same params, moments and batch on the
+    card and on the CPU (TF32 off): the loss within 1e-5 relative, the
+    params after the step within 1e-6 plus 1e-5 of each leaf's largest
+    value (the card's scatters sum with atomics, in no fixed order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import demo
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch = get_config(arch_id)
+    cell, args = demo.materialize(arch, arch.shape(shape), device=dev)
+    host = tree_map(lambda t: t.detach().to("cpu", copy=True).requires_grad_(t.requires_grad),
+                    args)
+    p, _, m = cell.fn(*args)
+    hp, _, hm = cell.fn(*host)
+    assert abs(float(m["loss"]) - float(hm["loss"])) <= 1e-5 * abs(float(hm["loss"]))
+    for a, b in zip(tree_leaves(p), tree_leaves(hp)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=1e-6 + 1e-5 * float(b.detach().abs().max()))

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ALL_ARCHS as J_ALL
 from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED
 from repro.configs import get_config as jget_config
 from repro.models import layers as JL
@@ -106,10 +107,13 @@ def test_config_fields_equal_the_reference(arch):
 
 
 def test_registry_is_the_reference_less_what_is_not_ported():
-    assert ASSIGNED_ARCHS == tuple(a for a in J_ASSIGNED if a in ALL_ARCHS) == LM_ARCHS
-    assert set(ALL_ARCHS) == set(LM_ARCHS) | {"knn-search"}
-    with pytest.raises(KeyError, match="unknown arch 'dlrm-rm2'; known: "):
-        get_config("dlrm-rm2")
+    """Every architecture is ported: the registry is the reference's, in its
+    order, and an unknown id raises."""
+    assert ASSIGNED_ARCHS == tuple(J_ASSIGNED)
+    assert ASSIGNED_ARCHS[:5] == LM_ARCHS
+    assert ALL_ARCHS == tuple(J_ALL)
+    with pytest.raises(KeyError, match="unknown arch 'resnet-50'; known: "):
+        get_config("resnet-50")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

@@ -25,7 +25,8 @@ same seeded numpy inputs through both packages:
   biases of the reference move while ``final_norm``'s (d,) does not.
 * the schedules at steps 0..N, within ``rtol=1e-6`` (f32 transcendentals
   of two libraries);
-* ``compress_int8`` bit-equal (the codes and scales of the same f32 math).
+* ``compress_int8`` bit-equal (the codes and scales of the same f32 math);
+* the row-chunked update of a large leaf bit-equal to the whole-leaf one.
 """
 from __future__ import annotations
 
@@ -246,3 +247,34 @@ def test_weight_decay_goes_by_the_reference_rank():
     np.testing.assert_array_equal(u["layers.1.attn.bk"].numpy(), np.asarray(ju["layers"]["attn"]["bk"][1]))
     for got, want in zip(tree_leaves(state_to_numpy(u)), jax.tree.leaves(ju)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("moments", ["f32", "bf16", "int8"])
+def test_row_chunked_update_is_bit_equal_to_the_whole_leaf(moments, monkeypatch):
+    """A leaf of more than CHUNK_ELEMS elements is updated in row chunks
+    (a full-size embedding table's f32 temporaries would not fit beside
+    it). With the chunk forced to 7 rows of a (50, 6) table (8 chunks, the
+    last short), a (50, 1) table and a (3, 4, 5) leaf, the updates, the
+    moments and the params after three steps are bit-equal to the
+    whole-leaf update's; the 0-d and 1-d leaves are never split."""
+    rng = np.random.default_rng(11)
+    shapes = {"table": (50, 6), "wide": (50, 1), "stack": (3, 4, 5), "b": (6,), "bias": ()}
+    init = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, grad_clip=1.0, moment_dtype=moments)
+    runs = []
+    for chunk in (A.CHUNK_ELEMS, 42):
+        monkeypatch.setattr(A, "CHUNK_ELEMS", chunk)
+        p = {k: torch.from_numpy(v.copy()) for k, v in init.items()}
+        st = adamw_init(p, cfg)
+        us = []
+        for step in range(3):
+            g = {k: torch.from_numpy(np.random.default_rng(step).standard_normal(s)
+                                     .astype(np.float32)) for k, s in shapes.items()}
+            u, st = adamw_update(g, st, p, cfg)
+            us.append(u)
+            p = apply_updates(p, u)
+        runs.append((us, st, p))
+    assert A._chunk_rows(runs[1][2]["table"]) == 7
+    (us0, st0, p0), (us1, st1, p1) = runs
+    for a, b in zip(tree_leaves((us0, st0, p0)), tree_leaves((us1, st1, p1))):
+        assert a.dtype == b.dtype and torch.equal(a, b)

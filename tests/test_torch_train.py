@@ -294,8 +294,18 @@ def test_materialize_draws_the_reference_batch():
 
 
 def test_gnn_and_recsys_cells_wait_for_their_models():
-    arch = dataclasses.replace(get_config("minicpm-2b"), family="gnn")
-    with pytest.raises(NotImplementedError, match="A11c"):
+    """The models are ported: build_cell builds every GNN and recsys shape
+    (smoke=True), with the reference cell's kind and meta, and an unknown
+    family still raises."""
+    for arch_id in ("meshgraphnet", "dlrm-rm2", "two-tower-retrieval", "bst", "wide-deep"):
+        arch, jarch = get_config(arch_id), jget_config(arch_id)
+        for shape in arch.shapes:
+            cell = S.build_cell(arch, shape, smoke=True)
+            jcell = JS.build_cell(jarch, jarch.shape(shape.name), smoke=True)
+            assert (cell.kind, cell.meta) == (jcell.kind, jcell.meta)
+            assert all(t.device.type == "meta" for t in tree_leaves(cell.inputs))
+    arch = dataclasses.replace(get_config("minicpm-2b"), family="vision")
+    with pytest.raises(ValueError, match="vision"):
         S.build_cell(arch, arch.shape("train_4k"))
 
 
@@ -422,6 +432,12 @@ def test_entry_points_need_a_card_unless_told_cpu():
         DataPipeline([np.zeros(2)])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "minicpm-2b", "--smoke", "--steps", "1"])
+    for arch_id, shape in (("dlrm-rm2", "serve_p99"), ("meshgraphnet", "molecule")):
+        arch = get_config(arch_id)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            materialize(arch, arch.shape(shape))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", arch_id, "--smoke", "--steps", "1"])
 
 
 # -------------------------------------------------------- CLI and example
@@ -437,6 +453,28 @@ def test_train_cli_recovers_an_injected_failure(tmp_path, capsys):
     assert sorted(p.name for p in (tmp_path / "ck").glob("step_*")) == \
         ["step_00000010", "step_00000012"]
     assert str(train.DEFAULT_CKPT_DIR).endswith("build/train_ckpt")
+
+
+@pytest.mark.parametrize("arch_id,steps,interval,fail,kept", [
+    ("dlrm-rm2", 12, 10, 5, ["step_00000010", "step_00000012"]),
+    # the smoke full_graph_sm cell scatters 131,072 edges: fewer steps
+    ("meshgraphnet", 7, 2, 3, ["step_00000006", "step_00000007"]),
+])
+def test_train_cli_recovers_a_recsys_and_a_gnn_failure(tmp_path, capsys, arch_id, steps,
+                                                        interval, fail, kept):
+    from repro_torch.launch import train
+
+    report = train.main(["--arch", arch_id, "--smoke", "--device", "cpu", "--steps", str(steps),
+                         "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-interval", str(interval),
+                         "--inject-failure", str(fail)])
+    out = capsys.readouterr().out.splitlines()
+    assert report.restarts == 1 and report.steps_done == steps
+    assert re.fullmatch(rf"arch={arch_id} steps={steps} restarts=1 stragglers=\d+ wall=\S+s",
+                        out[-2])
+    replayed = fail - (fail // interval) * interval  # steps redone from the last save
+    assert out[-1].startswith("loss trajectory: [") and len(report.losses) == steps + replayed
+    assert all(np.isfinite(report.losses))
+    assert sorted(p.name for p in (tmp_path / "ck").glob("step_*")) == kept
 
 
 def test_train_cli_batches_are_the_reference_materialize_batches():
