@@ -352,6 +352,37 @@ Phases, in order (any failure makes the run exit non-zero):
              sampling ms a subgraph, the bound (model FLOPs over the f32
              peak); (c) examples/torch_gnn_world_edges.py as a subprocess:
              exit 0, its edge counts and finite=True.
+18. model_mesh — the substrate on a mesh of logical positions on the one
+             card (repro_torch.runtime.sharding / .elastic, the islands of
+             repro_torch.models), each cell through launch.steps'
+             build_cell / launch.demo's materialize under use_mesh:
+             (a) qwen3-moe-30b-a3b at full width cut to 2 layers (128
+             experts top 8, GQA 32/4), its decode_32k cell (batch 128, a
+             32,768-position cache drawn at random) on (data=2, model=8) of
+             ["cuda:0"] * 16: 16 experts a position and the cache sharded
+             on its sequence (4 % 8 != 0), both islands counted each layer;
+             the logits within MESH_MOE_TOL of the meshless cell on the
+             card, next tokens equal wherever the meshless top two logits
+             are more than it apart, the largest gap printed beside it;
+             (b) dlrm-rm2 at full size (the 8.64 GB fused table) on (data=1,
+             model=8): serve_p99 (batch 512) bit-identical to the meshless
+             cell; one train_batch step (65,536) whose loss and parameters
+             are within twice the spread of two meshless steps (measured
+             first: the table gradient accumulates with atomics); (c)
+             knn-search's gist_fqsd and msmarco_fdsq at full size and
+             yfcc_ring / yfcc_ring_q with N cut to 1,048,576 rows (the full
+             100,000,000 are 1.64 TB) on (data=2, model=2), integer-valued
+             data made on the card: values and indices bit-identical to the
+             meshless cell, the kernels counted and timed at the block
+             shapes; (d) two-tower retrieval_cand (1 x 1,000,000 x 256, k =
+             100; the table cut to 65,536 rows, which only the user's row
+             reads) on (data=1, model=4): the candidates row-sharded through
+             fdsq_sharded(metric="ip"), bit-identical to the meshless
+             retrieval; (e) (a)'s parameters placed under its cell's
+             in_specs on its (2, 8) mesh, saved under build/, restored with
+             shardings= on remesh(8 positions) = (1, 8), saved, restored on
+             remesh(16) = (1, 16): every leaf bitwise the original; the
+             directory deleted.
 
 Phases 3-10, 12, 13 and 16 (c) are the main path of the kernels (phase 11
 measures tuning, and its launches enter no entry; phase 10's launches are
@@ -570,6 +601,24 @@ RECSYS = dict(seed=0, archs=("dlrm-rm2", "two-tower-retrieval", "bst", "wide-dee
 GNN = dict(arch="meshgraphnet", seed=0, cut_layers=2, cut_shape="full_graph_sm",
            shapes=("full_graph_sm", "molecule", "minibatch_lg"), steps=4,
            example="torch_gnn_world_edges", example_timeout_s=300)
+#: phase 18: the substrate on a mesh of logical positions: (a) the MoE arch
+#: cut to "layers" on its "shape" cell over "mesh"; (b) "table" at full
+#: size; (c) the kNN cells of "knn" ("cut" rows for the ring shapes); (d)
+#: two-tower retrieval with its table cut to "cut_rows"; (e) the elastic
+#: round trip of (a)'s parameters between "elastic" positions, under "ckpt"
+MODEL_MESH = dict(seed=0, moe=dict(arch="qwen3-moe-30b-a3b", layers=2, shape="decode_32k",
+                                   mesh=(2, 8)),
+                  table=dict(arch="dlrm-rm2", mesh=(1, 8)),
+                  knn=dict(mesh=(2, 2), shapes=("gist_fqsd", "msmarco_fdsq", "yfcc_ring",
+                                                "yfcc_ring_q"), cut=1 << 20, seed=5),
+                  retrieval=dict(arch="two-tower-retrieval", mesh=(1, 4), cut_rows=1 << 16),
+                  elastic=(16, 8), ckpt="build/model_mesh_ckpt")
+#: Phase 18 (a)'s logit gate: the mesh's bf16 combine rounds each position's
+#: expert sum to bf16 before the sum over positions (the meshless path
+#: rounds once), a step of 2^-8 relative in the residual stream, which the
+#: next layer's router and head carry to the logits as phase 14's bf16
+#: differences do
+MESH_MOE_TOL = LM_BF16_TOL
 #: Phases 16 and 17's card-against-CPU gate, relative to each leaf's largest
 #: value: f32 sums in other orders (the card's scatters use atomics)
 MODEL_TOL = 1e-4
@@ -3278,7 +3327,7 @@ class Smoke:
                     f"bound_ms={e['bound_ms']:.4f} ({e['bound_by']}) "
                     f"max|d| vs plain={e['max_abs_err']:.3e} [{self.card}]")
 
-    def _mesh_f32_shapes(self, label, qv, ds, k, launches) -> list[dict]:
+    def _mesh_f32_shapes(self, label, qv, ds, k, launches, d=None) -> list[dict]:
         """The kernels of one f32 mesh search at the shapes it gives them,
         on blocks 0 and 1: "/block", knn_scan over a block's aligned rows
         and the knn_merge of its scans' queues into the position's queue
@@ -3290,7 +3339,7 @@ class Smoke:
         split by the schedule: each position step one scan of each part and
         one block merge, the other merges hierarchical."""
         torch, K, ops = self.torch, self.K, self.ops
-        d, m = MESH["d"], qv.shape[0]
+        d, m = d or MESH["d"], qv.shape[0]
         x, xn = ds.vectors.local[0], ds.norms.local[0]
         parts = ops.shard_parts(x.shape[0], k, x.shape[1])
         steps = launches["knn_scan"] // len(parts)
@@ -4815,6 +4864,393 @@ class Smoke:
             log(err[-4000:])
         return good
 
+    # ------------------------------------------------------------ model_mesh
+    def phase_model_mesh(self) -> bool:
+        """The substrate on a mesh of logical positions: (a) the MoE and
+        flash-decode islands, (b) the row-sharded table, (c) the kNN cells,
+        (d) the sharded retrieval, (e) the elastic round trip."""
+        ok = True
+        state = {}
+        # (e) right after (a): it takes (a)'s parameters and frees them
+        for step in (self._mm_islands, self._mm_elastic, self._mm_table, self._mm_knn,
+                     self._mm_retrieval):
+            t0 = time.perf_counter()
+            ok &= step(state)
+            log(f"model_mesh: {step.__name__} {time.perf_counter() - t0:.1f} s [{self.card}]")
+            self._free()
+        return ok
+
+    def _logical_mesh(self, shape):
+        from repro_torch.core.mesh import make_mesh
+
+        return make_mesh(shape, ("data", "model"), devices=[self.dev] * math.prod(shape))
+
+    @contextlib.contextmanager
+    def _island_calls(self):
+        """Count the calls of the two islands of repro_torch.models.layers."""
+        from repro_torch.models import layers as L
+
+        calls = {"_flash_decode_sharded": 0, "_moe_manual": 0}
+        saved = {name: getattr(L, name) for name in calls}
+
+        def counted(name):
+            def fn(*a, **kw):
+                calls[name] += 1
+                return saved[name](*a, **kw)
+            return fn
+
+        for name in calls:
+            setattr(L, name, counted(name))
+        try:
+            yield calls
+        finally:
+            for name, fn in saved.items():
+                setattr(L, name, fn)
+
+    @contextlib.contextmanager
+    def _route_sets(self):
+        """Record every routing of repro_torch.models.layers (the meshless
+        MoE's and each island position's): each token's top-k expert set
+        (sorted) and the gap between its k-th and (k+1)-th probability."""
+        torch = self.torch
+        from repro_torch.models import layers as L
+
+        calls, orig = [], L._route
+
+        def traced(xf, router, top_k):
+            probs, gate_vals, gate_idx = orig(xf, router, top_k)
+            vals = torch.sort(probs, dim=-1, descending=True, stable=True).values
+            calls.append((gate_idx.sort(-1).values, vals[:, top_k - 1] - vals[:, top_k]))
+            return probs, gate_vals, gate_idx
+
+        L._route = traced
+        try:
+            yield calls
+        finally:
+            L._route = orig
+
+    def _mm_islands(self, state) -> bool:
+        """(a) the MoE arch's decode cell on the (2, 8) mesh against itself
+        meshless on the card, at a capacity factor of E / top_k (no
+        assignment dropped on either path: the island's capacity is its own
+        data block's, as in the reference, so drops would differ by
+        design). A token whose top-k experts differ between the two runs in
+        any layer (the bf16 combine moves the next layer's router input by
+        a bf16 step) is left out of the gates, as phase lm leaves out its
+        MoE flips; their count and meshless k-th gaps are printed."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.mesh import use_mesh
+        from repro_torch.launch import demo
+        from repro_torch.launch.steps import build_cell
+
+        c = MODEL_MESH["moe"]
+        full = get_config(c["arch"])
+        cfg = dataclasses.replace(full.model, n_layers=c["layers"], capacity_factor=(
+            full.model.n_experts / full.model.expert_top_k))
+        arch = dataclasses.replace(full, model=cfg)
+        shape = arch.shape(c["shape"])
+        cell, (p, cache, tok) = demo.materialize(arch, shape, smoke=False,
+                                                 seed=MODEL_MESH["seed"], device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(MODEL_MESH["seed"])
+        for t in (cache["k"], cache["v"]):
+            t.normal_(generator=g)
+        mcache = {"k": cache["k"].clone(), "v": cache["v"].clone(), "len": cache["len"]}
+        mesh = self._logical_mesh(c["mesh"])
+        with use_mesh(mesh):
+            mcell = build_cell(arch, shape)
+        with self._route_sets() as plain_routes:
+            want, _ = cell.fn(p, cache, tok)
+        with use_mesh(mesh), self._island_calls() as calls, self._route_sets() as mesh_routes:
+            got, _ = mcell.fn(p, mcache, tok)
+        self.sync()
+        # the mesh routes a layer: data blocks x model positions, each block's
+        # routing the same at every model position
+        tp, per = mesh.shape["model"], len(mesh_routes) // cfg.n_layers
+        flips = torch.zeros(tok.shape[0], dtype=torch.bool, device=self.dev)
+        gaps = []
+        for layer in range(cfg.n_layers):
+            sets = torch.cat([mesh_routes[layer * per + i * tp][0] for i in range(per // tp)])
+            here = (sets != plain_routes[layer][0]).any(-1)
+            flips |= here
+            gaps.append(plain_routes[layer][1][here])
+        gaps = torch.cat(gaps)
+        keep = ~flips
+        ms_plain = self.ms(lambda: cell.fn(p, cache, tok), repeats=3)
+        with use_mesh(mesh):
+            ms_mesh = self.ms(lambda: mcell.fn(p, mcache, tok), repeats=3)
+        err = self._logits_err(got, want, keep)
+        top = want.topk(2, dim=-1).values
+        sure = ((top[:, 0] - top[:, 1]) > MESH_MOE_TOL) & keep
+        same = got.argmax(-1) == want.argmax(-1)
+        tokens_ok = bool((same | ~sure).all())
+        islands = calls == {"_flash_decode_sharded": c["layers"], "_moe_manual": c["layers"]}
+        ok = err <= MESH_MOE_TOL and tokens_ok and islands and bool(torch.isfinite(
+            got[:, :cfg.vocab]).all())
+        kv = mcell.in_specs[1]["k"]
+        log(f"model_mesh (a) {cfg.name} cut to {cfg.n_layers} of {full.model.n_layers} layers, "
+            f"{shape.name} (batch {tok.shape[0]}, cache {tuple(cache['k'].shape)} "
+            f"{cache['k'].dtype}, {2 * cache['k'].numel() * 2 / 1e9:.2f} GB, len "
+            f"{cache['len']}) on {mesh.shape} of {self.dev} x {mesh.size}: cache spec {kv}, "
+            f"{cfg.n_experts // mesh.shape['model']} experts a position, capacity factor "
+            f"{cfg.capacity_factor} (no drops); island calls {calls}; tokens whose top-"
+            f"{cfg.expert_top_k} experts differ in some layer: {int(flips.sum())} (meshless k-th "
+            f"gaps there {[round(float(g), 6) for g in gaps[:8]]}), left out; max|mesh - "
+            f"meshless| over the other {int(keep.sum())} tokens' logits {err:.4e} (tol "
+            f"{MESH_MOE_TOL}); next tokens equal {int(same.sum())}/{same.numel()} "
+            f"({int(sure.sum())} kept with a top-2 margin over the tol, all equal: {tokens_ok}); "
+            f"decode step {ms_mesh:.2f} ms on the mesh, "
+            f"{ms_plain:.2f} ms meshless (CUDA events, median of 3); ok={ok} [{self.card}]")
+        state["moe"] = (p, mcell, cfg, mesh)
+        del cache, mcache, want, got
+        return ok
+
+    def _mm_table(self, state) -> bool:
+        """(b) dlrm-rm2 at full size on (1, 8): serve_p99 bit-identical, one
+        train step within the meshless spread."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.mesh import use_mesh
+        from repro_torch.launch import demo
+        from repro_torch.launch.steps import build_cell
+
+        c = MODEL_MESH["table"]
+        arch = get_config(c["arch"])
+        mesh = self._logical_mesh(c["mesh"])
+        seed = MODEL_MESH["seed"]
+        shape = arch.shape("serve_p99")
+        cell, (p, batch) = demo.materialize(arch, shape, smoke=False, seed=seed, device=self.dev)
+        want = cell.fn(p, batch)
+        with use_mesh(mesh):
+            mcell = build_cell(arch, shape)
+            got = mcell.fn(p, batch)
+            ms_mesh = self.ms(lambda: mcell.fn(p, batch))
+        ms_plain = self.ms(lambda: cell.fn(p, batch))
+        serve_ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        log(f"model_mesh (b) {arch.arch_id} serve_p99 (batch {batch['sparse'].shape[0]}) on "
+            f"{mesh.shape}: table {tuple(p['embed'].shape)} spec {mcell.in_specs[0]['embed']}, "
+            f"bit-identical to the meshless cell: {serve_ok}; {ms_mesh:.4f} ms a call on the "
+            f"mesh, {ms_plain:.4f} ms meshless (CUDA events, median of {REPEATS}) "
+            f"[{self.card}]")
+        del p, batch, want, got
+        self._free()
+
+        shape = arch.shape("train_batch")
+
+        def step(on_mesh):
+            ctx = use_mesh(mesh) if on_mesh else contextlib.nullcontext()
+            with ctx:
+                cell, (p, opt, batch) = demo.materialize(arch, shape, smoke=False, seed=seed,
+                                                         device=self.dev)
+                self.sync()
+                t0 = time.perf_counter()
+                p, opt, metrics = cell.fn(p, opt, batch)
+                loss = float(metrics["loss"])
+                t = (time.perf_counter() - t0) * 1e3
+            del opt, batch
+            return loss, p, t
+
+        loss_a, p_a, t_a = step(False)
+        self._free()
+        loss_b, p_b, t_b = step(False)
+        spread, at = self._tree_err(p_b, p_a)
+        del p_b
+        self._free()
+        loss_c, p_c, t_c = step(True)
+        err, at_c = self._tree_err(p_c, p_a)
+        del p_c, p_a
+        loss_spread, loss_err = abs(loss_b - loss_a), abs(loss_c - loss_a)
+        train_ok = err <= 2 * spread and loss_err <= 2 * loss_spread
+        log(f"model_mesh (b) {arch.arch_id} train_batch ({shape['batch']:,}) one step from the "
+            f"seed's state: two meshless steps differ by {spread:.3e} of a leaf's largest value "
+            f"({at or 'every leaf equal'}), loss {loss_a!r} / "
+            f"{loss_b!r}; the step on {mesh.shape} differs from the first by {err:.3e} "
+            f"({at_c or 'every leaf equal'}), loss {loss_c!r} (gate: within twice the meshless "
+            f"spread): {train_ok}; "
+            f"step ms (first step, host clock) meshless {t_a:.1f} / {t_b:.1f}, mesh {t_c:.1f} "
+            f"[{self.card}]")
+        return serve_ok and train_ok
+
+    def _knn_data(self, cell, d, seed):
+        """Integer-valued queries and rows of the cell's padded shapes (the
+        columns past d zero), made on the card in row chunks, and exact
+        norms."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        (m, dp), (n, _) = cell.inputs[0].shape, cell.inputs[1].shape
+        q = torch.zeros((m, dp), device=self.dev)
+        q[:, :d] = torch.randint(-4, 5, (m, d), generator=g, device=self.dev,
+                                 dtype=torch.float32)
+        x = torch.zeros((n, dp), device=self.dev)
+        xn = torch.empty(n, device=self.dev)
+        step = 1 << 18
+        for a in range(0, n, step):
+            b = min(n, a + step)
+            x[a:b, :d] = torch.randint(-4, 5, (b - a, d), generator=g, device=self.dev,
+                                       dtype=torch.float32)
+            xn[a:b] = torch.sum(x[a:b] * x[a:b], dim=-1)
+        x[n // 2] = x[7]  # a duplicate row: a tie decided by index
+        xn[n // 2] = xn[7]
+        q[0] = x[7]
+        return q, x, xn
+
+    def _mm_knn(self, state) -> bool:
+        """(c) the kNN cells on (2, 2), bit-identical to the meshless cells."""
+        torch = self.torch
+        import dataclasses
+        from types import SimpleNamespace
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.mesh import use_mesh
+        from repro_torch.core.sharded import shard_dataset
+        from repro_torch.launch.steps import build_cell
+
+        c = MODEL_MESH["knn"]
+        arch = get_config("knn-search")
+        mesh = self._logical_mesh(c["mesh"])
+        ok = True
+        for name in c["shapes"]:
+            shape = arch.shape(name)
+            cut = ""
+            if shape.kind in ("knn_ring", "knn_ring_q"):
+                shape = dataclasses.replace(shape, dims={**shape.dims, "n": c["cut"]})
+                cut = f", N cut from {arch.shape(name)['n']:,} to {c['cut']:,}"
+            with use_mesh(mesh):
+                mcell = build_cell(arch, shape)
+            d, k = shape["d"], shape["k"]
+            q, x, xn = self._knn_data(mcell, d, c["seed"])
+            want = build_cell(arch, shape).fn(q, x, xn)
+            self.sync()
+            with use_mesh(mesh):
+                got, launches = self._counted(lambda: mcell.fn(q, x, xn))
+                ms_mesh = self.ms(lambda: mcell.fn(q, x, xn), repeats=3)
+            same = torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+            axes = (("model",) if shape.kind == "knn_fqsd" else
+                    ("data", "model") if shape.kind == "knn_fdsq" else ("data", "model"))
+            v, n_ = shard_dataset(mesh, x, xn, axes)
+            qb = q if shape.kind == "knn_fdsq" else q[: q.shape[0] // mesh.shape["data"]]
+            label = f"model_mesh_{name}_{mesh.shape['data']}x{mesh.shape['model']}"
+            shapes = self._mesh_f32_shapes(label, qb, SimpleNamespace(vectors=v, norms=n_), k,
+                                           launches, d=d)
+            for sh in shapes:
+                sh["search_ms"] = ms_mesh
+            self.shapes.extend(shapes)
+            good = same and launches["knn_scan"] > 0 and launches["knn_merge"] > 0
+            ok &= good
+            log(f"model_mesh (c) {name} ({shape.kind}: n {x.shape[0]:,} x {x.shape[1]} padded, "
+                f"m {q.shape[0]}, k {k}{cut}; {x.numel() * 4 / 1e9:.2f} GB) on {mesh.shape}, "
+                f"in_specs {list(mcell.in_specs)}: launches {launches}; values and indices "
+                f"bit-identical to the meshless cell: {same}; {ms_mesh:.3f} ms a search on the "
+                f"mesh (median of 3) [{self.card}]")
+            del q, x, xn, v, n_, got, want
+            self._free()
+        return ok
+
+    def _mm_retrieval(self, state) -> bool:
+        """(d) two-tower retrieval_cand on (1, 4): candidates P(rows, None)
+        through fdsq_sharded(metric="ip"), bit-identical to the meshless
+        retrieval on the kernel."""
+        torch = self.torch
+        import dataclasses
+
+        from repro_torch.configs import get_config
+        from repro_torch.core.mesh import use_mesh
+        from repro_torch.launch import demo
+        from repro_torch.launch.steps import build_cell
+        from repro_torch.models import recsys as R
+
+        c = MODEL_MESH["retrieval"]
+        full = get_config(c["arch"])
+        cfg = dataclasses.replace(full.model, table_sizes=tuple(
+            min(s, c["cut_rows"]) for s in full.model.table_sizes))
+        arch = dataclasses.replace(full, model=cfg)
+        shape = arch.shape("retrieval_cand")
+        cell, (p, uid, cand) = demo.materialize(arch, shape, smoke=False,
+                                                seed=MODEL_MESH["seed"], device=self.dev)
+        want, plain_launches = self._counted(lambda: cell.fn(p, uid, cand))
+        mesh = self._logical_mesh(c["mesh"])
+        with use_mesh(mesh):
+            mcell = build_cell(arch, shape)
+            got, launches = self._counted(lambda: mcell.fn(p, uid, cand))
+            ms_mesh = self.ms(lambda: mcell.fn(p, uid, cand))
+        ms_plain = self.ms(lambda: cell.fn(p, uid, cand))
+        same = torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+        with torch.no_grad():
+            u = R._two_tower_embed(p, cfg, uid, "user_tower")
+        block = cand.shape[0] // mesh.shape["model"]
+        label = (f"model_mesh_retrieval_m{u.shape[0]}_n{block}_of_{cand.shape[0]}_"
+                 f"d{cand.shape[1]}_k100")
+        ok = self._retrieval_kernels(label, u, cand[:block], 100, launches, ms_mesh)
+        log(f"model_mesh (d) {full.arch_id} retrieval_cand ({u.shape[0]} x {cand.shape[0]:,} x "
+            f"{cand.shape[1]}, k 100; table cut to {cfg.padded_rows:,} rows) on {mesh.shape}: "
+            f"candidates {mcell.in_specs[2]}, launches {launches} (meshless {plain_launches}); "
+            f"bit-identical to the meshless retrieval: {same}; {ms_mesh:.4f} ms a call on the "
+            f"mesh, {ms_plain:.4f} ms meshless [{self.card}]")
+        del p, uid, cand, u, got, want
+        return ok and same and launches["knn_merge"] == mesh.shape["model"] + 1
+
+    def _mm_elastic(self, state) -> bool:
+        """(e) (a)'s parameters placed on 16 positions, saved, restored on 8
+        with shardings=, saved, restored on 16: bitwise the original."""
+        torch = self.torch
+        import shutil
+
+        from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+        from repro_torch.runtime.elastic import remesh, reshard_tree
+        from repro_torch.runtime.sharding import NamedSharding, Sharded, sanitize_spec
+        from repro_torch.tree import Stack, reference_layout, tree_leaves, tree_map
+
+        if "moe" not in state:
+            log("model_mesh (e) needs (a)'s parameters")
+            return False
+        p, mcell, cfg, mesh16 = state.pop("moe")
+        layout = reference_layout(p)
+        specs = mcell.in_specs[0]
+        big, small = MODEL_MESH["elastic"]
+        root = Path(MODEL_MESH["ckpt"])
+        shutil.rmtree(root, ignore_errors=True)
+
+        def shardings(mesh):
+            sizes = dict(mesh.shape)
+            return tree_map(lambda x, sp: NamedSharding(mesh, sanitize_spec(
+                tuple(x.shape), sp, sizes)), layout, specs)
+
+        def whole(x):
+            if isinstance(x, Stack):
+                return torch.stack([whole(t) for t in x.parts])
+            return x.full() if isinstance(x, Sharded) else x
+
+        try:
+            t0 = time.perf_counter()
+            placed = reshard_tree(layout, specs, mesh16)  # (a)'s (2, 8) mesh
+            save_checkpoint(root / "a", 1, placed)
+            t_save = time.perf_counter() - t0
+            mesh8 = remesh([self.dev] * small)
+            t0 = time.perf_counter()
+            on8, _ = load_checkpoint(root / "a", placed, shardings=shardings(mesh8))
+            self.sync()
+            t_load = time.perf_counter() - t0
+            save_checkpoint(root / "b", 2, on8)
+            del on8
+            mesh16b = remesh([self.dev] * big)
+            back, _ = load_checkpoint(root / "b", placed, shardings=shardings(mesh16b))
+            same = all(torch.equal(whole(a).view(torch.int16) if a.dtype == torch.bfloat16
+                                   else whole(a), whole(b).view(torch.int16)
+                                   if b.dtype == torch.bfloat16 else whole(b))
+                       for a, b in zip(tree_leaves(layout), tree_leaves(back)))
+            nbytes = sum(t.numel() * t.element_size() for t in p.parameters())
+            log(f"model_mesh (e) {cfg.name} (2 layers, {nbytes / 1e9:.2f} GB): placed under "
+                f"the decode cell's in_specs on {mesh16.shape}, saved in {t_save:.1f} s, "
+                f"restored on remesh({small}) = {mesh8.shape} with shardings= in {t_load:.1f} s, "
+                f"saved, restored on remesh({big}) = {mesh16b.shape}: every leaf bitwise the "
+                f"original: {same} "
+                f"[{self.card}]")
+            return same
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
     def kernels_line(self) -> dict:
         """One entry per kernel: the main path's launches and times summed
         over its runs (one of each shape), per-shape numbers beside."""
@@ -5312,7 +5748,7 @@ class Listen:
 
 
 PHASES = ("exact", "gist", "msmarco", "int8", "streamed", "mmap", "mutate", "serve",
-          "listen", "tune", "kernels", "mesh", "lm", "train", "recsys", "gnn")
+          "listen", "tune", "kernels", "mesh", "lm", "train", "recsys", "gnn", "model_mesh")
 
 
 def main(argv=None) -> int:
@@ -5383,6 +5819,7 @@ def main(argv=None) -> int:
             failed.append(name)
         log(f"phase {name}: {time.perf_counter() - t1:.1f} s, "
             f"{'FAILED' if name in failed else 'ok'}")
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all, build included [{' '.join(smi)}]")
     if smoke is not None:
         log(json.dumps(smoke.kernels_line()))
     for line in smi:

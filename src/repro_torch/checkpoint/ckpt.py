@@ -21,6 +21,11 @@ its tensors in place) and writes the files on one worker thread.
 Restore writes into the template's tensors in place, as
 ``nn.Module.load_state_dict`` does, and returns the template: a template
 on the card takes its checkpoint without a second copy of the state there.
+With ``shardings=`` (a tree of ``runtime.sharding.NamedSharding`` or None
+over the template's reference layout) a leaf with a sharding comes back
+placed on its mesh (``runtime.sharding.Sharded``, one block a position),
+whatever mesh wrote it: the elastic restore of the reference. A placed
+leaf is saved whole (``Sharded.full()``), so the files stay full arrays.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import Stack, reference_layout, tree_leaves, tree_structure
+from repro_torch.runtime.sharding import Sharded, place
+from repro_torch.tree import Stack, reference_layout, tree_leaves, tree_map, tree_structure
 
 _executor = concurrent.futures.ThreadPoolExecutor(max_workers=1)
 _pending: list[concurrent.futures.Future] = []
@@ -54,6 +60,8 @@ def host_array(t) -> np.ndarray:
     a host numpy array of its own; bf16 as its uint16 bits."""
     if isinstance(t, Stack):
         return np.stack([host_array(p) for p in t.parts])
+    if isinstance(t, Sharded):
+        t = t.full()
     if isinstance(t, torch.Tensor):
         t = t.detach()
         if t.dtype == torch.bfloat16:
@@ -64,7 +72,7 @@ def host_array(t) -> np.ndarray:
 
 
 def dtype_name(t) -> str:
-    if isinstance(t, (torch.Tensor, Stack)):
+    if isinstance(t, (torch.Tensor, Stack, Sharded)):
         return _NAMES[t.dtype]
     return str(np.asarray(t).dtype)
 
@@ -79,13 +87,24 @@ def to_tensor(a: np.ndarray, dtype_name_: str) -> torch.Tensor:
 
 def fill(dst, src: torch.Tensor) -> None:
     """Copy ``src`` (a CPU tensor of the leaf's reference shape) into the
-    leaf ``dst`` in place, cast to its dtype (a :class:`Stack` part by part)."""
+    leaf ``dst`` in place, cast to its dtype (a :class:`Stack` part by part,
+    a placed leaf block by block)."""
     if isinstance(dst, Stack):
         for i, part in enumerate(dst.parts):
             fill(part, src[i])
         return
     with torch.no_grad():
-        dst.copy_(src.to(dst.dtype))
+        dst.copy_(src.to(dst.dtype))  # a Sharded's copy_ writes each block
+
+
+def _check(dst: list, leaves: list, what: str) -> None:
+    if len(dst) != len(leaves):
+        raise ValueError(f"{what} has {len(leaves)} leaves, template has {len(dst)}")
+    for i, (t, (shape, _, _)) in enumerate(zip(dst, leaves)):
+        if not isinstance(t, (torch.Tensor, Stack, Sharded)):
+            raise TypeError(f"leaf {i}: a template leaf is a tensor, not {type(t).__name__}")
+        if tuple(shape) != tuple(t.shape):
+            raise ValueError(f"leaf {i}: shape {tuple(shape)} != template {tuple(t.shape)}")
 
 
 def restore(template: Any, leaves: list, what: str = "the stored tree") -> Any:
@@ -94,16 +113,36 @@ def restore(template: Any, leaves: list, what: str = "the stored tree") -> Any:
     order, ``load()`` giving the host array; the count and every shape are
     checked before anything is written."""
     dst = tree_leaves(reference_layout(template))
-    if len(dst) != len(leaves):
-        raise ValueError(f"{what} has {len(leaves)} leaves, template has {len(dst)}")
-    for i, (t, (shape, _, _)) in enumerate(zip(dst, leaves)):
-        if not isinstance(t, (torch.Tensor, Stack)):
-            raise TypeError(f"leaf {i}: a template leaf is a tensor, not {type(t).__name__}")
-        if tuple(shape) != tuple(t.shape):
-            raise ValueError(f"leaf {i}: shape {tuple(shape)} != template {tuple(t.shape)}")
+    _check(dst, leaves, what)
     for t, (_, name, load) in zip(dst, leaves):
         fill(t, to_tensor(load(), name))
     return template
+
+
+def restore_sharded(template: Any, leaves: list, shardings: Any,
+                    what: str = "the stored tree") -> Any:
+    """:func:`restore` with ``shardings``, a tree over the template's
+    reference layout whose leaves are ``NamedSharding`` or None: a leaf
+    with a sharding is placed on its mesh in the template leaf's dtype (a
+    :class:`Stack` part by part), one without is restored in place.
+    Returns the reference layout with those leaves."""
+    layout = reference_layout(template)
+    _check(tree_leaves(layout), leaves, what)
+    it = iter(leaves)
+
+    def one(t, shd):
+        _, name, load = next(it)
+        src = to_tensor(load(), name)
+        if shd is None:
+            fill(t, src)
+            return t
+        if isinstance(t, Stack):
+            src = Stack(list(src.to(t.dtype)))
+        else:
+            src = src.to(t.dtype)
+        return place(src, shd.spec, shd.mesh)
+
+    return tree_map(one, layout, shardings)
 
 
 def save_checkpoint(
@@ -177,10 +216,17 @@ def load_checkpoint(
     directory: str | os.PathLike,
     template: Any,
     step: int | None = None,
+    shardings: Any = None,
 ) -> tuple[Any, dict]:
     """Restore into ``template``'s tensors in place (each leaf cast to the
     template's dtype, on its device) and return ``(template, manifest)``.
-    The leaf count and every shape are checked before anything is written."""
+    The leaf count and every shape are checked before anything is written.
+
+    ``shardings`` (optional: a tree of ``NamedSharding`` or None over the
+    template's reference layout) places each leaf that has one on its mesh
+    instead, whatever mesh wrote the checkpoint — the elastic restore
+    across device counts — and the tree returned is then the reference
+    layout (:func:`restore_sharded`)."""
     directory = pathlib.Path(directory)
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -190,5 +236,7 @@ def load_checkpoint(
 
     stored = [(meta["shape"], meta["dtype"], lambda i=i: np.load(path / f"arr_{i}.npy"))
               for i, meta in enumerate(manifest["leaves"])]
+    if shardings is not None:
+        return restore_sharded(template, stored, shardings, what="checkpoint"), manifest
     restore(template, stored, what="checkpoint")
     return template, manifest

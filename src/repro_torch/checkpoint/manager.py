@@ -44,14 +44,16 @@ class CheckpointManager:
             victim = self.saved_steps.pop(0)
             shutil.rmtree(self.dir / f"step_{victim:08d}", ignore_errors=True)
 
-    def restore_latest(self, template: Any):
+    def restore_latest(self, template: Any, shardings: Any = None):
         """Returns (template restored in place, step), or (template, 0) when
-        there is nothing to restore (the template untouched)."""
+        there is nothing to restore (the template untouched). With
+        ``shardings`` the leaves that have one come back placed on their
+        mesh (``ckpt.load_checkpoint``)."""
         ckpt.wait_for_pending()
         step = ckpt.latest_step(self.dir)
         if step is None:
             return template, 0
-        tree, manifest = ckpt.load_checkpoint(self.dir, template, step)
+        tree, manifest = ckpt.load_checkpoint(self.dir, template, step, shardings)
         return tree, manifest["step"]
 
     def finalize(self):

@@ -18,10 +18,20 @@ in for several with ``--xla_force_host_platform_device_count``.
 Meshes hash and compare by (device tuple, mesh shape, axis names), so an
 executor cache key ``(plan.cache_key(), mesh, axes)`` hits for two equal
 meshes as it does in the reference.
+
+:func:`use_mesh` makes a mesh the active one of its thread, as the
+reference's ``compat.use_mesh`` does; :func:`current_mesh` reads it (the
+reference's ``compat.get_abstract_mesh``). The model code of
+``repro_torch.models`` and the cells of ``repro_torch.launch.steps`` read
+the active mesh to pick their sharded branches. A mesh of ``"meta"``
+positions places nothing and computes nothing: the dry run builds its
+cells under one.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -61,6 +71,11 @@ class Mesh:
     def shape(self) -> dict[str, int]:
         """Axis name -> size, in axis order (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def axis_sizes(self) -> tuple[int, ...]:
+        """Axis sizes in axis order (``jax.sharding.AbstractMesh.axis_sizes``)."""
+        return tuple(self.devices.shape)
 
     @property
     def size(self) -> int:
@@ -105,4 +120,25 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], devices=None) -> Mesh:
     return Mesh(arr.reshape(shape), axes)
 
 
-__all__ = ["Mesh", "make_mesh"]
+_local = threading.local()
+
+
+def current_mesh() -> Mesh | None:
+    """The mesh :func:`use_mesh` made active on this thread, or None
+    (``repro.compat.get_abstract_mesh``)."""
+    return getattr(_local, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Mesh | None):
+    """Make ``mesh`` the active mesh of this thread for the enclosed block
+    (``repro.compat.use_mesh``); ``None`` makes the block meshless."""
+    prev = current_mesh()
+    _local.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _local.mesh = prev
+
+
+__all__ = ["Mesh", "make_mesh", "current_mesh", "use_mesh"]

@@ -19,7 +19,9 @@ layers stacked on a leading axis, as the reference's ``jax.vmap(init_proc)``
 does, and ``apply`` loops over them. With ``cfg.remat`` and grad enabled
 each layer runs under ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint`` of its scan body). ``scan_unroll`` is the reference's
-dry-run knob; the port loops and ignores it.
+dry-run knob; the port loops and ignores it. The reference's
+``shard(..., "edges", None)`` constraints are kept where it has them, for
+the reader: they leave values as they are (``runtime.sharding``).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.layers import dense_init, draw_device
+from repro_torch.runtime.sharding import shard
 from repro_torch.tree import tree_map, value_and_grad as _value_and_grad
 
 F32 = torch.float32
@@ -128,7 +131,7 @@ def _aggregate(messages, dst, n_nodes, aggregator, edge_mask=None):
 def _proc(cfg, lp, x, e, snd, rcv, mask):
     """One processor layer: edge update, aggregate, node update."""
     inp = torch.cat([e, x[snd], x[rcv]], dim=-1)
-    e_new = e + _mlp(lp["edge_mlp"], inp)
+    e_new = e + _mlp(lp["edge_mlp"], shard(inp, "edges", None))
     agg = _aggregate(e_new, rcv, x.shape[0], cfg.aggregator, mask)
     x_new = x + _mlp(lp["node_mlp"], torch.cat([x, agg], dim=-1))
     return x_new, e_new
@@ -144,6 +147,7 @@ def apply(params, cfg: GNNConfig, graph: dict) -> torch.Tensor:
     snd = graph["senders"].long()
     rcv = graph["receivers"].long()
     mask = graph.get("edge_mask")
+    e = shard(e, "edges", None)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         lp = tree_map(lambda t, i=i: t[i], params["procs"])

@@ -8,19 +8,27 @@ a plain dict of tensors: ``attention(params, x, positions, ...)``. The
 functions are the reference's arithmetic op for op, with its casts: f32
 norms, RoPE and softmax, bf16 products widened after rounding.
 
-Only the meshless paths are here: the port's layers take no mesh, so the
-reference's sharding constraints (identity without a mesh) are dropped and
-its sharded branches (``_flash_decode_sharded``, ``_moe_manual``) are not
-offered.
+On a mesh made active with ``repro_torch.core.mesh.use_mesh`` the layers
+take the reference's sharded branches where it takes them:
+``decode_attention`` a distributed flash-decode over a sequence-sharded
+cache (``_flash_decode_sharded``) and ``moe`` the expert-parallel island
+(``_moe_manual``). Each runs the reference's ``shard_map`` body position
+by position on the position's blocks and device, its collectives (``pmax``,
+``psum``, ``pmean``) explicit reductions over the positions between two
+loops; everything else computes on the global tensors (see
+``runtime.sharding``). Without a mesh the paths are the meshless ones.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.mesh import current_mesh
 
 
 class ParamModule(nn.Module):
@@ -140,6 +148,26 @@ def _repeat_kv(t: torch.Tensor, rep: int) -> torch.Tensor:
     return t if rep == 1 else torch.repeat_interleave(t, rep, dim=2)
 
 
+def _decode_scores(q, k, rep: int) -> torch.Tensor:
+    """(B, 1, H, dh) queries against (B, S, KVH, dh) keys: (B, H, 1, S) f32
+    logits, query head h reading KV head h // rep, without materialising
+    the repeated keys (a decode cache is S long: at 32,768 positions and
+    batch 128 the repeat alone would take tens of GB)."""
+    b, one, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, one, kvh, rep, dh)
+    return torch.einsum("bqgrd,bkgd->bgrqk", qg, k).to(torch.float32).reshape(
+        b, h, one, k.shape[1])
+
+
+def _decode_values(p, v, rep: int) -> torch.Tensor:
+    """(B, H, 1, S) weights over (B, S, KVH, dh) values: (B, 1, H, dh)."""
+    b, h, one, s = p.shape
+    kvh = v.shape[2]
+    pg = p.reshape(b, kvh, rep, one, s)
+    return torch.einsum("bgrqk,bkgd->bqgrd", pg, v).reshape(b, one, h, v.shape[-1])
+
+
 def _sdpa_full(q, k, v, causal: bool):
     """Reference attention; fine for short sequences / smoke tests."""
     b, s, h, dh = q.shape
@@ -246,7 +274,9 @@ def decode_attention(params, x, cache_k, cache_v, cache_len: int, *,
     number of valid cache positions. The new position is written into
     cache_k / cache_v in place (nothing when cache_len >= S_max, as the
     reference's one-hot insert writes nothing there); returns (out, cache_k,
-    cache_v).
+    cache_v). On a mesh whose ``model`` axis (tp > 1) divides S_max but not
+    the KV heads the cache is sequence-sharded, and the softmax runs as the
+    reference's distributed flash-decode (:func:`_flash_decode_sharded`).
     """
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int32, device=x.device)
@@ -255,17 +285,92 @@ def decode_attention(params, x, cache_k, cache_v, cache_len: int, *,
     if cache_len < s_max:
         cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
         cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
-    rep = n_heads // n_kv_heads
-    k_all = _repeat_kv(cache_k, rep)
-    v_all = _repeat_kv(cache_v, rep)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_all).to(torch.float32)
-    logits = logits / math.sqrt(d_head)
-    valid = torch.arange(s_max, device=x.device) <= cache_len
-    logits = logits.masked_fill(~valid[None, None, None, :], -torch.inf)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v_all)
+    mesh = current_mesh()
+    tp = mesh.shape["model"] if mesh is not None and "model" in mesh.axis_names else 1
+    if tp > 1 and s_max % tp == 0 and n_kv_heads % tp:
+        o = _flash_decode_sharded(q, cache_k, cache_v, cache_len, mesh=mesh,
+                                  n_heads=n_heads, n_kv_heads=n_kv_heads, d_head=d_head)
+    else:
+        rep = n_heads // n_kv_heads
+        logits = _decode_scores(q, cache_k, rep) / math.sqrt(d_head)
+        valid = torch.arange(s_max, device=x.device) <= cache_len
+        logits = logits.masked_fill(~valid[None, None, None, :], -torch.inf)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        o = _decode_values(probs, cache_v, rep)
     o = o.reshape(b, 1, n_heads * d_head)
     return o @ params["wo"], cache_k, cache_v
+
+
+def island(mesh, batch: int):
+    """The layout of an island whose activations shard the batch over the
+    data axes (pod, data) when they divide it, and are replicated over
+    ``model``: (data blocks, rows a block, device(i, t)) — the device of
+    data block i at ``model`` position t (other axes at 0). A batch that
+    does not divide is one block, computed at data position 0 (its other
+    data positions hold replicas of the same values)."""
+    names = mesh.axis_names
+    data_axes = tuple(a for a in ("pod", "data") if a in names)
+    dp = math.prod(mesh.shape[a] for a in data_axes)
+    blocks = dp if data_axes and batch % dp == 0 else 1
+    mi = names.index("model")
+
+    def device(i: int, t: int) -> torch.device:
+        coord = [0] * len(names)
+        for a, c in zip(data_axes, np.unravel_index(i, [mesh.shape[a] for a in data_axes])
+                        if blocks > 1 else ()):
+            coord[names.index(a)] = int(c)
+        coord[mi] = t
+        return mesh.devices[tuple(coord)]
+
+    return blocks, batch // blocks, device
+
+
+def _flash_decode_sharded(q, k, v, cache_len: int, *, mesh, n_heads, n_kv_heads, d_head):
+    """Exact distributed softmax over a sequence-sharded KV cache.
+
+    Every ``model`` position scores its slice of the cache: a loop over the
+    positions for the local logits and their maxima (f32), the global max
+    over positions (the reference's ``pmax``), a second loop for ``p``, the
+    local denominators and ``o_part``, then their sums over positions in
+    position order (``psum``, in f32) — the flash-attention identity across
+    positions. The batch splits over the data axes as in :func:`island`.
+    """
+    tp = mesh.shape["model"]
+    blocks, b_loc, device = island(mesh, q.shape[0])
+    rep = n_heads // n_kv_heads
+    scale = 1.0 / math.sqrt(d_head)
+    s_loc = k.shape[1] // tp
+    first = mesh.first
+    outs = []
+    for i in range(blocks):
+        rows = slice(i * b_loc, (i + 1) * b_loc)
+        logits, maxima = [], []
+        for t in range(tp):  # local logits and maxima
+            dev = device(i, t)
+            k_loc = k[rows, t * s_loc:(t + 1) * s_loc].to(dev)
+            lg = _decode_scores(q[rows].to(dev), k_loc, rep) * scale
+            gpos = t * s_loc + torch.arange(s_loc, device=dev)
+            lg = lg.masked_fill(~(gpos <= cache_len)[None, None, None, :], -torch.inf)
+            logits.append(lg)
+            maxima.append(lg.amax(dim=-1))  # (b, h, 1)
+        m = torch.stack([mx.to(first) for mx in maxima]).amax(dim=0)  # pmax
+        m_safe = torch.where(torch.isfinite(m), m, 0.0)
+        denoms, parts = [], []
+        for t in range(tp):  # p, its denominators and o_part
+            dev = device(i, t)
+            lg = logits[t]
+            ms = m_safe.to(dev)
+            p = torch.where(torch.isfinite(lg), torch.exp(lg - ms[..., None]), 0.0)
+            v_loc = v[rows, t * s_loc:(t + 1) * s_loc].to(dev)
+            denoms.append(p.sum(dim=-1))
+            parts.append(_decode_values(p.to(q.dtype), v_loc, rep).to(torch.float32))
+        denom, o = denoms[0].to(first), parts[0].to(first)
+        for t in range(1, tp):  # psum, in position order
+            denom = denom + denoms[t].to(first)
+            o = o + parts[t].to(first)
+        denom = torch.clamp_min(denom, 1e-30)
+        outs.append((o / denom.transpose(1, 2)[..., None]).to(q.dtype))
+    return torch.cat(outs) if blocks > 1 else outs[0]
 
 
 # ------------------------------------------------------------- SwiGLU MLP
@@ -311,10 +416,29 @@ def init_moe(generator, d_model, n_experts, d_expert, dtype, device=None):
 
 
 def moe(params, x, *, n_experts: int, top_k: int, capacity_factor: float = 1.25):
-    """Sort-based token-choice top-k MoE (the reference's meshless path).
-    Returns (y, aux) with aux = load-balance loss (Switch-style)."""
+    """Sort-based token-choice top-k MoE. Returns (y, aux) with aux =
+    load-balance loss (Switch-style).
+
+    Two paths, as in the reference: meshless, the global sort-based
+    dispatch of :func:`_moe_dense`; on a mesh with a ``model`` axis, the
+    expert-parallel island :func:`_moe_manual`."""
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        return _moe_manual(params, x, n_experts=n_experts, top_k=top_k,
+                           capacity_factor=capacity_factor, mesh=mesh)
     return _moe_dense(params, x, n_experts=n_experts, top_k=top_k,
                       capacity_factor=capacity_factor)
+
+
+def _route(xf, router, top_k: int):
+    """Router probabilities and each token's top_k (gates renormalised,
+    experts by descending probability, the lower index first on ties, as
+    ``lax.top_k``; torch.topk's tie order is unspecified)."""
+    probs = torch.softmax(xf.to(torch.float32) @ router, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    return probs, gate_vals, gate_idx
 
 
 def _moe_dense(params, x, *, n_experts: int, top_k: int, capacity_factor: float):
@@ -322,13 +446,7 @@ def _moe_dense(params, x, *, n_experts: int, top_k: int, capacity_factor: float)
     t = b * s
     dev = x.device
     xf = x.reshape(t, d)
-    logits = xf.to(torch.float32) @ params["router"]  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    # lax.top_k: the lower index first on ties; a stable descending sort
-    # keeps that order (torch.topk's tie order is unspecified)
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = gate_vals[:, :top_k], gate_idx[:, :top_k]  # (T, k)
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    probs, gate_vals, gate_idx = _route(xf, params["router"], top_k)  # (T, E), (T, k)
 
     capacity = int(math.ceil(t * top_k / n_experts * capacity_factor))
     capacity = max(capacity, 1)
@@ -369,3 +487,83 @@ def _moe_dense(params, x, *, n_experts: int, top_k: int, capacity_factor: float)
     router_frac = probs.mean(dim=0)
     aux = n_experts * torch.sum(dispatch_frac * router_frac)
     return y, aux
+
+
+def _moe_manual(params, x, *, n_experts: int, top_k: int, capacity_factor: float, mesh):
+    """Expert-parallel MoE: the reference's ``shard_map`` island, position by
+    position.
+
+    Layout: activations (B, S, d) split B over the data axes
+    (:func:`island`) and are replicated over ``model``; expert weights
+    (E, d, de) split E over ``model``, E / tp a position. Each position
+    routes its tokens over all E experts, dispatches to its own E / tp
+    only (the rest go to a trash bucket, ``e_loc``) at the island's own
+    capacity ``max(4, ceil(t_loc·top_k / E · cf))``, and accumulates its
+    experts' weighted outputs in f32, each token's contributions in the
+    order of the reference's sorted scatter (by local expert). The combine
+    is the reference's bf16 ``psum`` over ``model``: each position's sum
+    rounded to bf16, the positions' values summed in f32 in position order
+    and rounded once (how XLA sums a bf16 all-reduce on the CPU). The aux
+    loss is each position's, averaged over ``model`` and the data axes
+    (``pmean``). E must be a multiple of ``model``'s size.
+    """
+    tp = mesh.shape["model"]
+    if n_experts % tp:
+        raise ValueError(f"{n_experts} experts not divisible by model={tp}")
+    e_loc = n_experts // tp
+    b, s, d = x.shape
+    blocks, b_loc, device = island(mesh, b)
+    t_loc = b_loc * s
+    capacity = max(4, int(math.ceil(t_loc * top_k / n_experts * capacity_factor)))
+    # one split a weight: its backward is one concatenation, not a full-size
+    # gradient a position
+    wg, wu, wd = (torch.split(params[n], e_loc) for n in ("w_gate", "w_up", "w_down"))
+    first = mesh.first
+    ys, auxes = [], []
+    for i in range(blocks):
+        partial = []
+        for j in range(tp):
+            dev = device(i, j)
+            xf = x[i * b_loc:(i + 1) * b_loc].to(dev).reshape(t_loc, d)
+            probs, gate_vals, gate_idx = _route(xf, params["router"].to(dev), top_k)
+            lo = j * e_loc
+            flat_e = gate_idx.reshape(-1)
+            flat_t = torch.arange(t_loc, device=dev).repeat_interleave(top_k)
+            flat_w = gate_vals.reshape(-1)
+            is_local = (flat_e >= lo) & (flat_e < lo + e_loc)
+            loc_e = torch.where(is_local, flat_e - lo, e_loc)  # e_loc = trash bucket
+            order = torch.argsort(loc_e, stable=True)
+            s_e, s_t, s_w = loc_e[order], flat_t[order], flat_w[order]
+            counts = torch.bincount(s_e, minlength=e_loc + 1)
+            starts = torch.cumsum(counts, 0) - counts
+            pos = torch.arange(t_loc * top_k, device=dev) - starts[s_e]
+            keep = (s_e < e_loc) & (pos < capacity)
+            trash = e_loc * capacity
+            slot = torch.where(keep, s_e * capacity + pos, trash)
+            buf = torch.zeros((trash + 1, d), dtype=x.dtype, device=dev)
+            buf[slot] = xf[s_t] * keep[:, None].to(x.dtype)
+            ebuf = buf[:-1].reshape(e_loc, capacity, d)
+            wg_j, wu_j, wd_j = wg[j].to(dev), wu[j].to(dev), wd[j].to(dev)
+            h = F.silu(torch.bmm(ebuf, wg_j)) * torch.bmm(ebuf, wu_j)
+            eout = torch.bmm(h, wd_j).reshape(trash, d)
+            contrib = torch.where(keep[:, None], eout[torch.clamp_max(slot, trash - 1)], 0)
+            weighted = contrib.to(torch.float32) * s_w[:, None]
+            # the scatter-add's order: a token's entries as they stand sorted
+            by_token = weighted[torch.argsort(s_t, stable=True)].reshape(t_loc, top_k, d)
+            y = by_token[:, 0]
+            for r in range(1, top_k):
+                y = y + by_token[:, r]
+            partial.append(y.to(torch.bfloat16))
+            dispatch_frac = torch.bincount(flat_e, minlength=n_experts) / (t_loc * top_k)
+            auxes.append(n_experts * torch.sum(dispatch_frac * probs.mean(dim=0)))
+        y = partial[0].to(first, torch.float32)
+        for j in range(1, tp):  # the bf16 psum over model
+            y = y + partial[j].to(first, torch.float32)
+        ys.append(y.to(torch.bfloat16).reshape(b_loc, s, d).to(x.dtype))
+    # pmean over model and the data axes: a replicated batch block stands
+    # for each of its data positions alike
+    aux = auxes[0].to(first)
+    for a in auxes[1:]:
+        aux = aux + a.to(first)
+    aux = aux / len(auxes)
+    return (torch.cat(ys) if blocks > 1 else ys[0]), aux

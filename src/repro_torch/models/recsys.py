@@ -5,8 +5,11 @@ matrix with static per-feature row offsets, as in the reference
 (``repro.models.recsys``). A lookup indexes the fused table; its gradient
 is a dense table, as ``jnp.take``'s is, so AdamW moves and decays every
 row as the reference's does (no ``sparse=True``, no ``nn.EmbeddingBag``).
-Row-sharding the table over a mesh comes with the port's substrate on a
-mesh.
+On a mesh with a ``model`` axis (``repro_torch.core.mesh.use_mesh``) the
+fused table is row-sharded over it (``param_specs``) and a lookup is the
+reference's island: each position takes the ids that fall in its rows
+(a masked take), and the positions' values are summed, so traffic is
+batch · dim, never table-sized (:func:`embedding_lookup`).
 
 The parameters are the reference's tree: dicts and Python lists of
 ``{"w", "b"}`` layers, each leaf a tensor, so ``optim``, ``checkpoint``
@@ -36,8 +39,10 @@ from typing import Any
 import torch
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.core.mesh import current_mesh
 from repro_torch.core.topk import TopK
-from repro_torch.models.layers import dense_init, draw_device
+from repro_torch.models.layers import dense_init, draw_device, island
+from repro_torch.runtime.sharding import P, resolve
 from repro_torch.tree import tree_map, value_and_grad as _value_and_grad
 
 F32 = torch.float32
@@ -108,8 +113,69 @@ class RecsysConfig:
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """ids (...,) -> (..., dim): rows of the fused table. Every id must be
     in range (torch raises on the CPU and asserts on the card where
-    ``jnp.take`` would clamp)."""
-    return table[ids.long()]
+    ``jnp.take`` would clamp). On a mesh with a ``model`` axis the table is
+    row-sharded over it: :class:`_RowShardedLookup`."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return table[ids.long()]
+    return _RowShardedLookup.apply(table, ids, mesh)
+
+
+def _row_blocks(table_rows: int, ids: torch.Tensor, mesh):
+    """(data block rows, tp, rows a model position holds, device(i, t))."""
+    tp = mesh.shape["model"]
+    if table_rows % tp:
+        raise ValueError(f"{table_rows} table rows do not split over model={tp}")
+    blocks, b_loc, device = island(mesh, ids.shape[0] if ids.ndim else 1)
+    return blocks, b_loc, tp, table_rows // tp, device
+
+
+class _RowShardedLookup(torch.autograd.Function):
+    """The reference's row-sharded lookup, position by position: model
+    position t holds rows [t·size, (t+1)·size) and each data block of the
+    ids (the batch over the data axes); it takes the ids in its rows
+    (others clipped and zeroed), and the positions' values are summed in
+    position order (``psum`` over ``model``). Exactly one position holds a
+    row, so the sum is the row itself. The backward scatters each
+    position's rows of the cotangent into its block of one dense table
+    gradient (``jnp.take``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, mesh):
+        blocks, b_loc, tp, size, device = _row_blocks(table.shape[0], ids, mesh)
+        first = mesh.first
+        outs = []
+        for i in range(blocks):
+            idb = ids[i * b_loc:(i + 1) * b_loc] if blocks > 1 else ids
+            total = None
+            for t in range(tp):
+                dev = device(i, t)
+                loc = idb.to(dev).long() - t * size
+                ok = (loc >= 0) & (loc < size)
+                vals = table[t * size:(t + 1) * size].to(dev)[loc.clamp(0, size - 1)]
+                vals = torch.where(ok[..., None], vals, 0).to(first)
+                total = vals if total is None else total + vals
+            outs.append(total)
+        ctx.save_for_backward(ids)
+        ctx.mesh, ctx.shape = mesh, table.shape
+        return torch.cat(outs) if blocks > 1 else outs[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        mesh = ctx.mesh
+        blocks, b_loc, tp, size, device = _row_blocks(ctx.shape[0], ids, mesh)
+        grad = torch.zeros(ctx.shape, dtype=g.dtype, device=mesh.first)
+        for i in range(blocks):
+            rows = slice(i * b_loc, (i + 1) * b_loc) if blocks > 1 else slice(None)
+            for t in range(tp):
+                dev = device(i, t)
+                loc = ids[rows].to(dev).long() - t * size
+                ok = (loc >= 0) & (loc < size)
+                part = grad[t * size:(t + 1) * size]
+                part.index_put_((loc[ok],), g[rows].to(dev)[ok].to(part.device),
+                                accumulate=True)
+        return grad, None, None
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, mode: str = "sum") -> torch.Tensor:
@@ -181,6 +247,19 @@ def init(generator: torch.Generator, cfg: RecsysConfig, device=None) -> dict:
     else:
         raise ValueError(cfg.kind)
     return tree_map(lambda t: t.to(device), params)
+
+
+def param_specs(cfg: RecsysConfig):
+    """Tables row-shard over `model`; MLPs replicate (the reference's tree of
+    specs, built from the parameters' shapes on the meta device)."""
+    rows = resolve(("rows",))[0]
+    sample = init(torch.Generator(), dataclasses.replace(cfg, table_sizes=(8,) * cfg.n_sparse),
+                  device="meta")
+    specs = tree_map(lambda _: P(), sample)
+    specs["embed"] = P(rows, None)
+    if cfg.kind == "wide_deep":
+        specs["wide"] = P(rows, None)
+    return specs
 
 
 # --------------------------------------------------------------- forward

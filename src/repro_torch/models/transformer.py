@@ -31,6 +31,13 @@ into the cache's tensors in place (the reference rebuilds the whole cache
 with a one-hot ``where``; the values are the same) and returns a dict over
 the same tensors with ``len`` advanced.
 
+Partition specs: ``param_specs(cfg, training)`` and ``cache_specs(cfg)``
+give the reference's specs, in its stacked layout (each layer leaf with a
+leading L axis, never split): they apply to the port's parameters through
+``repro_torch.tree.reference_layout``, whose ``Stack`` leaves take a spec
+of rank r + 1 for per-layer tensors of rank r. On an active mesh the
+layers take the reference's sharded branches (``models.layers``).
+
 On a CUDA device ``apply``, ``prefill`` and ``decode_step`` switch off
 cuBLAS's reduced-precision bf16 reductions and TF32 for the process: a
 bf16 product is then summed in f32 and rounded once, as the reference's.
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import ParamModule, _param
+from repro_torch.runtime.sharding import P, resolve, shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +176,53 @@ def init(generator: torch.Generator, cfg: LMConfig, device=None) -> Transformer:
     return Transformer(cfg, embed, layers, L.RMSNorm(ones()), head).to(device)
 
 
+def param_specs(cfg: LMConfig, training: bool = True):
+    """Spec tree of the parameters in the reference's layout: TP over
+    `model`; FSDP over (pod, data) when training. For SERVING
+    (training=False) params replicate over the data axes instead: decode
+    would otherwise all-gather every FSDP shard on every step.
+
+    Stacked layer params have a leading L axis (never sharded). Matrices
+    shard the TP-parallel dim over `model` and the other dim over the fsdp
+    axes — ZeRO-3-style fully-sharded parameters.
+    """
+    fsdp = resolve(("fsdp",))[0] if training else None
+    tp = resolve(("heads",))[0]
+
+    def mat(d_in_ax, d_out_ax, stacked=True):
+        spec = (d_in_ax, d_out_ax)
+        return P(*((None,) + spec if stacked else spec))
+
+    attn = {
+        "wq": mat(fsdp, tp), "wk": mat(fsdp, tp), "wv": mat(fsdp, tp),
+        "wo": mat(tp, fsdp),
+    }
+    if cfg.qkv_bias:
+        attn.update({"bq": P(None, tp), "bk": P(None, tp), "bv": P(None, tp)})
+    layer = {
+        "ln1": {"scale": P(None, None)},
+        "ln2": {"scale": P(None, None)},
+        "attn": attn,
+    }
+    if cfg.is_moe:
+        layer["moe"] = {
+            "router": P(None, None, None),
+            "w_gate": P(None, tp, fsdp, None),
+            "w_up": P(None, tp, fsdp, None),
+            "w_down": P(None, tp, None, fsdp),
+        }
+    else:
+        layer["mlp"] = {
+            "w_gate": mat(fsdp, tp), "w_up": mat(fsdp, tp), "w_down": mat(tp, fsdp),
+        }
+    return {
+        "embed": P(tp, fsdp),
+        "layers": layer,
+        "final_norm": {"scale": P(None)},
+        "head": P(fsdp, tp),
+    }
+
+
 # ---------------------------------------------------------------- forward
 def _ffn(cfg: LMConfig, lp, y, capacity_factor: float):
     """The layer's MLP, or its MoE and aux loss (None for a dense layer)."""
@@ -199,7 +254,7 @@ def apply(params, cfg: LMConfig, tokens: torch.Tensor):
     """tokens (B, S) -> (logits (B, S, V_padded) f32, moe aux loss)."""
     _exact_matmuls(tokens.device)
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = shard(params["embed"][tokens], "batch", "seq", "embed")
     positions = _positions(b, s, tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -212,7 +267,7 @@ def apply(params, cfg: LMConfig, tokens: torch.Tensor):
             aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (x @ params["head"]).to(torch.float32)
-    return _mask_pad_vocab(logits, cfg), aux
+    return shard(_mask_pad_vocab(logits, cfg), "batch", "seq", "vocab"), aux
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -257,7 +312,7 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor, max_len: int | None = N
     """
     _exact_matmuls(tokens.device)
     b, s = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = shard(params["embed"][tokens].to(cfg.dtype), "batch", "seq", "embed")
     positions = _positions(b, s, tokens.device)
     s_max = max_len if max_len is not None and max_len > s else s
     shape = (cfg.n_layers, b, s_max, cfg.n_kv_heads, cfg.d_head)
@@ -284,6 +339,19 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": 0}
+
+
+def cache_specs(cfg: LMConfig):
+    """KV cache specs, (L, B, S, KVH, dh): batch over data, kv-heads over
+    model (the decode cells sequence-shard it instead where the heads do
+    not divide: ``launch.steps``)."""
+    batch_ax = resolve(("batch",))[0]
+    tp = resolve(("kv_heads",))[0]
+    return {
+        "k": P(None, batch_ax, None, tp, None),
+        "v": P(None, batch_ax, None, tp, None),
+        "len": P(),
+    }
 
 
 @torch.no_grad()

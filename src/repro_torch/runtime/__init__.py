@@ -1,1 +1,1 @@
-"""Training runtime: fault tolerance (straggler detection, crash recovery)."""
+"""Distributed runtime: sharding rules and placement, fault tolerance, elasticity."""

@@ -236,3 +236,36 @@ def test_serve_parser_refuses_what_the_reference_refuses(monkeypatch, argv):
         jserve.main(["--mode", "knn", *argv])
     with pytest.raises(SystemExit):
         serve.parser().parse_args(["--mode", "knn", *argv])
+
+
+def _defined_public(mod) -> set:
+    """A module's own public names: functions and classes defined in it, and
+    its UPPER_CASE constants."""
+    return {n for n, v in vars(mod).items() if not n.startswith("_") and (
+        (n.isupper() and not callable(v)) or getattr(v, "__module__", None) == mod.__name__)}
+
+
+@pytest.mark.parametrize("port_name,ref_name,extra", [
+    ("repro_torch.runtime.sharding", "repro.runtime.sharding",
+     {"NamedSharding", "P", "Sharded", "place"}),
+    ("repro_torch.runtime.elastic", "repro.runtime.elastic", set()),
+    ("repro_torch.launch.mesh", "repro.launch.mesh", set()),
+])
+def test_mesh_substrate_names_are_the_references(port_name, ref_name, extra):
+    """The substrate on the mesh exports the reference's names (the port's
+    PartitionSpec, NamedSharding and placement besides), each function
+    taking the reference's parameters first, in its order."""
+    import importlib
+    import inspect
+
+    port, ref = importlib.import_module(port_name), importlib.import_module(ref_name)
+    assert set(port.__all__) == _defined_public(ref) | extra
+    assert _defined_public(port) == set(port.__all__)
+    for name in _defined_public(ref):
+        want = getattr(ref, name)
+        if inspect.isfunction(want):
+            got = list(inspect.signature(getattr(port, name)).parameters)
+            assert got[:len(inspect.signature(want).parameters)] == list(
+                inspect.signature(want).parameters), name
+    if hasattr(ref, "DEFAULT_RULES"):
+        assert port.DEFAULT_RULES == ref.DEFAULT_RULES

@@ -2,7 +2,9 @@
 knn_merge, knn_int8_scan, l2dist and topk; the LM decode path
 (repro_torch.models, DecodeServer) on the card against itself and the CPU;
 two-tower retrieval on the kernel, and recommender and GNN train steps on
-the card against the CPU.
+the card against the CPU; the substrate on a mesh of logical positions on
+the card (the kNN and retrieval cells, the row-sharded table, the MoE and
+flash-decode islands, the elastic round trip).
 
 These tests need an NVIDIA card with ``nvcc`` (the library is built on
 first launch); elsewhere they skip. They import neither JAX nor the JAX
@@ -1175,3 +1177,116 @@ def test_recsys_and_gnn_train_steps_on_the_card_equal_the_cpu(dev, arch_id, shap
     for a, b in zip(tree_leaves(p), tree_leaves(hp)):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
                                    atol=1e-6 + 1e-5 * float(b.detach().abs().max()))
+
+
+def _card_mesh(dev, shape):
+    from repro_torch.core.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), devices=[dev] * (shape[0] * shape[1]))
+
+
+@pytest.mark.parametrize("name", ["gist_fqsd", "msmarco_fdsq", "yfcc_ring", "yfcc_ring_q"])
+def test_knn_cells_on_a_card_mesh_equal_the_meshless_cells(dev, name):
+    """The smoke kNN cells on (2, 2) of one card run the kernels (backend
+    "cuda") and answer as the meshless cell, bit for bit on integer data."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import use_mesh
+    from repro_torch.launch.steps import build_cell
+
+    arch = get_config("knn-search")
+    with use_mesh(_card_mesh(dev, (2, 2))):
+        cell = build_cell(arch, arch.shape(name), smoke=True)
+        g = torch.Generator(device=dev).manual_seed(2)
+        q = _ints(tuple(cell.inputs[0].shape), g, dev)
+        x = _ints(tuple(cell.inputs[1].shape), g, dev)
+        xn = torch.sum(x * x, dim=-1)
+        K.reset_launch_counts()
+        got = cell.fn(q, x, xn)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_scan"] >= 4 and K.LAUNCHES["knn_merge"] >= 5
+    want = build_cell(arch, arch.shape(name), smoke=True).fn(q, x, xn)
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+
+
+def test_mesh_islands_on_the_card_equal_the_cpu_mesh(dev):
+    """Smoke qwen3-moe's prefill + decode on (1, 8) of the card and of the
+    host CPU: both islands run; the logits within 1e-4 (TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import make_mesh, use_mesh
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-moe-30b-a3b").smoke_model
+    p = T.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    tok = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for mesh in (_card_mesh(dev, (1, 8)), make_mesh((1, 8), ("data", "model"),
+                                                    devices=["cpu"] * 8)):
+        d = mesh.first
+        pd = p.to(d)
+        with use_mesh(mesh):
+            _, cache = T.prefill(pd, cfg, tok[:, :8].to(d), max_len=16)
+            logits, _ = T.decode_step(pd, cfg, cache, tok[:, 8:9].to(d))
+        out[d.type] = logits.cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+def test_row_sharded_table_and_retrieval_on_the_card(dev):
+    """The row-sharded lookup on (1, 8) of the card is the meshless gather
+    bit for bit; two-tower retrieval over row-sharded candidates on (1, 4)
+    runs the kernels and equals the meshless kernel's answer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import use_mesh
+    from repro_torch.launch import demo
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as R
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    table = torch.randn((4096, 16), generator=g, device=dev)
+    ids = torch.randint(0, 4096, (64, 5), generator=g, device=dev, dtype=torch.int32)
+    with use_mesh(_card_mesh(dev, (1, 8))):
+        got = R.embedding_lookup(table, ids)
+    assert torch.equal(got, table[ids.long()])
+    arch = get_config("two-tower-retrieval")
+    shape = arch.shape("retrieval_cand")
+    cell, args = demo.materialize(arch, shape, smoke=True, seed=4, device=dev)
+    want = cell.fn(*args)
+    with use_mesh(_card_mesh(dev, (1, 4))):
+        K.reset_launch_counts()
+        got = build_cell(arch, shape, smoke=True).fn(*args)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_merge"] == 5
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
+
+
+def test_elastic_round_trip_on_the_card(dev, tmp_path):
+    """Smoke qwen3-moe's params placed on (2, 4) of the card, saved,
+    restored on remesh(2 positions), saved, restored on (2, 4): bitwise."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import use_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.elastic import remesh, reshard_tree
+    from repro_torch.runtime.sharding import NamedSharding, sanitize_spec
+    from repro_torch.tree import reference_layout, tree_leaves, tree_map
+
+    cfg = get_config("qwen3-moe-30b-a3b").smoke_model
+    p = T.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    layout = reference_layout(p)
+    mesh = _card_mesh(dev, (2, 4))
+    with use_mesh(mesh):
+        specs = T.param_specs(cfg, training=True)
+    placed = reshard_tree(layout, specs, mesh)
+    save_checkpoint(tmp_path / "a", 1, placed)
+
+    def shardings(m):
+        return tree_map(lambda x, sp: NamedSharding(m, sanitize_spec(
+            tuple(x.shape), sp, dict(m.shape))), layout, specs)
+
+    small = remesh([dev] * 2)
+    got, _ = load_checkpoint(tmp_path / "a", placed, shardings=shardings(small))
+    save_checkpoint(tmp_path / "b", 2, got)
+    back, _ = load_checkpoint(tmp_path / "b", placed, shardings=shardings(mesh))
+    for a, b in zip(tree_leaves(layout), tree_leaves(back)):
+        a = torch.stack(a.parts) if hasattr(a, "parts") else a
+        b = torch.stack([t.full() for t in b.parts]) if hasattr(b, "parts") else b.full()
+        assert torch.equal(a, b)

@@ -215,3 +215,31 @@ def test_mesh_without_devices_needs_cuda():
     assert eng.device.type == "cpu" and eng.mesh is mesh
     with pytest.raises(ValueError, match="first device"):
         ExactKNN(k=1, mesh=mesh, mesh_axes=("data",), device="meta")
+
+
+@pytest.mark.parametrize("rel", ["runtime/sharding.py", "runtime/elastic.py", "launch/mesh.py",
+                                 "launch/dryrun.py"])
+def test_mesh_substrate_modules_are_the_ports_own(rel):
+    """The substrate on the mesh keeps its own copies: none of its modules
+    imports JAX or the JAX package, not even ``repro.compat``."""
+    path = PORT / rel
+    assert path in _port_files()
+    test_no_jax_or_reference_imports(path)
+
+
+def test_production_and_host_meshes_without_devices_need_cuda():
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.runtime.elastic import remesh
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 256:
+        with pytest.raises(RuntimeError, match="production mesh needs 256"):
+            make_production_mesh()
+    if n == 0:
+        with pytest.raises(ValueError, match="needs 1 devices, have 0"):
+            make_host_mesh()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            remesh()
+    mesh = make_production_mesh(multi_pod=True, devices=["meta"] * 512)
+    assert mesh.shape == {"pod": 2, "data": 16, "model": 16} and mesh.first.type == "meta"
+    assert make_host_mesh(2, 2, devices=["cpu"] * 4).shape == {"data": 2, "model": 2}

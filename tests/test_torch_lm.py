@@ -312,7 +312,8 @@ def _logits_close(got, want, **tol):
     np.testing.assert_allclose(got[fin], want[fin], **(tol or F32))
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "qwen3-moe-30b-a3b", "starcoder2-7b",
+                                  "kimi-k2-1t-a32b", "qwen2.5-14b"])
 def test_apply_prefill_and_decode_step(arch):
     jcfg, jp, cfg, p = _models(arch)
     tok = _tokens(18, cfg, 2, 12)
