@@ -62,6 +62,7 @@ from __future__ import annotations
 import math
 import time
 import warnings
+from collections import deque
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -90,11 +91,14 @@ from repro_torch.core.planner import (
 )
 from repro_torch.core.quantized import QuantizedDataset
 from repro_torch.core.topk import TopK
+from repro_torch.runtime import tracing
 
 #: the engine's defaults where the caller sets nothing and no tuned plan
 #: says otherwise: the int8 rescore budget (× k) and the streamed depth
 DEFAULT_RESCORE_FACTOR = 4
 DEFAULT_PREFETCH_DEPTH = 2
+#: plans :attr:`ExactKNN.plans` keeps (one a search; the oldest fall out)
+PLANS_KEPT = 4096
 
 
 def _deprecated_shim(old: str, new: str) -> None:
@@ -285,7 +289,7 @@ class ExactKNN:
         self._delta_dev: list[part.PaddedDataset] = []  # device delta shards
         self._seen_mutations = 0
         self._seen_generation = 0  # store generation the device views mirror
-        self._plans: list[ExecutionPlan] = []
+        self._plans: deque[ExecutionPlan] = deque(maxlen=PLANS_KEPT)
         self._last_ctx: ExecContext | None = None
 
     # ------------------------------------------------------------------ fit
@@ -590,11 +594,13 @@ class ExactKNN:
             retry_backoff_s=self.retry_backoff_s, allow_partial=bool(allow_partial),
             delta=delta)
         self._last_ctx = ctx
-        return execute(p, queries, dataset, ctx)
+        with tracing.span("executor.launch"):
+            return execute(p, queries, dataset, ctx)
 
     @property
     def plans(self) -> list[ExecutionPlan]:
-        """Every plan executed, in order (observability / tests)."""
+        """The last ``PLANS_KEPT`` plans executed, in order (observability /
+        tests)."""
         return list(self._plans)
 
     # ------------------------------------------------------------ request API
@@ -640,49 +646,50 @@ class ExactKNN:
         takes the FD-SQ plan for micro-batches (<= AUTO_FDSQ_MAX_BATCH
         rows) and the FQ-SD plan beyond.
         """
-        if not isinstance(request, SearchRequest):
-            raise TypeError(
-                f"search() takes a SearchRequest, got {type(request).__name__}")
-        self._require_fit()
-        k = self.k if request.k is None else int(request.k)
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        metric = self.metric if request.metric is None else request.metric
-        validate_metric(metric)
-        if self._cos_prenormalized and metric != "cos":
-            raise ValueError(
-                "this engine L2-normalised its resident rows at fit time "
-                f"(cos metric, cuda backend); per-request metric={metric!r} "
-                "would score normalised rows — fit a separate engine")
-        tier = "f32" if request.tier == "auto" else request.tier
-        if tier == "int8":
-            if request.mode_hint == "fdsq":
+        with tracing.span("engine.search"):
+            if not isinstance(request, SearchRequest):
+                raise TypeError(
+                    f"search() takes a SearchRequest, got {type(request).__name__}")
+            self._require_fit()
+            k = self.k if request.k is None else int(request.k)
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            metric = self.metric if request.metric is None else request.metric
+            validate_metric(metric)
+            if self._cos_prenormalized and metric != "cos":
                 raise ValueError(
-                    "tier='int8' is a throughput (FQ-SD) tier and cannot "
-                    "serve an explicit mode_hint='fdsq' request")
-            if not self.has_int8:
-                raise RuntimeError("int8 tier not enabled; call enable_int8() first")
-            if metric != "l2":
-                raise ValueError("int8 tier supports the l2 metric only")
-        self._sync_mutations()
-        if not hasattr(self._store, "snapshot"):
-            # no store (a resident view carried in by engine_state_from_jax)
-            # or a store wrapper without generations: nothing to pin
-            return self._search_pinned(request, k, metric, tier, None)
-        # pin the generation this search reads: a concurrent compaction may
-        # swap the store's live generation, and the pin keeps the pinned
-        # shards (and the id tables that read their positions) alive until
-        # the search ends. Re-sync until the pinned generation is the one
-        # the device views mirror.
-        view = self._store.snapshot()
-        while view.generation != self._seen_generation:
-            view.release()
+                    "this engine L2-normalised its resident rows at fit time "
+                    f"(cos metric, cuda backend); per-request metric={metric!r} "
+                    "would score normalised rows — fit a separate engine")
+            tier = "f32" if request.tier == "auto" else request.tier
+            if tier == "int8":
+                if request.mode_hint == "fdsq":
+                    raise ValueError(
+                        "tier='int8' is a throughput (FQ-SD) tier and cannot "
+                        "serve an explicit mode_hint='fdsq' request")
+                if not self.has_int8:
+                    raise RuntimeError("int8 tier not enabled; call enable_int8() first")
+                if metric != "l2":
+                    raise ValueError("int8 tier supports the l2 metric only")
             self._sync_mutations()
+            if not hasattr(self._store, "snapshot"):
+                # no store (a resident view carried in by engine_state_from_jax)
+                # or a store wrapper without generations: nothing to pin
+                return self._search_pinned(request, k, metric, tier, None)
+            # pin the generation this search reads: a concurrent compaction may
+            # swap the store's live generation, and the pin keeps the pinned
+            # shards (and the id tables that read their positions) alive until
+            # the search ends. Re-sync until the pinned generation is the one
+            # the device views mirror.
             view = self._store.snapshot()
-        try:
-            return self._search_pinned(request, k, metric, tier, view)
-        finally:
-            view.release()
+            while view.generation != self._seen_generation:
+                view.release()
+                self._sync_mutations()
+                view = self._store.snapshot()
+            try:
+                return self._search_pinned(request, k, metric, tier, view)
+            finally:
+                view.release()
 
     def _search_pinned(self, request: SearchRequest, k: int, metric: str,
                        tier: str, view) -> SearchResult:

@@ -25,10 +25,12 @@ whose waiter vanished (client disconnect, queue timeout) is skipped at
 batch-formation time, so dead requests never occupy dispatch slots.
 
 The port's copy of ``repro.server.batching``, unchanged but for the
-imports. On the card the worker thread is where kernels launch (on that
-thread's current stream) and where the scheduler copies each answer to the
-host, so a resolved future holds CPU tensors and the event loop never
-waits on the card.
+imports and the ``batcher.wait`` spans (:mod:`repro_torch.runtime.tracing`:
+a request's time in the queue, recorded while a profiler runs). On the
+card the worker thread is where kernels launch (on that thread's current
+stream) and where the scheduler copies each answer to the host, so a
+resolved future holds CPU tensors and the event loop never waits on the
+card.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import functools
 from collections import deque
 
 from repro_torch.api.types import SearchRequest
+from repro_torch.runtime import tracing
 
 __all__ = ["ContinuousBatcher", "ServerClosed"]
 
@@ -56,7 +59,8 @@ class ContinuousBatcher:
     def __init__(self, scheduler, executor):
         self.scheduler = scheduler
         self._executor = executor
-        self._queue: deque[tuple[SearchRequest, asyncio.Future]] = deque()
+        #: (request, its future, its ``batcher.wait`` span or None)
+        self._queue: deque[tuple[SearchRequest, asyncio.Future, object]] = deque()
         self._wakeup = asyncio.Event()
         self._task: asyncio.Task | None = None
         self._closed = False
@@ -72,7 +76,7 @@ class ContinuousBatcher:
         if self._closed:
             raise ServerClosed("server is shutting down")
         fut = asyncio.get_running_loop().create_future()
-        self._queue.append((request, fut))
+        self._queue.append((request, fut, tracing.begin("batcher.wait")))
         self.scheduler.note_queue_depth(len(self._queue))
         self._wakeup.set()
         return fut
@@ -92,13 +96,13 @@ class ContinuousBatcher:
         return batches_ahead * est
 
     # -------------------------------------------------------------- dispatch
-    def _take_batch(self) -> list[tuple[SearchRequest, asyncio.Future]]:
+    def _take_batch(self) -> list[tuple[SearchRequest, asyncio.Future, object]]:
         """Pop the next option-compatible batch; drop abandoned entries."""
         sig = None
-        batch: list[tuple[SearchRequest, asyncio.Future]] = []
+        batch: list[tuple[SearchRequest, asyncio.Future, object]] = []
         take = max(1, self.scheduler.max_batch)
         while self._queue and len(batch) < take:
-            req, fut = self._queue[0]
+            req, fut, _ = self._queue[0]
             if fut.done():  # cancelled by timeout/disconnect: skip it
                 self._queue.popleft()
                 continue
@@ -107,8 +111,7 @@ class ContinuousBatcher:
                 sig = key
             elif key != sig:
                 break  # next compatibility group waits for its own dispatch
-            batch.append((req, fut))
-            self._queue.popleft()
+            batch.append(self._queue.popleft())
         self.scheduler.note_queue_depth(len(self._queue))
         return batch
 
@@ -123,17 +126,17 @@ class ContinuousBatcher:
                 batch = self._take_batch()
                 if not batch:
                     continue
-                reqs = [r for r, _ in batch]
+                reqs = [r for r, _, _ in batch]
+                waits = [w for _, _, w in batch]
                 clock = loop.time()
                 t0 = clock
                 try:
                     results = await loop.run_in_executor(
                         self._executor,
-                        functools.partial(
-                            self.scheduler.dispatch_batch, reqs, clock),
+                        functools.partial(self._dispatch, reqs, waits, clock),
                     )
                 except Exception as e:  # engine/storage error: per-request
-                    for _, fut in batch:
+                    for _, fut, _ in batch:
                         if not fut.done():
                             fut.set_exception(e)
                 else:
@@ -142,15 +145,21 @@ class ContinuousBatcher:
                     self._ewma_dispatch_s = (
                         dt if ema is None else 0.7 * ema + 0.3 * dt)
                     self.dispatched_batches += 1
-                    for (_, fut), res in zip(batch, results):
+                    for (_, fut, _), res in zip(batch, results):
                         if not fut.done():
                             fut.set_result(res)
         # drain: everything still queued is answered with ServerClosed
         while self._queue:
-            _, fut = self._queue.popleft()
+            _, fut, _ = self._queue.popleft()
             if not fut.done():
                 fut.set_exception(ServerClosed("server is shutting down"))
         self.scheduler.note_queue_depth(0)
+
+    def _dispatch(self, reqs, waits, clock):
+        """On the worker thread: the batch's queue waits end as its
+        dispatch starts, and name the dispatch's span as their parent."""
+        with tracing.handoff(waits):
+            return self.scheduler.dispatch_batch(reqs, clock)
 
     # ------------------------------------------------------------- lifecycle
     def start(self) -> None:

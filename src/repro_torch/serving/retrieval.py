@@ -72,8 +72,13 @@ from repro_torch.core.engine import ExactKNN
 from repro_torch.core.partition import next_pow2
 from repro_torch.core.topk import TopK
 from repro_torch.faults import FaultError
+from repro_torch.runtime import tracing
 
 Policy = Literal["latency", "throughput", "adaptive"]
+
+#: request latencies per dispatch label that ``AdaptiveScheduler.stats()``'s
+#: percentiles read (the oldest fall out)
+LATENCY_SAMPLES = 4096
 
 #: Deprecated alias — the serving layer produces plain SearchResults.
 Result = SearchResult
@@ -222,7 +227,10 @@ class AdaptiveScheduler:
         self._breaker_trips = 0
         self._breaker_probes = 0
         self._breaker_shards: set[int] = set()  # shards implicated so far
-        self._lat_ms: dict[str, list[float]] = {m: [] for m in self.MODES}
+        #: the last LATENCY_SAMPLES request latencies of each label, for
+        #: stats()'s percentiles
+        self._lat_ms: dict[str, deque[float]] = {
+            m: deque(maxlen=LATENCY_SAMPLES) for m in self.MODES}
         self._svc_s: dict[str, float] = {m: 0.0 for m in self.MODES}
         self._count: dict[str, int] = {m: 0 for m in self.MODES}
         self._ema_s: dict[str, float | None] = {m: None for m in self.MODES}
@@ -382,6 +390,8 @@ class AdaptiveScheduler:
             rows.append(v)
         b = len(rows)
         pad = next_pow2(b) - b
+        tracing.count("scheduler.rows", b)
+        tracing.count("scheduler.padded_rows", pad)
         if not any(isinstance(v, torch.Tensor) for v in rows):
             q = np.stack(rows)
             return np.concatenate([q, np.zeros((pad, q.shape[1]), q.dtype)]) if pad else q
@@ -409,121 +419,128 @@ class AdaptiveScheduler:
         """
         self.dispatches += 1
         t0 = time.perf_counter()
-        q = self._stack(reqs)
         b = len(reqs)
-        head = reqs[0]
         label = "fqsd-int8" if tier == "int8" else mode
-        if self._breaker_open and self._probe_store():
-            # the probe read succeeded: the storage fault cleared — close
-            # the breaker and serve strict again
-            self._breaker_open = False
-            self._breaker_failures = 0
-        allow_partial = head.allow_partial or self._breaker_open
+        with tracing.span("scheduler.dispatch", t0) as span:
+            if span:
+                span.attrs.update(rows=b, padded_rows=next_pow2(b) - b, mode=label, tier=tier)
+            q = self._stack(reqs)
+            head = reqs[0]
+            if self._breaker_open and self._probe_store():
+                # the probe read succeeded: the storage fault cleared — close
+                # the breaker and serve strict again
+                self._breaker_open = False
+                self._breaker_failures = 0
+            allow_partial = head.allow_partial or self._breaker_open
 
-        def dispatch(partial_ok: bool) -> SearchResult:
-            return self._search(SearchRequest(
-                queries=q, k=head.k, metric=head.metric,
-                tier="int8" if tier == "int8" else "f32",
-                mode_hint="fqsd" if tier == "int8" else mode,
-                filter_mask=head.filter_mask,
-                allow_partial=partial_ok, max_retries=head.max_retries,
-            ))
+            def dispatch(partial_ok: bool) -> SearchResult:
+                return self._search(SearchRequest(
+                    queries=q, k=head.k, metric=head.metric,
+                    tier="int8" if tier == "int8" else "f32",
+                    mode_hint="fqsd" if tier == "int8" else mode,
+                    filter_mask=head.filter_mask,
+                    allow_partial=partial_ok, max_retries=head.max_retries,
+                ))
 
-        try:
-            batch = dispatch(allow_partial)
-        except FaultError as e:
-            # unrecoverable storage fault under strict semantics: count it
-            # toward the breaker; once open, retry this dispatch degraded
-            # (partial allowed) instead of failing the serve loop — below
-            # the threshold, stay loud.
-            self._breaker_note(
-                {"failed_shards": [getattr(e, "shard_id", -1)]})
-            if allow_partial or not self._breaker_open:
-                raise
-            batch = dispatch(True)
-        else:
-            self._breaker_note(batch.stats.get("health"))
-        # the answers reach the host inside the window: .cpu() waits for the
-        # card, so dt_s is the service time, not the time to enqueue
-        scores = batch.scores[:b].cpu()
-        indices = batch.indices[:b].cpu()
-        if batch.tier == "int8":
-            cert = torch.as_tensor(batch.certified)[:b].cpu()
-        else:
-            cert = None  # exact path: trivially certified
-        ks = batch.kernel_stats
-        skip_rate = (float(ks["prune_skip_rate"])
-                     if ks is not None and "prune_skip_rate" in ks else None)
-        dt_s = time.perf_counter() - t0
-
-        plan = batch.plan
-        self._executors[label].add(plan.executor)
-        # dataset bytes one scan of this plan moved (the bandwidth account
-        # choose_tier optimizes), reported per tier AND per dispatch label
-        self._bytes_scanned[batch.tier if batch.tier == "int8" else "f32"] += (
-            batch.stats["bytes_scanned"]
-        )
-        self._tiers[label].add(batch.tier)
-        self._mode_bytes[label] += batch.stats["bytes_scanned"]
-        n_true = b if cert is None else int(cert.sum())
-        self._cert[label]["total"] += b
-        self._cert[label]["true"] += n_true
-        if skip_rate is not None:
-            self._skip_rate_sum += skip_rate
-            self._skip_rate_n += 1
-        self._transfers += int(batch.stats.get("transfers", 0))
-        self._restarts += int(batch.stats.get("restarts", 0))
-        if "scan_ms" in batch.stats:  # streamed and sharded int8 plans:
-            # the scan/gather/rescore wall-time split
-            self._phase_n += 1
-            for key in self._phase_ms:
-                self._phase_ms[key] += float(batch.stats.get(key, 0.0))
-        per_dev = batch.stats.get("bytes_per_device")
-        if per_dev is not None:
-            if len(per_dev) > len(self._device_bytes):
-                self._device_bytes.extend([0] * (len(per_dev) - len(self._device_bytes)))
-            for di, nbytes in enumerate(per_dev):
-                self._device_bytes[di] += int(nbytes)
-        spec = batch.stats.get("speculation")
-        if spec is not None:
-            self._speculation["dispatches"] += 1
-            for key in ("rows_speculated", "rows_topped_up", "rows_wasted"):
-                self._speculation[key] += int(spec.get(key, 0))
-        health = batch.stats.get("health")
-        if health is not None:
-            self._health_agg["retries"] += int(health.get("retries", 0))
-            for key in ("failed_shards", "degraded", "slow_shards"):
-                self._health_agg[key].update(health.get(key, ()))
-        partial = bool(batch.stats.get("partial", False))
-        if self._last_mode is not None and label != self._last_mode:
-            self._switches += 1
-        self._last_mode = label
-        ema = self._ema_s[label]
-        self._ema_s[label] = dt_s if ema is None else 0.7 * ema + 0.3 * dt_s
-        self._svc_s[label] += dt_s
-        self._count[label] += len(reqs)
-
-        results = []
-        for i, r in enumerate(reqs):
-            if clock_s is None:  # wall-clock mode: service time only
-                lat_ms = dt_s * 1e3
+            try:
+                batch = dispatch(allow_partial)
+            except FaultError as e:
+                # unrecoverable storage fault under strict semantics: count it
+                # toward the breaker; once open, retry this dispatch degraded
+                # (partial allowed) instead of failing the serve loop — below
+                # the threshold, stay loud.
+                self._breaker_note(
+                    {"failed_shards": [getattr(e, "shard_id", -1)]})
+                if allow_partial or not self._breaker_open:
+                    raise
+                batch = dispatch(True)
             else:
-                lat_ms = (clock_s + dt_s - r.arrival_s) * 1e3  # queueing + service
-            if r.deadline_ms is not None and lat_ms > r.deadline_ms:
-                self.deadline_misses += 1
-            self._lat_ms[label].append(lat_ms)
-            results.append(SearchResult(
-                topk=TopK(scores[i], indices[i]),
-                plan=plan,
-                tier=batch.tier,
-                certified=bool(cert[i]) if cert is not None else True,
-                kernel_stats=batch.kernel_stats,
-                stats={"latency_ms": lat_ms, "batched": len(reqs),
-                       "mode": label, "deadline_ms": r.deadline_ms,
-                       "health": dict(health) if health is not None else {},
-                       "partial": partial},
-                rid=r.rid,
-            ))
+                self._breaker_note(batch.stats.get("health"))
+            # the answers reach the host inside the window: .cpu() waits for the
+            # card, so dt_s is the service time, not the time to enqueue
+            with tracing.span("scheduler.device_wait") as wait:
+                if wait and batch.scores.is_cuda:
+                    # traced only: the wait apart from the scheduler's host time
+                    torch.cuda.current_stream(batch.scores.device).synchronize()
+            scores = batch.scores[:b].cpu()
+            indices = batch.indices[:b].cpu()
+            if batch.tier == "int8":
+                cert = torch.as_tensor(batch.certified)[:b].cpu()
+            else:
+                cert = None  # exact path: trivially certified
+            ks = batch.kernel_stats
+            skip_rate = (float(ks["prune_skip_rate"])
+                         if ks is not None and "prune_skip_rate" in ks else None)
+            dt_s = time.perf_counter() - t0
+
+            plan = batch.plan
+            self._executors[label].add(plan.executor)
+            # dataset bytes one scan of this plan moved (the bandwidth account
+            # choose_tier optimizes), reported per tier AND per dispatch label
+            self._bytes_scanned[batch.tier if batch.tier == "int8" else "f32"] += (
+                batch.stats["bytes_scanned"]
+            )
+            self._tiers[label].add(batch.tier)
+            self._mode_bytes[label] += batch.stats["bytes_scanned"]
+            n_true = b if cert is None else int(cert.sum())
+            self._cert[label]["total"] += b
+            self._cert[label]["true"] += n_true
+            if skip_rate is not None:
+                self._skip_rate_sum += skip_rate
+                self._skip_rate_n += 1
+            self._transfers += int(batch.stats.get("transfers", 0))
+            self._restarts += int(batch.stats.get("restarts", 0))
+            if "scan_ms" in batch.stats:  # streamed and sharded int8 plans:
+                # the scan/gather/rescore wall-time split
+                self._phase_n += 1
+                for key in self._phase_ms:
+                    self._phase_ms[key] += float(batch.stats.get(key, 0.0))
+            per_dev = batch.stats.get("bytes_per_device")
+            if per_dev is not None:
+                if len(per_dev) > len(self._device_bytes):
+                    self._device_bytes.extend([0] * (len(per_dev) - len(self._device_bytes)))
+                for di, nbytes in enumerate(per_dev):
+                    self._device_bytes[di] += int(nbytes)
+            spec = batch.stats.get("speculation")
+            if spec is not None:
+                self._speculation["dispatches"] += 1
+                for key in ("rows_speculated", "rows_topped_up", "rows_wasted"):
+                    self._speculation[key] += int(spec.get(key, 0))
+            health = batch.stats.get("health")
+            if health is not None:
+                self._health_agg["retries"] += int(health.get("retries", 0))
+                for key in ("failed_shards", "degraded", "slow_shards"):
+                    self._health_agg[key].update(health.get(key, ()))
+            partial = bool(batch.stats.get("partial", False))
+            if self._last_mode is not None and label != self._last_mode:
+                self._switches += 1
+            self._last_mode = label
+            ema = self._ema_s[label]
+            self._ema_s[label] = dt_s if ema is None else 0.7 * ema + 0.3 * dt_s
+            self._svc_s[label] += dt_s
+            self._count[label] += len(reqs)
+
+            results = []
+            for i, r in enumerate(reqs):
+                if clock_s is None:  # wall-clock mode: service time only
+                    lat_ms = dt_s * 1e3
+                else:
+                    lat_ms = (clock_s + dt_s - r.arrival_s) * 1e3  # queueing + service
+                if r.deadline_ms is not None and lat_ms > r.deadline_ms:
+                    self.deadline_misses += 1
+                self._lat_ms[label].append(lat_ms)
+                results.append(SearchResult(
+                    topk=TopK(scores[i], indices[i]),
+                    plan=plan,
+                    tier=batch.tier,
+                    certified=bool(cert[i]) if cert is not None else True,
+                    kernel_stats=batch.kernel_stats,
+                    stats={"latency_ms": lat_ms, "batched": len(reqs),
+                           "mode": label, "deadline_ms": r.deadline_ms,
+                           "health": dict(health) if health is not None else {},
+                           "partial": partial},
+                    rid=r.rid,
+                ))
         self.served += len(reqs)
         return results, dt_s
 
@@ -674,9 +691,10 @@ class AdaptiveScheduler:
     # ---------------------------------------------------------------- stats
     def stats(self) -> dict:
         """Uniform per-plan accounting: every served dispatch label reports
-        count, latency percentiles, qps, executors, tier(s), certified
-        fraction, and bytes scanned — the f32 paths included (exact scans
-        are trivially certified)."""
+        count, latency percentiles (over its last ``LATENCY_SAMPLES``
+        requests), qps, executors, tier(s), certified fraction, and bytes
+        scanned — the f32 paths included (exact scans are trivially
+        certified)."""
         per_plan = {}
         for mode in self.MODES:
             lat = np.asarray(self._lat_ms[mode])
