@@ -11,7 +11,9 @@ Phases, in order (any failure makes the run exit non-zero):
 1. build   — nvcc builds the kernel library from src/repro_torch/kernels/csrc
              into build/repro_torch/, one process per source (seconds printed).
 2. exact   — every kernel against its plain version on integer-valued data,
-             bit for bit: knn_scan, knn_merge and knn_fused (values in [-8, 8]
+             bit for bit: knn_scan (also on every third row read in place, as
+             a pilot reads them, and bounded by that pilot's bound, its
+             answer the unbounded one), knn_merge and knn_fused (values in [-8, 8]
              with planted duplicate rows, +inf-norm rows and a ragged N, for
              l2/ip/cos, f32 and bf16, k in {1, 7, 72, 1024}, m in {1, 16}, and
              in two adversarial row orders for l2/ip, f32 and bf16, k in
@@ -36,7 +38,17 @@ Phases, in order (any failure makes the run exit non-zero):
              Values, indices and skip counts must be bit-identical (d = 960:
              every sum is below 2^24).
 3. gist    — GIST shape, FQ-SD: N = 1,000,000, d = 960, m = 16, k = 1024
-             through ExactKNN(backend="cuda").fit(x).search(...).
+             through ExactKNN(backend="cuda").fit(x).search(...). A split
+             scans 4,096 rows, so knn_fused bounds the scan's filter by a
+             pilot (kernel.pilot_rows): the pilot's scan and merge are held
+             against their plain versions and timed, the bounded scan
+             beside the unbounded one (survivor shares printed, merged
+             answers bit-identical), and the pilot swept at 8, 16 and
+             32·k_eff rows. Then a 20,000-row engine (m 1 and 16), whose
+             pilot the rule bypasses, timed with the pilot forced and
+             without. Phase 4's shapes print that the pilot is bypassed;
+             phase 5 times the int8 fallback's f32 scan (m 1, 4, 16) the
+             same three ways.
 4. msmarco — MS-MARCO shape, FD-SQ: N = 8,841,823, d = 769, m = 1, k = 72
              and k = 1024, the dataset generated and padded on the card.
 5. int8    — the certified int8 tier, FQ-SD, m = 16, through
@@ -387,7 +399,9 @@ Phases, in order (any failure makes the run exit non-zero):
 Phases 3-10, 12, 13 and 16 (c) are the main path of the kernels (phase 11
 measures tuning, and its launches enter no entry; phase 10's launches are
 printed on a line of their own; phases 14, 15 and 17 launch none, and phase
-16 outside (c) none but its examples' own). The launch counters are set to 0 just before
+16 outside (c) none but its examples' own). A pilot's knn_scan and knn_merge
+(kernel.pilot_bound, where kernel.pilot_rows engages: Smoke.pilots) count
+with the search's own. The launch counters are set to 0 just before
 each search (phases 9 and 10: before each dispatch; phase 12: before l2dist + topk,
 and before each l2dist shape; phase 16: before each retrieval call)
 and read just after; every
@@ -468,6 +482,12 @@ KERNELS = {
 EXACT = dict(n=12_345, d=960, ks=(1, 7, 72, 1024), ms=(1, 16), topk_ks=(1, 72, 1024),
              l2dist_ms=(1, 16, 37, 300))
 GIST = dict(n=1_000_000, d=960, m=16, k=1024)
+#: phase 3's small resident engine, whose scan the pilot's rule bypasses by
+#: n: its kernels timed with a pilot forced and without one, m in "ms"
+PILOT_SMALL = dict(n=20_000, d=96, k=50, ms=(1, 16))
+#: phase 5's int8 fallback at GIST's rows (knn_exact_rescored's f32 scan of
+#: the uncertified rows, queue 2·next_pow2(k)), the same two ways
+PILOT_FALLBACK_MS = (1, 4, 16)
 MSMARCO = dict(n=8_841_823, d=769, m=1, ks=(72, 1024))
 INT8 = dict(m=16, msmarco_k=72, gist_k=1024)
 #: phase 12: the main path at (m, n, d), then l2dist alone at each (M, dtype)
@@ -651,6 +671,20 @@ class Smoke:
         self.serve_rows = None  # phase 9's engine and query rows, for phase 11
 
     # ------------------------------------------------------------ helpers
+    def pilots(self, n: int, d: int, rows: int, k: int, blocks=None) -> int:
+        """The pilots (``kernel.pilot_bound``: one knn_scan and one knn_merge
+        each) that ``ops.knn`` runs for ``rows`` query rows at k over n rows
+        of d columns, at ``blocks`` (the plan's, resolved) or the default
+        ones: 1 where the package's rule (``kernel.pilot_rows``) engages at
+        the scan's split, else 0 (0 for a package without a pilot)."""
+        K, ops = self.K, self.ops
+        if not rows or not hasattr(K, "pilot_rows"):
+            return 0
+        bm, bn, _ = blocks or ops.resolved_blocks(k, d, m=rows)
+        n = -(-n // bn) * bn
+        tps = K.scan_config(-(-rows // bm), n // bn, bm, self.dev)[1]
+        return int(K.pilot_rows(n, 1 << (k - 1).bit_length(), tps * bn, bm) > 0)
+
     def sync(self) -> None:
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
@@ -977,6 +1011,30 @@ class Smoke:
             pv, pi = K.knn_merge_plain(got[0], got[1])
             if not (torch.equal(mv, pv) and torch.equal(mi, pi)):
                 problems.append(f"merge S={splits}")
+        rows = x.shape[0] // 3 // bn * bn
+        if rows and hasattr(K, "pilot_bound"):
+            # a pilot's read of every third row in place (row pitch 3·d, norm
+            # step 3) at an eighth of the bm, and the scan its bound seeds
+            pbm = max(1, bm // 8)
+            pargs = (q, x[::3][:rows], qn, xn[::3][:rows], call.k_eff, call.metric, pbm, bn,
+                     True, K.scan_config(q.shape[0] // pbm, rows // bn, pbm, self.dev)[0])
+            for name, a, b in zip(("values", "indices", "skips"), K.knn_scan(*pargs),
+                                  K.knn_scan_plain(*pargs)):
+                if not torch.equal(a, b):
+                    problems.append(f"strided scan {name}")
+            bound = dict(zip(("bound_v", "bound_i"), K.pilot_bound(
+                q, x, qn, xn, call.k_eff, call.metric, bm, bn, rows)))
+            splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+            got = K.knn_scan(q, x, qn, xn, call.k_eff, call.metric, bm, bn, True, splits,
+                             **bound)
+            want = K.knn_scan_plain(q, x, qn, xn, call.k_eff, call.metric, bm, bn, True,
+                                    splits, **bound)
+            for name, a, b in zip(("values", "indices", "skips"), got, want):
+                if not torch.equal(a, b):
+                    problems.append(f"bounded scan {name}")
+            bv, bi = K.knn_merge(got[0], got[1])
+            if not (torch.equal(bv, mv) and torch.equal(bi, mi)):
+                problems.append("bounded answer")
         v, i, _ = K.knn_fused(q, x, xn, call.k_eff, call.metric, bm, bn, bd)
         pv, pi, _ = K.knn_fused_plain(q, x, xn, call.k_eff, call.metric, bm, bn, bd)
         if not (torch.equal(v, pv) and torch.equal(i, pi)):
@@ -996,8 +1054,10 @@ class Smoke:
         res = eng.search(req)
         self.sync()
         launches = dict(K.LAUNCHES)
-        ok = (res.plan.executor == "fdsq-cuda" and launches["knn_scan"] >= 1
-              and launches["knn_merge"] == 1)
+        # one knn_scan + knn_merge, and a pilot's pair where the rule engages
+        n_pilots = self.pilots(*eng._ds.vectors.shape, q.shape[0], k, res.kernel_stats["blocks"])
+        ok = (res.plan.executor == "fdsq-cuda"
+              and launches["knn_scan"] == launches["knn_merge"] == 1 + n_pilots)
         log(f"{label}: executor={res.plan.executor} mode={res.plan.mode} "
             f"launches={launches} skip_rate={float(res.kernel_stats['prune_skip_rate']):.6f} "
             f"blocks={res.kernel_stats['blocks']}")
@@ -1020,10 +1080,19 @@ class Smoke:
         cq, cx, cxn = call.q, call.x, call.xn
         qn = self.qnorm(cq)
         m_tiles, n_tiles = cq.shape[0] // bm, cx.shape[0] // bn
-        splits = K.scan_config(m_tiles, n_tiles, bm, self.dev)[0]
+        splits, tps, _ = K.scan_config(m_tiles, n_tiles, bm, self.dev)
+        # the scan as knn_fused runs it: bounded by a pilot where the rule
+        # engages (a package without the pilot, driven by --package, runs none)
+        pilot = (K.pilot_rows(cx.shape[0], call.k_eff, tps * bn, bm) if hasattr(K, "pilot_rows")
+                 else 0)
+        bound = (dict(zip(("bound_v", "bound_i"),
+                          K.pilot_bound(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, pilot)))
+                 if pilot else {})
+        ok &= n_pilots == int(pilot > 0)
         sv, si, sk, st = K.knn_scan(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits,
-                                    return_stats=True)
-        pv, pi, psk = K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits)
+                                    return_stats=True, **bound)
+        pv, pi, psk = K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits,
+                                       **bound)
         mv, mi = K.knn_merge(sv, si)
         mpv, mpi = K.knn_merge_plain(sv, si)
         ref = ops.finish(call, *K.knn_merge_plain(pv, pi))
@@ -1042,8 +1111,11 @@ class Smoke:
             f"plain={int(psk.sum())} of {m_tiles * n_tiles}; ok={ok}")
 
         scan_ms = self.ms(lambda: K.knn_scan(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn,
-                                             True, splits))
+                                             True, splits, **bound))
         merge_ms = self.ms(lambda: K.knn_merge(sv, si))
+        good, pilot_ms, pilot_work = self._pilot(label, call, qn, splits, pilot, st, mv, mi,
+                                                 scan_ms)
+        ok &= good
         plain_scan_ms = self.ms(lambda: K.knn_scan_plain(cq, cx, qn, cxn, call.k_eff, "l2",
                                                          bm, bn, True, splits))
         plain_merge_ms = self.ms(lambda: K.knn_merge_plain(sv, si))
@@ -1068,21 +1140,26 @@ class Smoke:
                         + sk.numel() * 4 + sel["pairs_moved"] * 16 + sel["survivors"] * 8)
         design_ops = (cq.shape[0] * cx.shape[0] * (2 * cx.shape[1] + L2_EPILOGUE_OPS)
                       + sel["ops"])
+        design_bytes, design_ops = design_bytes + pilot_work[0], design_ops + pilot_work[1]
         merge_bytes, merge_ops = self.merge_work(sv, si, mv, mi)
         shape = {"shape": label, "splits": splits, "blocks": [bm, bn, call.blocks[2]],
                  "search_ms": statistics.median(e2e), "select": sel, "kernels": {}}
         library = {"knn_scan": f"torch.topk(torch.cdist(q, x, compute_mode={lib_form!r})**2)",
                    "knn_merge": "torch.topk(queues.reshape(m, -1))"}
+        # a search's kernels: the pilot's launch of each (where it runs) and
+        # the main one, timed apart and summed against the function's bound
         for name, t, tp, tl, (bb, by), err in (
                 ("knn_scan", scan_ms, plain_scan_ms, lib_scan_ms,
                  self.bound(scan_bytes, scan_ops), err_scan),
                 ("knn_merge", merge_ms, plain_merge_ms, lib_merge_ms,
                  self.bound(merge_bytes, merge_ops), 0.0 if merge_exact else math.inf)):
             shape["kernels"][name] = {
-                "launches": launches[name], "max_abs_err": err, "ms": t, "plain_ms": tp,
-                "bound_ms": bb, "bound_by": by, "library_ms": tl, "library": library[name]}
-            log(f"{label}: {name} ms={t:.4f} plain_ms={tp:.4f} library_ms={tl} "
-                f"bound_ms={bb:.4f} ({by}) launches={launches[name]}")
+                "launches": launches[name], "max_abs_err": err, "ms": t + pilot_ms[name],
+                "pilot_ms": pilot_ms[name], "plain_ms": tp, "bound_ms": bb, "bound_by": by,
+                "library_ms": tl, "library": library[name]}
+            log(f"{label}: {name} ms={t + pilot_ms[name]:.4f} (pilot {pilot_ms[name]:.4f} + "
+                f"main {t:.4f}) plain_ms={tp:.4f} library_ms={tl} bound_ms={bb:.4f} ({by}) "
+                f"launches={launches[name]}")
         design_ms, _ = self.bound(design_bytes, design_ops)
         shape["kernels"]["knn_scan"]["design_bound_ms"] = design_ms
         log(f"{label}: knn_scan survivor filter {sel}")
@@ -1092,6 +1169,121 @@ class Smoke:
             f"all={[round(t, 3) for t in e2e]} splits={splits} blocks={call.blocks}")
         self.shapes.append(shape)
         return ok
+
+    def _pilot(self, label, call, qn, splits, pilot, st, mv, mi, scan_ms):
+        """A main-path search's pilot (``kernel.pilot_bound``) at its own
+        shape, or where the rule bypasses it, a line that says so. Where it
+        engages: its knn_scan (the strided rows read in place, an eighth of
+        the bm, the card's S) held against knn_scan_plain on the same views
+        and its knn_merge against knn_merge_plain bit for bit, the bound
+        its merged k_eff-th pair; each timed; the scan without the bound
+        (its ms and survivor share; its merged answer must equal the bounded
+        one bit for bit); the pilot swept at 8, 16 and 32·k_eff rows.
+        Returns (ok, the pilot's ms by kernel name, (bytes, operations) of
+        the pilot's design work)."""
+        torch, K = self.torch, self.K
+        bm, bn, _ = call.blocks
+        cq, cx, cxn = call.q, call.x, call.xn
+        args = (cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, True, splits)
+        lanes = cq.shape[0] * cx.shape[0]
+        if not pilot:
+            has = hasattr(K, "PILOT")
+            log(f"{label}: pilot bypassed (a split scans "
+                f"{K.tiles_per_split(cx.shape[0] // bn, splits) * bn} rows; "
+                f"{K.PILOT if has else '-'}·k_eff = {K.PILOT * call.k_eff if has else '-'}; "
+                f"{cx.shape[0]} rows); survivors {int(st[..., 0].sum()) / lanes:.6f} of the lanes")
+            return True, {"knn_scan": 0.0, "knn_merge": 0.0}, (0, 0)
+        stride, pbm = cx.shape[0] // pilot, max(1, bm // 8)
+        px, pxn = cx[::stride][:pilot], cxn[::stride][:pilot]
+        psplits = K.scan_config(cq.shape[0] // pbm, pilot // bn, pbm, self.dev)[0]
+        pargs = (cq, px, qn, pxn, call.k_eff, "l2", pbm, bn, True, psplits)
+        sv, si, ssk, sst = K.knn_scan(*pargs, return_stats=True)
+        pv, pi, psk = K.knn_scan_plain(*pargs)
+        pmv, pmi = K.knn_merge(sv, si)
+        ppv, ppi = K.knn_merge_plain(sv, si)
+        bv, bi = K.pilot_bound(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, pilot)
+        self.sync()
+        xmax = float(pxn[torch.isfinite(pxn)].max())
+        ok_scan, err, checked = self._close(sv, si, pv, pi, TOL_REL * (qn[:, None, None] + xmax))
+        merge_exact = torch.equal(pmv, ppv) and torch.equal(pmi, ppi)
+        bound_exact = torch.equal(bv, pmv[:, -1]) and torch.equal(
+            bi, torch.where(pmi[:, -1] >= 0, pmi[:, -1] * stride, -1))
+        ms = {"knn_scan": self.ms(lambda: K.knn_scan(*pargs)),
+              "knn_merge": self.ms(lambda: K.knn_merge(sv, si))}
+        whole_ms = self.ms(lambda: K.pilot_bound(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn,
+                                                 pilot))
+        psel = self.select_work(sst, call.k_eff, cq.shape[0] * pilot)
+        work = ((cq.shape[0] // pbm) * (px.shape[0] * px.shape[1] * px.element_size()
+                                         + pilot * 4) + sv.numel() * 8 + psel["pairs_moved"] * 16
+                + psel["survivors"] * 8,
+                cq.shape[0] * pilot * (2 * cx.shape[1] + L2_EPILOGUE_OPS) + psel["ops"])
+        log(f"{label}: pilot of {pilot} rows (stride {stride}, bm {pbm}, S={psplits}): scan vs "
+            f"plain max|d|={err:.3e}, indices checked {checked}/{sv.numel()}, skips kernel="
+            f"{int(ssk.sum())} plain={int(psk.sum())}; merge bit-identical={merge_exact}; bound "
+            f"= its merged k_eff-th pair={bound_exact}; knn_scan {ms['knn_scan']:.4f} ms, "
+            f"knn_merge {ms['knn_merge']:.4f} ms, pilot_bound whole {whole_ms:.4f} ms "
+            f"[{self.card}]")
+        fv, fi, _, fst = K.knn_scan(*args, return_stats=True)
+        free_v, free_i = K.knn_merge(fv, fi)
+        same = torch.equal(free_v, mv) and torch.equal(free_i, mi)
+        free_ms = self.ms(lambda: K.knn_scan(*args))
+        log(f"{label}: knn_scan bounded {scan_ms:.4f} ms, survivors "
+            f"{int(st[..., 0].sum()) / lanes:.6f}; unbounded {free_ms:.4f} ms, survivors "
+            f"{int(fst[..., 0].sum()) / lanes:.6f}; merged answers bit-identical={same} "
+            f"[{self.card}]")
+        for factor in (8, K.PILOT, 32):
+            rows = factor * call.k_eff
+            if rows % bn or cx.shape[0] // rows < 1:
+                continue
+            pilot_ms = self.ms(lambda: K.pilot_bound(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn,
+                                                     rows))
+            sbv, sbi = K.pilot_bound(cq, cx, qn, cxn, call.k_eff, "l2", bm, bn, rows)
+            *_, bst = K.knn_scan(*args, return_stats=True, bound_v=sbv, bound_i=sbi)
+            bounded_ms = self.ms(lambda: K.knn_scan(*args, bound_v=sbv, bound_i=sbi))
+            log(f"{label}: pilot sweep {factor}·k_eff = {rows} rows: pilot_ms={pilot_ms:.4f} "
+                f"bounded_scan_ms={bounded_ms:.4f} survivors "
+                f"{int(bst[..., 0].sum()) / lanes:.6f} sum_ms={pilot_ms + bounded_ms:.4f}")
+        return ok_scan and merge_exact and bound_exact and same, ms, work
+
+    def _pilot_cost(self, label, call) -> bool:
+        """ops.knn's kernels at a prepared call three ways: knn_fused as the
+        package runs it (the pilot where its rule engages), a pilot of
+        PILOT·k_eff rows forced before the scan, and no pilot; each with its
+        query norms, timed by CUDA events (runs of 10 calls back to back,
+        per call) and by the host's clock (a call and a sync). The three
+        answers must be bit-identical."""
+        torch, K = self.torch, self.K
+        bm, bn, bd = call.blocks
+        q, x, xn, k_eff = call.q, call.x, call.xn, call.k_eff
+        splits, tps, _ = K.scan_config(q.shape[0] // bm, x.shape[0] // bn, bm, self.dev)
+        rows, rule = K.PILOT * k_eff, K.pilot_rows(x.shape[0], k_eff, tps * bn, bm)
+        if rows % bn or x.shape[0] < rows:
+            log(f"{label}: no pilot of {rows} rows fits {x.shape[0]} rows at bn {bn}")
+            return True
+
+        def scan(bound_rows):
+            qn = self.qnorm(q)
+            bound = {}
+            if bound_rows:
+                bound = dict(zip(("bound_v", "bound_i"), K.pilot_bound(
+                    q, x, qn, xn, k_eff, call.metric, bm, bn, bound_rows)))
+            sv, si, _ = K.knn_scan(q, x, qn, xn, k_eff, call.metric, bm, bn, True, splits,
+                                   **bound)
+            return K.knn_merge(sv, si)
+
+        ways = {"fused": lambda: K.knn_fused(q, x, xn, k_eff, call.metric, bm, bn, bd)[:2],
+                "pilot": lambda: scan(rows), "none": lambda: scan(0)}
+        answers = {name: fn() for name, fn in ways.items()}
+        same = all(torch.equal(a[0], answers["none"][0]) and torch.equal(a[1], answers["none"][1])
+                   for a in answers.values())
+        ev = {name: self.ms(fn, calls=10) for name, fn in ways.items()}
+        host = {name: self.host_clock_ms(fn, REPEATS)[0] for name, fn in ways.items()}
+        log(f"{label}: {q.shape[0]} x {x.shape[0]} rows, k_eff {k_eff}, bm {bm}, S={splits}, "
+            f"a split {tps * bn} rows; rule engages={bool(rule)}; ms by events fused/pilot/none "
+            f"{ev['fused']:.4f} / {ev['pilot']:.4f} / {ev['none']:.4f}, by the host's clock "
+            f"{host['fused']:.4f} / {host['pilot']:.4f} / {host['none']:.4f}; answers "
+            f"bit-identical={same} [{self.card}]")
+        return same
 
     def _library_scan_ms(self, label, q, x, k):
         """torch.topk over torch.cdist(q, x)²: the same kNN from one library
@@ -1159,6 +1351,15 @@ class Smoke:
         ok = self.main_path(f"gist_fqsd_m{GIST['m']}_k{GIST['k']}", eng, q, GIST["k"], "fqsd")
         del eng
         self.torch.cuda.empty_cache()
+        if hasattr(self.K, "pilot_bound"):  # the small engine the pilot's rule bypasses
+            cfg = PILOT_SMALL
+            x, q = self._dataset(cfg["n"], cfg["d"], max(cfg["ms"]), seed=21)
+            eng = self._fit("pilot_small", x, cfg["k"])
+            for m in cfg["ms"]:
+                call = self.ops.prepare(eng._pad_queries(q[:m]), eng._ds.vectors, cfg["k"],
+                                        "l2", eng._ds.norms)
+                ok &= self._pilot_cost(f"pilot_small_n{cfg['n']}_m{m}_k{cfg['k']}", call)
+            del eng, x
         return ok
 
     def phase_msmarco(self) -> bool:
@@ -1197,6 +1398,14 @@ class Smoke:
         del x
         ok &= self.main_path_int8(f"gist_fqsd_int8_m{INT8['m']}_k{INT8['gist_k']}",
                                   eng, q, INT8["gist_k"])
+        if hasattr(self.K, "pilot_bound"):  # the fallback's f32 scan at 1, 4 and 16 rows
+            from repro_torch.core.partition import next_pow2
+
+            w, ds = 2 * next_pow2(INT8["gist_k"]), eng._ds
+            for m in PILOT_FALLBACK_MS:
+                call = self.ops.prepare(eng._pad_queries(q[:m]), ds.vectors, w, "l2", ds.norms)
+                ok &= self._pilot_cost(f"pilot_int8_fallback_m{m}_w{w}", call)
+                del call
         del eng
         torch.cuda.empty_cache()
         return ok
@@ -1221,8 +1430,13 @@ class Smoke:
         m = q.shape[0]
         v, i = res.topk.scores, res.topk.indices
         # rows the int8 certificate leaves are recomputed through the f32
-        # kernel (knn_exact_rescored: one knn_scan + one knn_merge more)
-        refit = int(not bool(cert.all()))
+        # kernel (knn_exact_rescored: one knn_scan + one knn_merge more, and
+        # a pilot's pair where the rule engages at its rows and queue)
+        from repro_torch.core.partition import next_pow2
+
+        n_bad = int((~cert).sum())
+        refit = int(n_bad > 0) * (1 + self.pilots(*eng._ds.vectors.shape, n_bad,
+                                                  2 * next_pow2(k)))
         ok = (res.plan.executor == "fqsd-int8-cuda" and launches["knn_int8_scan"] >= 1
               and launches["knn_merge"] == 1 + refit and launches["knn_scan"] == refit)
         ok &= tuple(v.shape) == (m, k) and bool(torch.isfinite(v).all())
@@ -1358,9 +1572,11 @@ class Smoke:
     def _fallback_kernels(self, label, qb, ds, k, d, launches) -> dict:
         """knn_scan and knn_merge as knn_exact_rescored runs them on the
         uncertified rows qb (queue 2·k_eff wide, the queries' first d columns
-        real), each against its plain version, timed beside its library call
-        and its bound; the rows its certificate leaves to knn_exact_direct.
-        Returns the fallback's shape entry, with "ok"."""
+        real; bounded by a pilot where the rule engages, checked as the
+        main path's), each against its plain version, timed (a pilot's
+        launch added to each) beside its library call and its bound; the
+        rows its certificate leaves to knn_exact_direct. Returns the
+        fallback's shape entry, with "ok"."""
         torch, K, ops = self.torch, self.K, self.ops
         from repro_torch.core.partition import next_pow2
 
@@ -1368,10 +1584,15 @@ class Smoke:
         call = ops.prepare(qb, ds.vectors, w, "l2", ds.norms)
         bm, bn, _ = call.blocks
         qn = self.qnorm(call.q)
-        splits = K.scan_config(call.q.shape[0] // bm, call.x.shape[0] // bn, bm, self.dev)[0]
+        splits, tps, _ = K.scan_config(call.q.shape[0] // bm, call.x.shape[0] // bn, bm,
+                                       self.dev)
+        pilot = (K.pilot_rows(call.x.shape[0], call.k_eff, tps * bn, bm)
+                 if hasattr(K, "pilot_rows") else 0)
+        bound = (dict(zip(("bound_v", "bound_i"), K.pilot_bound(
+            call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, pilot))) if pilot else {})
         args = (call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
-        sv, si, _ = K.knn_scan(*args)
-        pv, pi, _ = K.knn_scan_plain(*args)
+        sv, si, _, st = K.knn_scan(*args, return_stats=True, **bound)
+        pv, pi, _ = K.knn_scan_plain(*args, **bound)
         mv, mi = K.knn_merge(sv, si)
         mpv, mpi = K.knn_merge_plain(sv, si)
         _, cert = ops.certify_candidates(qb, ds.vectors, ds.norms, k, ops.finish(call, mv, mi))
@@ -1379,31 +1600,37 @@ class Smoke:
         xmax = float(call.xn[torch.isfinite(call.xn)].max())
         ok_scan, err, _ = self._close(sv, si, pv, pi, TOL_REL * (qn[:, None, None] + xmax))
         merge_exact = torch.equal(mv, mpv) and torch.equal(mi, mpi)
+        scan_ms = self.ms(lambda: K.knn_scan(*args, **bound))
+        ok_pilot, pilot_ms, _ = self._pilot(f"{label}_fallback", call, qn, splits, pilot, st,
+                                            mv, mi, scan_ms)
         m, n = qb.shape[0], ds.n_valid
         flat = sv.reshape(sv.shape[0], -1)
         entries = {}
-        for name, fn, plain, lib, lib_fn, (bb, by), e in (
-                ("knn_scan", lambda: K.knn_scan(*args), lambda: K.knn_scan_plain(*args),
+        for name, t, plain, lib, lib_fn, (bb, by), e in (
+                ("knn_scan", scan_ms, lambda: K.knn_scan_plain(*args, **bound),
                  "torch.topk(torch.cdist(q, x)**2)",
                  lambda: self._library_scan_ms(label, call.q[:m], call.x[:n], w)[0],
                  self.bound((n + m) * d * 4 + (n + m) * 4 + m * w * 8,
                             m * n * (2 * d + L2_EPILOGUE_OPS)), err if ok_scan else math.inf),
-                ("knn_merge", lambda: K.knn_merge(sv, si), lambda: K.knn_merge_plain(sv, si),
-                 "torch.topk(queues.reshape(m, -1))",
+                ("knn_merge", self.ms(lambda: K.knn_merge(sv, si)),
+                 lambda: K.knn_merge_plain(sv, si), "torch.topk(queues.reshape(m, -1))",
                  lambda: self.ms(lambda: torch.topk(flat, call.k_eff, largest=False)),
                  self.bound(*self.merge_work(sv, si, mv, mi)),
                  0.0 if merge_exact else math.inf)):
-            entries[name] = {"launches": launches, "max_abs_err": e, "ms": self.ms(fn),
-                             "plain_ms": self.ms(plain), "bound_ms": bb, "bound_by": by,
-                             "library_ms": lib_fn(), "library": lib}
+            entries[name] = {"launches": launches, "max_abs_err": e, "ms": t + pilot_ms[name],
+                             "pilot_ms": pilot_ms[name], "plain_ms": self.ms(plain),
+                             "bound_ms": bb, "bound_by": by, "library_ms": lib_fn(),
+                             "library": lib}
             log(f"{label}: fallback {name} ({m} rows, queue {w}, S={splits}) "
-                f"ms={entries[name]['ms']:.4f} plain_ms={entries[name]['plain_ms']:.4f} "
+                f"ms={entries[name]['ms']:.4f} (pilot {pilot_ms[name]:.4f}) "
+                f"plain_ms={entries[name]['plain_ms']:.4f} "
                 f"library_ms={entries[name]['library_ms']} bound_ms={bb:.4f} ({by}) "
                 f"max|d|={e:.3e} launches={launches} [{self.card}]")
         left = int((~cert).sum())
         log(f"{label}: fallback scan within tolerance={ok_scan}, merge bit-identical="
             f"{merge_exact}; {m - left}/{m} rows certified, {left} left to knn_exact_direct")
-        return {"shape": f"{label}_fallback", "fallback_of": label, "ok": ok_scan and merge_exact,
+        return {"shape": f"{label}_fallback", "fallback_of": label,
+                "ok": ok_scan and merge_exact and ok_pilot,
                 "per": f"the int8 fallback's f32 scan and merge of {m} rows, queue {w}",
                 "rows_left_to_direct": left, "kernels": entries}
 
@@ -2114,12 +2341,14 @@ class Smoke:
         _, ms["delete_delta"] = self._timed(lambda: eng.delete(dead_delta))
         timing["resident"] = ms
         ok &= len(store.delta_shards()) == n_delta and store.delta_shards()[0].vectors.is_cuda
-        kernels = {"knn_scan": 1 + n_delta, "knn_merge": 1 + n_delta}
+        # the main scan, its pilot where the rule engages, and each delta shard
+        pilots = {mode: self.pilots(*eng._ds.vectors.shape, *cfg[mode]) for mode in reqs}
         delta_launches = {}  # each mode's launches on its delta shards
         for mode, r in reqs.items():
+            kernels = dict.fromkeys(("knn_scan", "knn_merge"), 1 + pilots[mode] + n_delta)
             good, _, launches = self._mutated_search(f"resident f32 {mode}", eng, r,
                                                      want[mode], live, kernels)
-            delta_launches[mode] = {name: launches[name] - 1 for name in kernels}
+            delta_launches[mode] = {name: launches[name] - 1 - pilots[mode] for name in kernels}
             ok &= good
         good, res8, _ = self._mutated_search("resident int8", eng, req8, oracle8, live,
                                           {"knn_int8_scan": 1, "knn_merge": 1})
@@ -2146,8 +2375,9 @@ class Smoke:
         stats, compact_ms = self._timed(store.compact)
         timing["compact_card_s"] = compact_ms / 1e3
         for mode, r in reqs.items():
-            good, _, _ = self._mutated_search(f"resident f32 {mode} after compact()", eng, r,
-                                              want[mode], live, {"knn_scan": 1, "knn_merge": 1})
+            good, _, _ = self._mutated_search(
+                f"resident f32 {mode} after compact()", eng, r, want[mode], live,
+                dict.fromkeys(("knn_scan", "knn_merge"), 1 + pilots[mode]))
             ok &= good
         good, _, _ = self._mutated_search("resident int8 after compact()", eng, req8, oracle8,
                                           live, {"knn_int8_scan": 1, "knn_merge": 1})
@@ -2419,6 +2649,21 @@ class Smoke:
         return (self.torch.cat([r.topk.scores for r in out]),
                 self.torch.cat([r.topk.indices for r in out]))
 
+    def _dispatch_launches(self, eng, label, rows, k, launches) -> bool:
+        """Gate (b) of one dispatch of ``rows`` query rows at k on eng: an
+        f32 dispatch launches one knn_merge (two where the pilot's rule
+        engages at its shape, Smoke.pilots) and a knn_scan for each and for
+        every delta shard; an int8 dispatch its int8 scan and merge, and
+        when a row refits the fallback's scan and merge (a pilot's pair
+        more where the rule engages at the refit rows, which the dispatch
+        does not record)."""
+        if label == "fqsd-int8":
+            return (launches["knn_int8_scan"] >= 1 and launches["knn_scan"] in (0, 1, 2)
+                    and launches["knn_merge"] == 1 + launches["knn_scan"])
+        pilot = self.pilots(*eng._ds.vectors.shape, rows, k)
+        return (launches["knn_scan"] >= 1 + pilot and launches["knn_merge"] == 1 + pilot
+                and launches["knn_int8_scan"] == 0)
+
     def _serve_gates(self, label, served, ref, eng, qt, sched, st, deleted, upserted,
                      policy) -> bool:
         """(a) every answer by rid within _close of the direct search, no
@@ -2439,12 +2684,7 @@ class Smoke:
                     for row, new_id in upserted.items() if new_id not in deleted)
         ok_b, bad = True, []
         for lab, rows, launches, _ in sched.log:
-            if lab == "fqsd-int8":  # + knn_scan and knn_merge when a row refits
-                good = (launches["knn_int8_scan"] >= 1 and launches["knn_scan"] in (0, 1)
-                        and launches["knn_merge"] == 1 + launches["knn_scan"])
-            else:
-                good = (launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
-                        and launches["knn_int8_scan"] == 0)
+            good = self._dispatch_launches(eng, lab, rows, ref[0].shape[1], launches)
             if not good:
                 bad.append((lab, rows, launches))
             ok_b &= good
@@ -4487,7 +4727,8 @@ class Smoke:
             tol = torch.tensor(RETRIEVAL_TOL, device=self.dev)
             ok_end, err_end, checked = self._close(out.scores, out.indices, plain.scores,
                                                    plain.indices, tol, gap=tol)
-            ok_end &= launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
+            pilot = self.pilots(n, d, m, k)  # a pilot's pair where the rule engages
+            ok_end &= launches["knn_scan"] >= 1 + pilot and launches["knn_merge"] == 1 + pilot
             retrieve_ms = self.ms(lambda: cell.fn(p, uid, cand))
             label = f"retrieval_{arch_id}_m{m}_n{n}_d{d}_k{k}"
             log(f"{label}: {cell.shape_name} through the cell (one knn_scan + one knn_merge, "
@@ -5466,12 +5707,7 @@ class Listen:
         labels = {entry[0] for entry in mine}
         ok_b, bad = True, []
         for lab, rows, launches, *_ in mine if read_launches else ():
-            if lab == "fqsd-int8":  # + knn_scan and knn_merge when a row refits
-                good = (launches["knn_int8_scan"] >= 1 and launches["knn_scan"] in (0, 1)
-                        and launches["knn_merge"] == 1 + launches["knn_scan"])
-            else:
-                good = (launches["knn_scan"] >= 1 and launches["knn_merge"] == 1
-                        and launches["knn_int8_scan"] == 0)
+            good = self.smoke._dispatch_launches(self.eng, lab, rows, self.k, launches)
             ok_b &= good
             if not good:
                 bad.append((lab, rows, launches))

@@ -99,7 +99,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.knn_scan.argtypes = [ptr] * 10 + [i32] * 12 + [ptr]
+            lib.knn_scan.argtypes = [ptr] * 12 + [i32] * 14 + [ptr]
             lib.knn_int8_scan.argtypes = [ptr] * 12 + [i32] * 10 + [ptr]
             lib.knn_merge.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.topk_scan.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]

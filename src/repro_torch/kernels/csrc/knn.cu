@@ -4,8 +4,10 @@
 // counterpart of repro/kernels/knn/kernel.py::knn_pallas: f32 or bf16 rows,
 // l2 / ip scores), and a one-launch merge of per-block queues (knn_merge,
 // also for knn_int8_scan of knn_int8.cu and topk_scan of topk.cu). The
-// (M, N) score matrix never leaves the block. See
-// repro_torch/kernels/knn/kernel.py for the design note.
+// (M, N) score matrix never leaves the block. An optional per-query bound
+// (ops.knn's pilot: an upper bound on the k-th pair) starts every block's
+// filter at it, so a scan whose blocks see few rows a query still admits
+// few lanes. See repro_torch/kernels/knn/kernel.py for the design note.
 //
 // Plain C interface (loaded with ctypes): every pointer and the stream come
 // in as void*, outputs and scratch are allocated by the caller, and each
@@ -90,7 +92,10 @@ struct Widen<__nv_bfloat16> {
 // folds the scores into the BM queues, which live in device memory (out,
 // and scratch as the second buffer); tile by tile (bn rows: several
 // chunks, or part of one) the strict prune test against the tile-start
-// worst values is counted as a skip. Writes the sorted queues to
+// worst values is counted as a skip. A bound (bound_v not null) caps each
+// query's filter from the start (see below). Row r of x lies at
+// x + r·x_pitch and its norm at xn + r·xn_step (a strided sample of the
+// rows is read in place). Writes the sorted queues to
 // out[(row·splits + s)·k + lane], the skip count to skips[i·splits + s]
 // and, when stats is not null, the selection counters to
 // stats[(i·splits + s)·4 + c].
@@ -99,8 +104,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     knn_scan_kernel(const float* __restrict__ q, const T* __restrict__ x,
                     const float* __restrict__ qn, const float* __restrict__ xn, float* out_v,
                     int* out_i, float* scratch_v, int* scratch_i, int* __restrict__ skips,
-                    unsigned* __restrict__ stats, int n, int dim, int k, int bn, int metric,
-                    int prune, int tiles_per_split, int cap) {
+                    unsigned* __restrict__ stats, const float* __restrict__ bound_v,
+                    const int* __restrict__ bound_i, int n, int dim, int x_pitch, int xn_step,
+                    int k, int bn, int metric, int prune, int tiles_per_split, int cap) {
   constexpr int kRows = BM >= 8 ? 2 : 4;
   constexpr int kChunk = kThreads * kRows;
   constexpr int kPer = BM >= 8 ? 2 : 1;            // rows a thread holds per stage
@@ -137,6 +143,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const rt::Queues queues{{out_v + qoff, scratch_v + qoff}, {out_i + qoff, scratch_i + qoff},
                           (long long)splits * k, k};
   if (tid < BM) qn_s[tid] = qn[row0 + tid];
+  // a finite bound starts the filter at it: a lane enters only at or below
+  // (bound_v, bound_i), i.e. strictly below (bound_v, bound_i + 1), until
+  // the queue is full, and then below its worst, which is at or below the
+  // bound; the tile-start values of the prune test follow
+  if (bound_v != nullptr && tid < BM && bound_v[row0 + tid] < CUDART_INF_F) {
+    s.worst_v[tid] = bound_v[row0 + tid];
+    s.worst_i[tid] = bound_i[row0 + tid] + 1;
+  }
 
   // stage g: chunk g / (dsteps·kJSteps), feature block (g / kJSteps) %
   // dsteps, the rows t + 256·j of j in [kPer·(g % kJSteps), +kPer), row
@@ -152,7 +166,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int row = base + r, col = d0 + piece * kPieceElems;
       const bool in = row < n && col < dim;
       void* to = dst + r * kRowBytes + ((piece ^ (r / kLine % kPieces)) << 4);
-      const T* from = x + (in ? (size_t)row * dim + col : 0);
+      const T* from = x + (in ? (size_t)row * x_pitch + col : 0);
       if constexpr (kRowBytes < 128) rt::cp_async16_line(to, from, in ? 16 : 0);
       else rt::cp_async16(to, from, in ? 16 : 0);
     }
@@ -222,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < kRows; ++j) {
       const int row = base + tid + kThreads * j;
       ix[j] = row;
-      const float xv = row < r_end ? __ldg(xn + row) : CUDART_INF_F;
+      const float xv = row < r_end ? __ldg(xn + (size_t)row * xn_step) : CUDART_INF_F;
       const bool valid = isfinite(xv);
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
@@ -505,7 +519,8 @@ __global__ void __launch_bounds__(kMergeThreads)
 template <typename T, int BM>
 cudaError_t launch_scan(const void* q, const void* x, const void* qn, const void* xn,
                         void* out_v, void* out_i, void* scratch_v, void* scratch_i, void* skips,
-                        void* stats, int m, int n, int dim, int k, int bn, int metric, int prune,
+                        void* stats, const void* bound_v, const void* bound_i, int m, int n,
+                        int dim, int x_pitch, int xn_step, int k, int bn, int metric, int prune,
                         int splits, int tiles_per_split, int cap, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(BM, cap);
   auto kernel = knn_scan_kernel<T, BM>;
@@ -516,19 +531,23 @@ cudaError_t launch_scan(const void* q, const void* x, const void* qn, const void
       static_cast<const float*>(q), static_cast<const T*>(x), static_cast<const float*>(qn),
       static_cast<const float*>(xn), static_cast<float*>(out_v), static_cast<int*>(out_i),
       static_cast<float*>(scratch_v), static_cast<int*>(scratch_i), static_cast<int*>(skips),
-      static_cast<unsigned*>(stats), n, dim, k, bn, metric, prune, tiles_per_split, cap);
+      static_cast<unsigned*>(stats), static_cast<const float*>(bound_v),
+      static_cast<const int*>(bound_i), n, dim, x_pitch, xn_step, k, bn, metric, prune,
+      tiles_per_split, cap);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_scan(int bm, const void* q, const void* x, const void* qn, const void* xn,
                           void* out_v, void* out_i, void* scratch_v, void* scratch_i,
-                          void* skips, void* stats, int m, int n, int dim, int k, int bn,
+                          void* skips, void* stats, const void* bound_v, const void* bound_i,
+                          int m, int n, int dim, int x_pitch, int xn_step, int k, int bn,
                           int metric, int prune, int splits, int tiles_per_split, int cap,
                           cudaStream_t stream) {
-#define REPRO_SCAN_LAUNCH(BM)                                                               \
-  launch_scan<T, BM>(q, x, qn, xn, out_v, out_i, scratch_v, scratch_i, skips, stats, m, n, \
-                     dim, k, bn, metric, prune, splits, tiles_per_split, cap, stream)
+#define REPRO_SCAN_LAUNCH(BM)                                                                 \
+  launch_scan<T, BM>(q, x, qn, xn, out_v, out_i, scratch_v, scratch_i, skips, stats, bound_v, \
+                     bound_i, m, n, dim, x_pitch, xn_step, k, bn, metric, prune, splits,      \
+                     tiles_per_split, cap, stream)
   switch (bm) {
     case 1:
       return REPRO_SCAN_LAUNCH(1);
@@ -551,24 +570,30 @@ cudaError_t dispatch_scan(int bm, const void* q, const void* x, const void* qn, 
 extern "C" {
 
 // q (m, dim) f32 (the queries widened when x is bf16), x (n, dim) f32
-// (bf16 = 0) or bf16 (bf16 = 1); qn (m,), xn (n,) f32; out_v / out_i and scratch_v / scratch_i
+// (bf16 = 0) or bf16 (bf16 = 1), row r at x + r·x_pitch (x_pitch >= dim, a
+// multiple of 16 bytes); qn (m,), xn (n,) f32, row r's at xn + r·xn_step;
+// out_v / out_i and scratch_v / scratch_i
 // (m, splits, k); skips (m / bm, splits) i32; stats null or
-// (m / bm, splits, 4) u32. metric 0 = l2, 1 = ip. Requires m % bm == 0,
+// (m / bm, splits, 4) u32; bound_v / bound_i null or (m,) f32 / i32, each
+// query's bound: only pairs at or below it enter its queues (a +inf value
+// bounds nothing). metric 0 = l2, 1 = ip. Requires m % bm == 0,
 // n % bn == 0, dim % 32 == 0, bn a power of two >= 256, k a power of two
 // <= bn, bm in {1, 2, 4, 8, 16}, cap a power of two; q and x 16-byte
 // aligned.
 int knn_scan(const void* q, const void* x, const void* qn, const void* xn, void* out_v,
-             void* out_i, void* scratch_v, void* scratch_i, void* skips, void* stats, int m,
-             int n, int dim, int k, int bm, int bn, int metric, int prune, int splits,
+             void* out_i, void* scratch_v, void* scratch_i, void* skips, void* stats,
+             const void* bound_v, const void* bound_i, int m, int n, int dim, int x_pitch,
+             int xn_step, int k, int bm, int bn, int metric, int prune, int splits,
              int tiles_per_split, int cap, int bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       bf16 ? dispatch_scan<__nv_bfloat16>(bm, q, x, qn, xn, out_v, out_i, scratch_v, scratch_i,
-                                          skips, stats, m, n, dim, k, bn, metric, prune, splits,
+                                          skips, stats, bound_v, bound_i, m, n, dim, x_pitch,
+                                          xn_step, k, bn, metric, prune, splits,
                                           tiles_per_split, cap, st)
            : dispatch_scan<float>(bm, q, x, qn, xn, out_v, out_i, scratch_v, scratch_i, skips,
-                                  stats, m, n, dim, k, bn, metric, prune, splits,
-                                  tiles_per_split, cap, st);
+                                  stats, bound_v, bound_i, m, n, dim, x_pitch, xn_step, k, bn,
+                                  metric, prune, splits, tiles_per_split, cap, st);
   return static_cast<int>(err);
 }
 

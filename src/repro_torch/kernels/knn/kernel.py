@@ -53,6 +53,29 @@ of (queue ∪ tile), and a tile whose every row's minimum is strictly above
 its queue's tile-start worst value counts as a skip, so values, indices
 and skip counts are the plain version's at the same (bm, bn, S).
 
+The bound of ``knn_scan``. A block's filter starts at (+inf, -1) and only
+tightens once its queues hold k pairs, so a block that sees few rows a
+query admits most of them: at GIST's shape (k = 1024, S = 245) a block
+scans 4,096 rows in random order and admits about k·(1 + ln 4) ≈ 2,400
+a query, each admitted batch sorted and merged into queues in device
+memory. An optional (M,) bound (bound_v, bound_i) starts each query's
+filter at that pair instead: a lane enters only at or below it (as
+strictly below (bound_v, bound_i + 1)), and once the queue is full below
+its worst pair, which then lies at or below the bound; the prune test's
+tile-start value is the smaller of the two. Empty slots stay (+inf, -1),
+a +inf bound bounds nothing, and the plain version models it exactly
+(lanes past the bound score +inf for the update), so values, indices and
+skips still agree at the same (bm, bn, S, bound). ``knn_fused`` takes
+the bound from a pilot (:func:`pilot_bound`, where :func:`pilot_rows`
+says so): the k-th pair of a strided sample of the rows, scanned first by
+the same kernels on the same queries (a pair's
+score has the same bits in any batch and at any bm). The sample's pairs
+are pairs of the scan, so at least k pairs lie at or below the bound and
+the merged answer is bit-identical to the unbounded one; only the skip
+counts, a statistic, may change. The kernel reads the sample in place: x's
+rows lie x_pitch elements apart and xn's xn_step apart (a row-strided view;
+the main scan's pitch is d, its step 1), so no copy of the rows is made.
+
 Design of ``knn_int8_scan`` (its own kernel, the same structure). At
 M = 16 the widened codes' f32 FMAs, not the 1 B/element reads, bound it.
 Its stages hold 32 codes a row, widened by a byte permute and a float
@@ -95,6 +118,7 @@ import torch
 from repro_torch.core.distance import query_norms_sq
 from repro_torch.core.quantized import sqrt_rn
 from repro_torch.core.topk import topk_smallest, tree_merge_sorted
+from repro_torch.runtime import tracing
 
 #: Kernel launches per kernel name, counted where each wrapper launches.
 LAUNCHES = {"knn_scan": 0, "knn_merge": 0, "knn_int8_scan": 0, "topk": 0, "l2dist": 0}
@@ -225,6 +249,19 @@ def _check_cuda(*tensors):
             raise ValueError("tensors must be contiguous and 16-byte aligned")
 
 
+def _check_rows(q, x, xn):
+    """x and xn may be row-strided views of the scan's rows (the pilot's
+    sample): x with unit stride along d and rows on 16-byte boundaries."""
+    for t in (x, xn):
+        if t.device != q.device:
+            raise ValueError(f"tensors must share one CUDA device, got {t.device} and {q.device}")
+    if (x.stride(1) != 1 or x.stride(0) < x.shape[1] or x.stride(0) >= 2**31
+            or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16
+            or not 1 <= xn.stride(0) < 2**31):
+        raise ValueError(f"x must have unit stride along d and rows on 16-byte boundaries, "
+                         f"got strides {x.stride()}; xn stride {xn.stride()}")
+
+
 def _raise_on(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -257,19 +294,39 @@ def scan_config(m_tiles: int, n_tiles: int, bm: int, device,
     return _scan_config(scan_survivor_cap, m_tiles, n_tiles, bm, device, splits)
 
 
+def _check_bound(q, bound_v, bound_i):
+    if (bound_v is None) != (bound_i is None):
+        raise ValueError("bound_v and bound_i come together")
+    if bound_v is None:
+        return
+    m = q.shape[0]
+    for name, t, dtype in (("bound_v", bound_v, torch.float32), ("bound_i", bound_i, torch.int32)):
+        if t.shape != (m,) or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {dtype} of shape ({m},) on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
-             prune: bool = True, splits: int | None = None, return_stats: bool = False):
+             prune: bool = True, splits: int | None = None, return_stats: bool = False,
+             bound_v=None, bound_i=None):
     """Per-split sorted queues: (M, S, k_eff) f32 values and i32 indices,
     and (M / bm, S) i32 skip counts. ``splits=None`` fills the card.
     ``return_stats=True`` (CUDA tensors only) adds the kernel's selection
     counters, (M / bm, S, 4) i32: survivors, passes, comparisons of the
-    survivor sorts, queue pairs moved."""
+    survivor sorts, queue pairs moved. ``bound_v`` / ``bound_i``, (M,) f32
+    and i32, admit only the (score, index) pairs at or below each query's
+    (bound_v, bound_i); empty queue slots stay (+inf, -1) (see the design
+    note). x and xn may be row-strided views (``x[::s]``, ``xn[::s]``):
+    the kernel reads them in place, and indices count their rows."""
     _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    _check_bound(q, bound_v, bound_i)
     if q.device.type == "cpu":
         if return_stats:
             raise ValueError("selection counters come from the kernel: CUDA tensors only")
-        return knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits or 1)
-    _check_cuda(q, x, qn, xn)
+        return knn_scan_plain(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits or 1,
+                              bound_v, bound_i)
+    _check_cuda(q, qn, *(() if bound_v is None else (bound_v, bound_i)))
+    _check_rows(q, x, xn)
     if q.shape[1] % _DEPTH:
         raise ValueError(f"d={q.shape[1]} must be a multiple of {_DEPTH}")
     from repro_torch.kernels.build import load_library
@@ -289,7 +346,10 @@ def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
     err = load_library().knn_scan(
         q32.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), scratch_v.data_ptr(), scratch_i.data_ptr(), skips.data_ptr(),
-        None if stats is None else stats.data_ptr(), m, n, d, k_eff, bm, bn,
+        None if stats is None else stats.data_ptr(),
+        None if bound_v is None else bound_v.data_ptr(),
+        None if bound_i is None else bound_i.data_ptr(), m, n, d, x.stride(0), xn.stride(0),
+        k_eff, bm, bn,
         _METRICS[metric], int(prune), splits, tps, cap, int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "knn_scan")
@@ -394,6 +454,57 @@ def knn_int8_scan(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
     return (out_v, out_i, skips, stats) if return_stats else (out_v, out_i, skips)
 
 
+#: A pilot scans PILOT·k_eff rows, for scans whose splits see fewer rows
+#: than that, over at least PILOT times the pilot's rows (:func:`pilot_rows`).
+PILOT = 16
+#: The fewest rows a pilot pays for: its fixed cost, two launches and about
+#: 0.2 ms on an H100, exceeds the selection it saves below them.
+PILOT_MIN_ROWS = 1 << 18
+
+
+def pilot_rows(n: int, k_eff: int, split_rows: int, bm: int) -> int:
+    """The rows of the pilot that bounds a scan's survivor filter, or 0
+    for none. A split of the scan sees ``split_rows`` rows (its tiles × bn)
+    and admits about k_eff·(1 + ln(split_rows / k_eff)) of them a query
+    when their order is random: below PILOT·k_eff rows that is most of
+    them, and every admitted batch is sorted and merged. Then, when the n
+    rows number at least PILOT times as many, a pilot of PILOT·k_eff rows
+    bounds the filter at about a PILOT-th of the lanes. It pays only where
+    the selection is a large share of the scan: at the full m-tile of 16
+    queries a block (at bm <= 4 the scan, bound by its rows' read, ran
+    slower with it at every n measured) and over at least PILOT_MIN_ROWS
+    rows."""
+    rows = PILOT * k_eff
+    engage = (split_rows < rows and n >= max(PILOT * rows, PILOT_MIN_ROWS)
+              and bm == _BLOCK_ROWS[-1])
+    return rows if engage else 0
+
+
+def pilot_bound(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int, rows: int):
+    """Each query's bound on its answer over the rows x (norms xn),
+    (bound_v, bound_i): (M,) f32 and i32. The pilot is ``rows`` of x's rows
+    at the stride len(x) // rows, their norms with them (excluded rows stay
+    +inf), read in place (strided views: no copy), scanned by ``knn_scan``
+    + ``knn_merge`` on the same q and qn, so it scores a pair with the bits
+    the main scan gives it; the bound is its k_eff-th pair, the pilot's
+    index mapped back to the row's. The pilot's rows are rows of the scan,
+    so at least k_eff pairs lie at or below the bound and the answer passes
+    it whole. With fewer than k_eff finite pairs in the pilot the bound is
+    (+inf, -1), which bounds nothing. ``rows`` must be a multiple of bn.
+
+    The pilot has few tiles (PILOT at bn = k_eff), each one block's serial
+    scan, so it runs at an eighth of the scan's bm: eight times the
+    blocks (128 at GIST's shape), each selecting for an eighth of the
+    queries, the pilot's rows read that many times (a pair's score has the
+    same bits at any bm)."""
+    stride = x.shape[0] // rows
+    sv, si, _ = knn_scan(q, x[::stride][:rows], qn, xn[::stride][:rows], k_eff, metric,
+                         max(1, bm // 8), bn)
+    v, i = knn_merge(sv, si)
+    bound_i = torch.where(i[:, -1] >= 0, i[:, -1] * stride, -1)
+    return v[:, -1].clone(memory_format=torch.contiguous_format), bound_i
+
+
 def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
               bn: int = 512, bd: int = 512, prune: bool = True):
     """Fused exact kNN with the TPU kernel's contract: M % bm == N % bn ==
@@ -407,15 +518,32 @@ def knn_fused(q, x, xn, k_eff: int, metric: str = "l2", bm: int = 16,
 
     The query norms are summed in one fixed order (``query_norms_sq``):
     each pair's score is one FMA chain over d whatever bm, so a query's
-    scores have the same bits in any batch."""
+    scores have the same bits in any batch.
+
+    On the card, where :func:`pilot_rows` engages at the scan's split, a
+    pilot bounds the scan's filter first (:func:`pilot_bound`); the answer
+    is the unbounded scan's, bit for bit. While ``runtime.tracing``
+    records, the scan's selection counters give the counters
+    ``scan.survivors`` (the lanes its filter admitted, read when the
+    counters are read) and ``scan.lanes`` (the M × N lanes it scored); the
+    pilot's own are not counted."""
     if q.shape[1] % bd:
         raise ValueError(f"d={q.shape[1]} not a multiple of bd={bd}")
     if q.device.type == "cpu":
         return knn_fused_plain(q, x, xn, k_eff, metric, bm, bn, bd, prune)
     qn = query_norms_sq(q)
-    sv, si, skips = knn_scan(q, x, qn, xn, k_eff, metric, bm, bn, prune)
-    v, i = knn_merge(sv, si)
-    return v, i, skips.sum(dim=1, keepdim=True, dtype=torch.int32)
+    splits, tps, _ = scan_config(q.shape[0] // bm, x.shape[0] // bn, bm, q.device)
+    rows = pilot_rows(x.shape[0], k_eff, tps * bn, bm)
+    bound_v, bound_i = (pilot_bound(q, x, qn, xn, k_eff, metric, bm, bn, rows) if rows
+                        else (None, None))
+    traced = tracing.recording()
+    out = knn_scan(q, x, qn, xn, k_eff, metric, bm, bn, prune, splits, return_stats=traced,
+                   bound_v=bound_v, bound_i=bound_i)
+    if traced:
+        tracing.count("scan.survivors", out[3][..., 0].sum())
+        tracing.count("scan.lanes", q.shape[0] * x.shape[0])
+    v, i = knn_merge(out[0], out[1])
+    return v, i, out[2].sum(dim=1, keepdim=True, dtype=torch.int32)
 
 
 def knn_int8_fused(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
@@ -434,30 +562,42 @@ def knn_int8_fused(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
 
 # ------------------------------------------------------------ plain versions
 def plain_queues(tile_scores, m: int, n_tiles: int, k: int, bm: int, bn: int,
-                  prune: bool, splits: int, device):
+                  prune: bool, splits: int, device, bound_v=None, bound_i=None):
     """The scan's queue semantics in torch ops: each split runs the TPU
     grid's sequential loop over its n-tiles (score tile, strict prune test
     per m-tile, exact queue update); splits and m-tiles advance together.
     ``tile_scores(rows)`` gives the (M, S, bn) scores of the dataset rows
-    ``rows`` (S, bn)."""
+    ``rows`` (S, bn). With a bound, lanes past their query's (bound_v,
+    bound_i) score +inf for the update (an (+inf, index) lane never
+    displaces an empty (+inf, -1) slot, as in the kernel) and the prune
+    test reads the smaller of the queue's worst value and bound_v."""
     m_tiles = m // bm
     tps = tiles_per_split(n_tiles, splits)
     buf_v = torch.full((m, splits, k), torch.inf, dtype=torch.float32, device=device)
     buf_i = torch.full((m, splits, k), -1, dtype=torch.int32, device=device)
     skips = torch.zeros((m_tiles, splits), dtype=torch.int32, device=device)
     lanes = torch.arange(bn, device=device)
+    if bound_v is not None:
+        # a +inf bound bounds nothing: the kernel keeps (+inf, -1) then
+        bound_i = torch.where(torch.isfinite(bound_v), bound_i, -1)
+        bv, bi = bound_v[:, None, None], bound_i[:, None, None]
     for t in range(tps):
         tile = torch.arange(splits, device=device) * tps + t  # (S,)
         live = tile < n_tiles
         rows = tile.clamp(max=n_tiles - 1)[:, None] * bn + lanes  # (S, bn)
         s = tile_scores(rows)
         idx = rows.to(torch.int32).expand(m, splits, bn)
+        tile_w = buf_v[:, :, -1]
+        if bound_v is not None:
+            tile_w = torch.minimum(tile_w, bv[..., 0])
         if prune:
-            prunable = torch.amin(s, dim=-1) > buf_v[:, :, -1]  # (M, S)
+            prunable = torch.amin(s, dim=-1) > tile_w  # (M, S)
             skip = prunable.reshape(m_tiles, bm, splits).all(dim=1) & live
         else:
             skip = torch.zeros((m_tiles, splits), dtype=torch.bool, device=device)
         skips += skip.to(torch.int32)
+        if bound_v is not None:
+            s = torch.where((s > bv) | ((s == bv) & (idx > bi)), torch.inf, s)
         new_v, new_i = topk_smallest(torch.cat([buf_v, s], -1),
                                      torch.cat([buf_i, idx], -1), k)
         take = (live & ~skip).repeat_interleave(bm, dim=0)[:, :, None]
@@ -467,9 +607,10 @@ def plain_queues(tile_scores, m: int, n_tiles: int, k: int, bm: int, bn: int,
 
 
 def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
-                   prune: bool = True, splits: int = 1):
+                   prune: bool = True, splits: int = 1, bound_v=None, bound_i=None):
     """``knn_scan`` in torch ops (see :func:`plain_queues`)."""
     _check(q, x, qn, xn, k_eff, metric, bm, bn)
+    _check_bound(q, bound_v, bound_i)
     q32 = q.to(torch.float32)
 
     def scores(rows):
@@ -483,7 +624,7 @@ def knn_scan_plain(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
         return torch.where(torch.isfinite(xnt), s, torch.inf)
 
     return plain_queues(scores, q.shape[0], x.shape[0] // bn, k_eff, bm, bn, prune,
-                         splits, q.device)
+                         splits, q.device, bound_v, bound_i)
 
 
 def knn_int8_scan_plain(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,

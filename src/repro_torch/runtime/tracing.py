@@ -41,7 +41,16 @@ The spans and counters of the search path, and what each stands for:
 ``executor.launch``        the host time to enqueue one plan's kernels
 ``scheduler.rows``         counter: query rows a dispatch carried
 ``scheduler.padded_rows``  counter: rows the dispatch padded them with
+``scan.survivors``         counter: lanes the f32 scan's survivor filter
+                           admitted (``kernels.knn.kernel.knn_fused``; a
+                           count on the card, read with the counters)
+``scan.lanes``             counter: the lanes that scan scored
 =========================  ==============================================
+
+A site that must not wait for the card counts a tensor on it
+(:func:`count`); the recorder adds it to one tensor a counter on the card
+and reads that when :func:`counters` is called. :func:`recording` tells a
+site whether to gather what it counts.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["RING", "Recorder", "Span", "begin", "clear", "count", "counters",
-           "handoff", "span", "spans"]
+           "handoff", "recording", "span", "spans"]
 
 #: spans the ring keeps; the oldest fall out beyond it
 RING = 1 << 20
@@ -148,6 +157,7 @@ class Recorder:
     def __init__(self, ring: int = RING):
         self._spans: deque = deque(maxlen=ring)
         self._counters: dict[str, int] = {}
+        self._unread: dict[str, torch.Tensor] = {}
         self._lock = threading.Lock()
         self._local = threading.local()
         self._ids = itertools.count(1)
@@ -168,12 +178,22 @@ class Recorder:
             return _OFF
         return _Span(self, name, start)
 
-    def count(self, name: str, n: int) -> None:
-        """Add ``n`` to the counter ``name`` while recording is on."""
+    def count(self, name: str, n) -> None:
+        """Add ``n`` to the counter ``name`` while recording is on. A tensor
+        ``n`` (one integer, on any device) is added on its device to the
+        counter's unread sum, read when the counters are read, so the site
+        does not wait for the card."""
         if not _autograd_profiler._is_profiler_enabled:
             return
         with self._lock:
-            self._counters[name] = self._counters.get(name, 0) + int(n)
+            if isinstance(n, torch.Tensor):
+                acc = self._unread.get(name)
+                if acc is None:
+                    self._unread[name] = n.detach().to(torch.int64).clone()
+                else:
+                    acc.add_(n.to(acc.device))
+            else:
+                self._counters[name] = self._counters.get(name, 0) + int(n)
 
     def begin(self, name: str) -> tuple | None:
         """Open ``name`` on this thread, to be closed by :meth:`handoff` on
@@ -203,13 +223,23 @@ class Recorder:
         return [Span(*s) for s in list(self._spans)]
 
     def counters(self) -> dict[str, int]:
+        """The counters, the tensors counted so far read into them."""
         with self._lock:
+            for name, acc in self._unread.items():
+                self._counters[name] = self._counters.get(name, 0) + int(acc)
+            self._unread.clear()
             return dict(self._counters)
 
     def clear(self) -> None:
         self._spans.clear()
         with self._lock:
             self._counters.clear()
+            self._unread.clear()
+
+
+def recording() -> bool:
+    """Whether the sites record now (a torch profiler records)."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 _RECORDER = Recorder()

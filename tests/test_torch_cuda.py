@@ -36,6 +36,18 @@ def dev():
     return torch.device("cuda")
 
 
+def _pilots(n: int, d: int, m: int, k: int) -> int:
+    """The pilots (one ``knn_scan`` and one ``knn_merge`` each) that
+    ``ops.knn`` runs for m queries at k over n rows of d columns at the
+    default blocks: 1 where ``K.pilot_rows`` engages at the scan's split."""
+    from repro_torch.core.partition import next_pow2, round_up
+
+    bm, bn, _ = ops.resolved_blocks(k, d, m=m)
+    rows = round_up(n, bn)
+    tps = K.scan_config(round_up(m, bm) // bm, rows // bn, bm, "cuda")[1]
+    return int(K.pilot_rows(rows, next_pow2(k), tps * bn, bm) > 0)
+
+
 def _ints(shape, g, dev):
     return torch.randint(-8, 9, shape, generator=g, device=dev).to(torch.float32)
 
@@ -268,15 +280,8 @@ def test_merge_one_launch_on_adversarial_queues(dev, kind, m, s, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("order", ["random", "farthest_first", "equal"])
-@pytest.mark.parametrize("k,m", [(72, 16), (1024, 1)])
-def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
-    """Rows farthest from query 0 first (every lane survives for it: the
-    multi-pass path) and all rows equal (index ties), at the card's S and
-    at S = 1: values, indices and skip counts, with the selection
-    counters of every block."""
+def _scan_filter_case(dev, dtype, metric, order, k, m):
+    """The scan filter's edge cases: (call, qn) of 12,288 integer rows."""
     g = torch.Generator(device=dev).manual_seed(k + m)
     x = _ints((12_288, 256), g, dev)
     q = _ints((m, 256), g, dev)
@@ -289,8 +294,20 @@ def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
     xn = torch.sum(x * x, dim=-1)
     xn[[100, 12_287]] = torch.inf
     call = ops.prepare(q.to(dtype), x.to(dtype), k, metric, xn)
+    return call, torch.sum(call.q.float() ** 2, dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("order", ["random", "farthest_first", "equal"])
+@pytest.mark.parametrize("k,m", [(72, 16), (1024, 1)])
+def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
+    """Rows farthest from query 0 first (every lane survives for it: the
+    multi-pass path) and all rows equal (index ties), at the card's S and
+    at S = 1: values, indices and skip counts, with the selection
+    counters of every block."""
+    call, qn = _scan_filter_case(dev, dtype, metric, order, k, m)
     bm, bn, _ = call.blocks
-    qn = torch.sum(call.q.float() ** 2, dim=-1)
     args = (call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
     m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
     for splits in (K.scan_config(m_tiles, n_tiles, bm, dev)[0], 1):
@@ -300,6 +317,81 @@ def test_scan_filter_edge_cases_bit_identical(dev, dtype, metric, order, k, m):
             for a, b in zip(got, want):
                 assert torch.equal(a, b)
             assert stats.shape == (m_tiles, splits, 4) and int(stats[..., 1].min()) >= 1
+
+
+def _bounded_scan_matches(call, qn, bound, splits_list):
+    """At each S: the bounded kernel's per-split queues and skips equal the
+    bounded plain version's, and its merged answer equals the unbounded
+    kernel's, bit for bit. Returns the bounded scans' survivors and the
+    unbounded ones'."""
+    bm, bn, _ = call.blocks
+    args = (call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn, True)
+    kept = [0, 0]
+    for splits in splits_list:
+        *got, st = K.knn_scan(*args, splits, return_stats=True, bound_v=bound[0],
+                              bound_i=bound[1])
+        want = K.knn_scan_plain(*args, splits, bound_v=bound[0], bound_i=bound[1])
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        *free, st_free = K.knn_scan(*args, splits, return_stats=True)
+        gv, gi = K.knn_merge(got[0], got[1])
+        fv, fi = K.knn_merge(free[0], free[1])
+        assert torch.equal(gv, fv) and torch.equal(gi, fi)
+        kept[0] += int(st[..., 0].sum())
+        kept[1] += int(st_free[..., 0].sum())
+    return kept
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("order", ["random", "farthest_first", "equal"])
+@pytest.mark.parametrize("k,m", [(72, 16), (1024, 1)])
+def test_scan_pilot_bound_bit_identical(dev, dtype, metric, order, k, m):
+    """The filter's edge cases with a pilot's bound (2,048 rows at a
+    stride of 6, read in place as the pilot reads them: its scan equals
+    the plain version's on the same strided views), at the card's S and at
+    S = 1."""
+    call, qn = _scan_filter_case(dev, dtype, metric, order, k, m)
+    bm, bn, _ = call.blocks
+    pbm, stride = max(1, bm // 8), call.x.shape[0] // 2048
+    rows = (call.q, call.x[::stride][:2048], qn, call.xn[::stride][:2048], call.k_eff,
+            call.metric, pbm, bn, True, K.scan_config(call.q.shape[0] // pbm, 2048 // bn, pbm,
+                                                      dev)[0])
+    for a, b in zip(K.knn_scan(*rows), K.knn_scan_plain(*rows)):
+        assert torch.equal(a, b)
+    bound = K.pilot_bound(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn, 2048)
+    m_tiles, n_tiles = call.q.shape[0] // bm, call.x.shape[0] // bn
+    kept, free = _bounded_scan_matches(
+        call, qn, bound, (K.scan_config(m_tiles, n_tiles, bm, dev)[0], 1))
+    assert kept <= free
+
+
+def test_scan_pilot_bound_at_gist_shape(dev):
+    """GIST's FQ-SD shape (16 × 1,000,000 × 960, k = 1,024, integer rows in
+    random order): the pilot engages at the card's S, the bounded scan
+    matches its plain version and the unbounded answer, admits under a
+    tenth of the lanes, and ``ops.knn`` launches the pilot's scan and
+    merge beside the main ones for the same answer."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = _ints((1_000_000, 960), g, dev)
+    q = _ints((16, 960), g, dev)
+    xn = torch.sum(x * x, dim=-1)
+    call = ops.prepare(q, x, 1024, "l2", xn)
+    bm, bn, _ = call.blocks
+    qn = torch.sum(call.q ** 2, dim=-1)
+    splits, tps, _ = K.scan_config(1, call.x.shape[0] // bn, bm, dev)
+    rows = K.pilot_rows(call.x.shape[0], call.k_eff, tps * bn, bm)
+    assert (bm, bn, splits, rows) == (16, 1024, 245, K.PILOT * 1024)
+    bound = K.pilot_bound(call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, rows)
+    kept, free = _bounded_scan_matches(call, qn, bound, (splits,))
+    assert kept < 0.1 * 16 * x.shape[0] < free
+    K.reset_launch_counts()
+    got = ops.knn(q, x, 1024, "l2", xn)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["knn_scan"] == 2 and K.LAUNCHES["knn_merge"] == 2
+    sv, si, _ = K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff, "l2", bm, bn, True, splits)
+    want = ops.finish(call, *K.knn_merge(sv, si))
+    assert torch.equal(got.scores, want.scores) and torch.equal(got.indices, want.indices)
 
 
 # ------------------------------------------------------------- streaming
@@ -499,7 +591,8 @@ def test_resident_delta_merge_equals_a_fresh_fit(dev, metric):
         K.reset_launch_counts()
         got = eng.search(SearchRequest(queries=q[:m], mode_hint=mode))
         torch.cuda.synchronize()
-        assert K.LAUNCHES["knn_scan"] == 1 + n_delta and K.LAUNCHES["knn_merge"] == 1 + n_delta
+        runs = 1 + _pilots(*eng._ds.vectors.shape, m, 50) + n_delta
+        assert K.LAUNCHES["knn_scan"] == K.LAUNCHES["knn_merge"] == runs
         assert _same_as_fresh(got, fresh.search(SearchRequest(queries=q[:m], mode_hint=mode)),
                               live)
     eng.store.compact()
@@ -667,8 +760,10 @@ def test_int8_fallback_through_the_f32_kernel_has_the_direct_bits(dev):
     res = eng.search(SearchRequest(queries=q, tier="int8"))
     torch.cuda.synchronize()
     assert not bool(res.certified.all())
-    assert K.LAUNCHES["knn_int8_scan"] == 1 and K.LAUNCHES["knn_scan"] == 1
-    assert K.LAUNCHES["knn_merge"] == 2
+    # the rescan's queue is 512 wide, over the uncertified rows alone
+    pilot = _pilots(*eng._ds.vectors.shape, int((~res.certified).sum()), 512)
+    assert K.LAUNCHES["knn_int8_scan"] == 1 and K.LAUNCHES["knn_scan"] == 1 + pilot
+    assert K.LAUNCHES["knn_merge"] == 2 + pilot
     ds = eng._ds
     want = ops.knn_exact_direct(eng._pad_queries(q), ds.vectors, ds.norms, 256, 1024)
     assert torch.equal(res.topk.scores, want.scores)
@@ -1147,7 +1242,8 @@ def test_retrieve_topk_on_the_card_equals_its_plain_version(dev):
     K.reset_launch_counts()
     got = R.retrieve_topk(p, cfg, users, cand, 100)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["knn_scan"] == 1 and K.LAUNCHES["knn_merge"] == 1
+    pilot = _pilots(*cand.shape, 2, 100)
+    assert K.LAUNCHES["knn_scan"] == K.LAUNCHES["knn_merge"] == 1 + pilot
     with torch.no_grad():
         u = torch.round(R._two_tower_embed(p, cfg, users, "user_tower") * 8) / 8
     got = R.mips_topk(u, cand, 100)

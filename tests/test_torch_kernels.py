@@ -17,10 +17,12 @@ from __future__ import annotations
 import re
 from pathlib import Path
 
+import hypothesis
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import strategies as st
 
 from repro.kernels.l2dist.kernel import l2dist_pallas
 from repro.kernels.l2dist.ops import l2dist as jl2dist
@@ -311,3 +313,161 @@ def test_merge_plain_equals_a_full_sort(kind, m, s, k):
 def test_merge_stride_is_near_sqrt_k(k):
     stride = K.merge_stride(k)
     assert stride & (stride - 1) == 0 and k <= stride * stride <= 2 * k
+
+
+# ------------------------------------------------- the scan's pilot bound
+def _pilot_operands(order, metric, k, m, n=16_384, d=32, seed=0):
+    """Rows and queries whose every score is exact in f32 whatever the
+    batch (integers; for cos, rows of four ±1 and queries of sixteen, whose
+    normalised forms are exact), arranged by ``order``: random; all rows
+    equal (every score ties, the bound's index decides); farthest from
+    query 0 first; a tenth of the norms +inf; or every pilot row excluded
+    but k_eff - 1, so the pilot has fewer than k_eff finite pairs.
+    Returns (call, qn, rows): the prepared call, its query norms and the
+    pilot's rows (a multiple of bn, 16 rows of the scan a pilot row)."""
+    from repro_torch.core.distance import query_norms_sq
+    from repro_torch.kernels.knn import ops
+
+    g = torch.Generator().manual_seed(seed)
+    if metric == "cos":
+        def signs(rows, nnz):
+            ranks = torch.rand(rows, d, generator=g).argsort(1).argsort(1)
+            sign = torch.randint(0, 2, (rows, d), generator=g) * 2 - 1
+            return ((ranks < nnz) * sign).to(torch.float32)
+
+        x, q = signs(n, 4), signs(m, 16)
+    else:
+        x = torch.randint(-8, 9, (n, d), generator=g).to(torch.float32)
+        q = torch.randint(-8, 9, (m, d), generator=g).to(torch.float32)
+    if order == "equal":
+        x = x[9].expand_as(x).contiguous()
+    elif order == "farthest_first":
+        key = {"l2": torch.sum((x - q[0]) ** 2, -1), "ip": -(x @ q[0]),
+               "cos": -(x @ q[0])}[metric]
+        x = x[torch.argsort(key, descending=True, stable=True)]
+    xn = torch.sum(x * x, dim=-1)
+    rows = 2048
+    if order == "inf_norms":
+        xn[torch.rand(n, generator=g) < 0.1] = torch.inf
+    elif order == "sparse_pilot":
+        k_eff = 1 << (k - 1).bit_length()
+        xn[(k_eff - 1) * (n // rows)::n // rows] = torch.inf
+    call = ops.prepare(q, x, k, metric, xn)
+    return call, query_norms_sq(call.q), rows
+
+
+_PILOT_CASES = [
+    ("random", "l2", 1, 1), ("random", "l2", 72, 16), ("random", "l2", 1024, 32),
+    ("random", "ip", 72, 1), ("random", "ip", 1024, 16), ("random", "cos", 1, 16),
+    ("random", "cos", 72, 32), ("random", "cos", 1024, 1),
+    ("equal", "l2", 72, 16), ("equal", "ip", 1024, 1), ("equal", "cos", 1, 32),
+    ("farthest_first", "l2", 1024, 16), ("farthest_first", "ip", 72, 32),
+    ("farthest_first", "cos", 72, 1),
+    ("inf_norms", "l2", 72, 16), ("inf_norms", "ip", 1024, 32), ("inf_norms", "cos", 1, 1),
+    ("sparse_pilot", "l2", 1024, 16), ("sparse_pilot", "ip", 72, 1),
+    ("sparse_pilot", "cos", 1, 32),
+]
+
+
+@pytest.mark.parametrize("order,metric,k,m", _PILOT_CASES)
+def test_pilot_bound_leaves_the_answer_bit_identical(order, metric, k, m):
+    """The plain knn_scan + knn_merge with the pilot's bound give the
+    unbounded answer bit for bit, at a split of 4 tiles a block; the
+    bounded queues hold no pair past the bound; all-equal rows bound at
+    the pilot's k_eff-th row, mid-range; a pilot with fewer than k_eff
+    finite pairs bounds nothing."""
+    from repro_torch.core.topk import pair_keys
+
+    call, qn, rows = _pilot_operands(order, metric, k, m)
+    bm, bn, _ = call.blocks
+    n = call.x.shape[0]
+    bound_v, bound_i = K.pilot_bound(call.q, call.x, qn, call.xn, call.k_eff, call.metric,
+                                     bm, bn, rows)
+    assert bound_v.shape == bound_i.shape == (call.q.shape[0],)
+    args = (call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn, True, 4)
+    sv, si, _ = K.knn_scan(*args)
+    bv, bi, _ = K.knn_scan(*args, bound_v=bound_v, bound_i=bound_i)
+    want_v, want_i = K.knn_merge(sv, si)
+    got_v, got_i = K.knn_merge(bv, bi)
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+    finite = torch.isfinite(bv)
+    past = pair_keys(bv, bi) > pair_keys(bound_v, bound_i)[:, None, None]
+    assert not bool((finite & past).any())
+    if order == "equal":
+        assert bool((bound_i == (call.k_eff - 1) * (n // rows)).all())
+    if order == "sparse_pilot":
+        assert bool(torch.isinf(bound_v).all()) and bool((bound_i == -1).all())
+        assert torch.equal(bv, sv) and torch.equal(bi, si)
+    else:
+        assert bool(torch.isfinite(bound_v).all())
+
+
+@hypothesis.settings(max_examples=30, deadline=None)
+@hypothesis.given(seed=st.integers(0, 2**31 - 1), k=st.sampled_from([1, 5, 64, 300]),
+                  metric=st.sampled_from(["l2", "ip", "cos"]),
+                  m=st.integers(1, 20), stride=st.integers(1, 6),
+                  excluded=st.sampled_from([0.0, 0.5, 0.95]))
+def test_pilot_bound_has_k_eff_pairs_at_or_below_it(seed, k, metric, m, stride, excluded):
+    """At least k_eff pairs of the scan lie at or below the bound (the
+    unbounded answer's k_eff-th pair does), and the bound is (+inf, -1)
+    only where the pilot held fewer than k_eff finite pairs."""
+    from repro_torch.core.distance import query_norms_sq
+    from repro_torch.core.topk import pair_keys
+    from repro_torch.kernels.knn import ops
+
+    g = torch.Generator().manual_seed(seed)
+    k_eff = 1 << (k - 1).bit_length()
+    rows = max(512, k_eff)
+    n = rows * stride + int(torch.randint(0, rows, (1,), generator=g))
+    x = torch.randint(-6, 7, (n, 32), generator=g).to(torch.float32)
+    q = torch.randint(-6, 7, (m, 32), generator=g).to(torch.float32)
+    xn = torch.sum(x * x, dim=-1)
+    xn[torch.rand(n, generator=g) < excluded] = torch.inf
+    call = ops.prepare(q, x, k, metric, xn)
+    qn = query_norms_sq(call.q)
+    bm, bn, _ = call.blocks
+    bound_v, bound_i = K.pilot_bound(call.q, call.x[:n], qn, call.xn[:n], call.k_eff,
+                                     call.metric, bm, bn, rows)
+    sv, si, _ = K.knn_scan(call.q, call.x, qn, call.xn, call.k_eff, call.metric, bm, bn)
+    last_v, last_i = K.knn_merge(sv, si)
+    last = pair_keys(last_v[:, -1], last_i[:, -1])
+    bound = pair_keys(bound_v, bound_i)
+    inf = torch.isinf(bound_v)
+    assert bool((last[~inf] <= bound[~inf]).all())
+    assert bool((bound_i[inf] == -1).all())
+    pick = torch.arange(rows) * (n // rows)
+    finite_pilot = int(torch.isfinite(xn[pick]).sum())
+    assert bool(inf.all()) == (finite_pilot < k_eff)
+
+
+@pytest.mark.parametrize("what,m,k,n,bn,splits,engages", [
+    ("gist_fqsd", 16, 1024, 1_000_000, 1024, 245, True),
+    ("gist_fqsd_m64", 64, 1024, 1_000_000, 1024, 66, True),
+    ("gist_int8_fallback_m16", 16, 2048, 1_000_000, 2048, 245, True),
+    ("gist_fdsq_m1", 1, 1024, 1_000_000, 1024, 245, False),
+    ("gist_int8_fallback_m4", 4, 2048, 1_000_000, 2048, 245, False),
+    *[("msmarco_fdsq_k72", m, 72, 8_841_823, 512, None, False) for m in (1, 2, 5, 16, 17, 32)],
+    ("retrieval_k100", 2, 100, 50_000, 512, 98, False),
+    ("small_n", 16, 1024, 200_000, 1024, 196, False),
+    ("resident_small_n", 16, 64, 20_000, 512, 40, False),
+])
+def test_pilot_rule_engages_where_the_filter_cannot_filter(what, m, k, n, bn, splits,
+                                                           engages):
+    """The pilot engages at GIST's FQ-SD shape (a split scans 4,096 rows
+    against k = 1,024), at m = 64 and for the int8 fallback's queue of
+    2,048 at m = 16; it bypasses a block of fewer than 16 queries (m = 1,
+    4), MS-MARCO at k = 72 for every m up to 32 (the card's S: two blocks
+    an SM of 132), two-tower retrieval at k = 100, and n below
+    PILOT² · k_eff or PILOT_MIN_ROWS."""
+    from repro_torch.core.partition import next_pow2, round_up
+
+    k_eff = next_pow2(k)
+    bm = min(next_pow2(m), 16)
+    n_tiles = round_up(n, bn) // bn
+    if splits is None:
+        splits = min(n_tiles, 2 * 132 // (round_up(m, bm) // bm))
+    tps = K.tiles_per_split(n_tiles, splits)
+    rows = K.pilot_rows(round_up(n, bn), k_eff, tps * bn, bm)
+    assert bool(rows) == engages
+    if engages:
+        assert rows == K.PILOT * k_eff and rows % bn == 0 and n // rows >= K.PILOT

@@ -184,6 +184,27 @@ def test_the_ring_keeps_its_bound_and_clear_empties_it():
     assert rec.spans() == [] and rec.counters() == {}
 
 
+def test_a_counted_tensor_is_read_with_the_counters_and_recording_follows_the_profiler():
+    rec = tracing.Recorder()
+    assert not tracing.recording()
+    rec.count("scan.survivors", torch.tensor(4))  # off: nothing kept
+    with _cpu_profile():
+        assert tracing.recording()
+        survivors = torch.tensor([3, 4], dtype=torch.int32).sum()
+        rec.count("scan.survivors", survivors)
+        survivors += 100  # the count was summed into the counter's own tensor
+        rec.count("scan.survivors", torch.tensor(5))
+        rec.count("scan.lanes", 64)
+        assert list(rec._unread) == ["scan.survivors"]  # one tensor a counter
+    assert not tracing.recording()
+    assert rec.counters() == {"scan.survivors": 12, "scan.lanes": 64}
+    assert rec.counters() == {"scan.survivors": 12, "scan.lanes": 64}  # read once
+    with _cpu_profile():
+        rec.count("scan.survivors", torch.tensor(1))
+    rec.clear()
+    assert rec.counters() == {}
+
+
 def test_the_per_search_logs_keep_their_last_values(monkeypatch):
     monkeypatch.setattr(engine_mod, "PLANS_KEPT", 3)
     monkeypatch.setattr(retrieval, "LATENCY_SAMPLES", 5)
