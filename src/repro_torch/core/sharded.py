@@ -48,6 +48,7 @@ summed in one fixed order), so a query block answers as the whole batch.
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -60,6 +61,7 @@ from repro_torch.core.partition import next_pow2
 from repro_torch.core.quantized import int8_lower_bounds
 from repro_torch.core.streaming import CopyStreams
 from repro_torch.core.topk import TopK, topk_smallest, tree_merge_sorted
+from repro_torch.runtime import tracing
 
 
 # --------------------------------------------------------- sharded rows
@@ -138,21 +140,39 @@ def _coords(mesh: Mesh, axes: tuple) -> list[tuple]:
             if all(v == 0 for i, v in enumerate(c) if i not in idx)]
 
 
+def _own(block: torch.Tensor) -> torch.Tensor:
+    """`block` in memory of its own where it views a larger storage."""
+    if block.untyped_storage().nbytes() > block.numel() * block.element_size():
+        return block.clone(memory_format=torch.contiguous_format)
+    return block
+
+
 def place_blocks(mesh: Mesh, axes, blocks: Sequence[torch.Tensor]) -> ShardedRows:
     """Put `blocks` (row-major over `axes`) on their positions; a replica on
-    the device of its home shares the home's tensor."""
+    the device of its home shares the home's tensor. A block already on its
+    home's device stays a view of its source where that device is home to
+    other blocks too (logical positions of one card); where it is home to
+    this block alone (distinct cards), the block gets memory of its own, so
+    the source is not kept whole on that card for one block of it."""
     axes = _axes(axes)
     for ax in axes:
         _axis(mesh, ax)
-    if len(blocks) != _n_blocks(mesh, axes):
-        raise ValueError(f"{len(blocks)} blocks for {_n_blocks(mesh, axes)} over {axes}")
+    nb = _n_blocks(mesh, axes)
+    if len(blocks) != nb:
+        raise ValueError(f"{len(blocks)} blocks for {nb} over {axes}")
+    homes = Counter(mesh.devices.flat[_home(mesh, axes, b)] for b in range(nb))
     local: list[torch.Tensor] = []
     for p, coord in enumerate(np.ndindex(mesh.devices.shape)):
         dev = mesh.devices[coord]
         b = _block_id(mesh, coord, axes)
         home = _home(mesh, axes, b)
         # flat order visits a block's home before its replicas
-        local.append(blocks[b].to(dev) if home == p else local[home].to(dev))
+        if home != p:
+            local.append(local[home].to(dev))
+        elif blocks[b].device == dev and homes[dev] == 1:
+            local.append(_own(blocks[b]))
+        else:
+            local.append(blocks[b].to(dev))
     return ShardedRows(tuple(local), mesh, axes)
 
 
@@ -172,7 +192,8 @@ def shard_rows(mesh: Mesh, t: torch.Tensor, axes) -> ShardedRows:
 def shard_dataset(mesh: Mesh, dataset, norms, axes: Sequence[str] | str):
     """Place a padded dataset and its norms row-sharded over mesh axes:
     (ShardedRows, ShardedRows). Each block is a view of the source where it
-    already lies on the block's device (no copy), else a copy there."""
+    already lies on the block's device and that device is home to other
+    blocks too (no copy), else a copy there (:func:`place_blocks`)."""
     return shard_rows(mesh, torch.as_tensor(dataset), axes), shard_rows(
         mesh, torch.as_tensor(norms), axes)
 
@@ -394,10 +415,19 @@ def _ring_layout(mesh: Mesh, query_axis: str, model_axis: str | None):
 
 def _ring_finish(mesh, step, states, model_axis, query_axis, qblocks, backend, shards):
     """Merge over ``model_axis``, then finish each query block
-    (:func:`_finish_blocks`)."""
-    if model_axis is not None:
-        states = _gather_merge(states, mesh, model_axis, backend)
-    return _finish_blocks(mesh, step, states, query_axis, qblocks, shards)
+    (:func:`_finish_blocks`): the span ``mesh.gather``."""
+    with tracing.span("mesh.gather"):
+        if model_axis is not None:
+            states = _gather_merge(states, mesh, model_axis, backend)
+        return _finish_blocks(mesh, step, states, query_axis, qblocks, shards)
+
+
+def _count_shipped(items) -> None:
+    """The counters ``ring.blocks_shipped`` and ``ring.bytes_shipped`` of one
+    ring step's shipments, each item a tuple of tensors (while recording)."""
+    if tracing.recording():
+        tracing.count("ring.blocks_shipped", len(items))
+        tracing.count("ring.bytes_shipped", sum(t.nbytes for item in items for t in item))
 
 
 def fqsd_ring(
@@ -430,7 +460,18 @@ def fqsd_ring(
     Launches on ``cuda``: D·D·T block scans of m/D queries (every position
     at every step: ``knn_shard`` each, as in :func:`fdsq_sharded`), then D
     groups of T merged over ``model_axis`` (D ``knn_merge`` when T > 1);
-    D - 1 ring steps of D·T block copies.
+    D - 1 ring steps of D·T block copies. On distinct cards a copy is a
+    peer copy on the source card's send stream
+    (:class:`~repro_torch.core.streaming.CopyStreams`), and nothing in the
+    loop waits for a card from the host: each card's compute stream waits
+    for its incoming block on the device.
+
+    While ``runtime.tracing`` records: a span ``ring.step`` a step (attrs
+    ``step``, ``positions``), the host time that queues the step's copies
+    and scans on every position; inside it ``ring.ship``, queueing the
+    copies (none on the last step); ``mesh.gather`` around the merge and
+    the finish on the first device; the counters ``ring.blocks_shipped``
+    and ``ring.bytes_shipped`` (vectors and norms).
     """
     validate_metric(metric)
     d_sz, t_sz, axes, coord = _ring_layout(mesh, query_axis, model_axis)
@@ -448,17 +489,23 @@ def fqsd_ring(
         states = {dt: step.init(qs[dt].shape[0], dev[dt]) for dt in ring}
         copies = CopyStreams()
         for s in range(d_sz):
-            nxt = None
-            if s < d_sz - 1:  # ship first, then queue the scans: they overlap
-                nxt = {((d + 1) % d_sz, t): _ship(copies, cur[d, t], dev[(d + 1) % d_sz, t])
-                       for d, t in ring}
-            for d, t in ring:
-                base = (((d - s) % d_sz) * t_sz + t) * rows
-                states[d, t] = _local_scan(step, states[d, t], qs[d, t], *cur[d, t], base,
-                                           chunk_rows)
-            if nxt is not None:
-                copies.join()
-                cur = nxt
+            with tracing.span("ring.step") as sp:
+                if sp:
+                    sp.attrs.update(step=s, positions=len(ring))
+                nxt = None
+                if s < d_sz - 1:  # ship first, then queue the scans: they overlap
+                    with tracing.span("ring.ship"):
+                        nxt = {((d + 1) % d_sz, t): _ship(copies, cur[d, t],
+                                                          dev[(d + 1) % d_sz, t])
+                               for d, t in ring}
+                    _count_shipped(list(cur.values()))
+                for d, t in ring:
+                    base = (((d - s) % d_sz) * t_sz + t) * rows
+                    states[d, t] = _local_scan(step, states[d, t], qs[d, t], *cur[d, t], base,
+                                               chunk_rows)
+                if nxt is not None:
+                    copies.join()
+                    cur = nxt
         return _ring_finish(mesh, step, {coord(*dt): st for dt, st in states.items()},
                             model_axis, query_axis, qb, backend, shards)
 
@@ -483,7 +530,9 @@ def fqsd_ring_queries(
     block of its model column and is back at its home position; one merge
     over ``model_axis`` finishes. A pair moves with ``Tensor.to`` (a no-op
     between logical positions of one device: the queue is fresh every
-    step, so nothing is aliased that a later step writes).
+    step, so nothing is aliased that a later step writes). It records the
+    spans and counters of :func:`fqsd_ring` under the same names, a
+    shipment here being a (query block, queue) pair.
     """
     validate_metric(metric)
     d_sz, t_sz, axes, coord = _ring_layout(mesh, query_axis, model_axis)
@@ -498,15 +547,21 @@ def fqsd_ring_queries(
         flat = {dt: int(np.ravel_multi_index(coord(*dt), mesh.devices.shape)) for dt in ring}
         qs = {dt: qb[dt[0]].to(dev[dt], non_blocking=True) for dt in ring}
         states = {dt: step.init(qs[dt].shape[0], dev[dt]) for dt in ring}
-        for _ in range(d_sz):
-            for d, t in ring:
-                states[d, t] = _local_scan(step, states[d, t], qs[d, t], x.local[flat[d, t]],
-                                           xn.local[flat[d, t]], (d * t_sz + t) * rows, None)
-            moved = {((d + 1) % d_sz, t): (qs[d, t], states[d, t]) for d, t in ring}
-            qs = {dt: q.to(dev[dt], non_blocking=True) for dt, (q, _) in moved.items()}
-            states = {dt: TopK(st.scores.to(dev[dt], non_blocking=True),
-                               st.indices.to(dev[dt], non_blocking=True))
-                      for dt, (_, st) in moved.items()}
+        for s in range(d_sz):
+            with tracing.span("ring.step") as sp:
+                if sp:
+                    sp.attrs.update(step=s, positions=len(ring))
+                for d, t in ring:
+                    states[d, t] = _local_scan(step, states[d, t], qs[d, t],
+                                               x.local[flat[d, t]], xn.local[flat[d, t]],
+                                               (d * t_sz + t) * rows, None)
+                moved = {((d + 1) % d_sz, t): (qs[d, t], states[d, t]) for d, t in ring}
+                with tracing.span("ring.ship"):
+                    qs = {dt: q.to(dev[dt], non_blocking=True) for dt, (q, _) in moved.items()}
+                    states = {dt: TopK(st.scores.to(dev[dt], non_blocking=True),
+                                       st.indices.to(dev[dt], non_blocking=True))
+                              for dt, (_, st) in moved.items()}
+                _count_shipped([(q, *st) for q, st in moved.values()])
         return _ring_finish(mesh, step, {coord(*dt): st for dt, st in states.items()},
                             model_axis, query_axis, qb, backend, shards)
 

@@ -36,6 +36,7 @@ same.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 import threading
 import time
@@ -120,46 +121,65 @@ class CopyStreams:
     """The process's copy stream of each CUDA device, and the ordering
     every transfer on them keeps: a copy starts after the work queued so
     far on its sources' compute streams; each device source is recorded on
-    the copy stream and each copy on its device's compute stream
+    the stream that reads it and each copy on its device's compute stream
     (``record_stream``: neither is freed under the other side's work); the
     compute stream waits for the copies (:meth:`join`) before it reads
     them. The streamed scans' slot copies, ``make_ring_put`` and the mesh
     ring's block shipping all run on one of these.
 
-    One stream a device for the whole process, made at first use: the
-    caching allocator keeps a block in the pool of the stream it was
-    allocated on, so a stream made anew for each search would find none of
-    the last search's copies free and allocate them again (a ring step's
+    A copy from another card (the mesh ring's peer copies) runs where
+    PyTorch runs a copy between two cards, on the source card's current
+    stream, which :meth:`put` makes that card's send stream, a second copy
+    stream of its own. On the source's compute stream the copy would queue
+    between that card's scans; on the copy stream its destination joins, a
+    card's outgoing copy would wait for its incoming one, and the copies
+    around a ring would run one after another.
+
+    One stream of each kind a device for the whole process, made at first
+    use: the caching allocator keeps a block in the pool of the stream it
+    was allocated on, so a stream made anew for each search would find none
+    of the last search's copies free and allocate them again (a ring step's
     four 1 GB blocks: a cudaMalloc each, and the cache growing until it
-    frees everything). An instance remembers the devices it used, for
+    frees everything). An instance remembers the devices it copied to, for
     :meth:`join`."""
 
     def __init__(self):
         self._streams: dict = {}
 
+    @staticmethod
+    def _shared(dev: torch.device, kind: str) -> "torch.cuda.Stream":
+        with _COPY_STREAMS_LOCK:
+            cs = _COPY_STREAMS.get((dev, kind))
+            if cs is None:
+                cs = _COPY_STREAMS[dev, kind] = torch.cuda.Stream(dev)
+            return cs
+
     def stream(self, dev: torch.device) -> "torch.cuda.Stream":
         dev = _cuda_device(dev)
         cs = self._streams.get(dev)
         if cs is None:
-            with _COPY_STREAMS_LOCK:
-                cs = _COPY_STREAMS.get(dev)
-                if cs is None:
-                    cs = _COPY_STREAMS[dev] = torch.cuda.Stream(dev)
-            self._streams[dev] = cs
+            cs = self._streams[dev] = self._shared(dev, "copy")
         return cs
 
     def put(self, p, dev: torch.device, copy: bool = False):
         """Partition record (or bare array) `p` moved to CUDA device `dev` on
-        its copy stream, ordered as the class says; ``copy=True`` gives
-        memory of its own even where `p` already lives on `dev`."""
+        its copy stream, ordered as the class says (a source on another card
+        read on that card's send stream); ``copy=True`` gives memory of its
+        own even where `p` already lives on `dev`."""
         cs = self.stream(dev)
         sources = [t for t in _tensors(p) if t.is_cuda]
+        send = {}
         for src in {t.device for t in sources}:
             cs.wait_stream(torch.cuda.current_stream(src))
-        with torch.cuda.stream(cs):
+            if src != cs.device:
+                send[src] = self._shared(src, "send")
+        with contextlib.ExitStack() as current:
+            for ss in send.values():
+                current.enter_context(torch.cuda.stream(ss))
+            current.enter_context(torch.cuda.stream(cs))
             out = _move(p, dev, non_blocking=True, copy=copy)
         for t in sources:
-            t.record_stream(cs)
+            t.record_stream(send.get(t.device, cs))
         compute = torch.cuda.current_stream(dev)
         for t in _tensors(out):
             t.record_stream(compute)

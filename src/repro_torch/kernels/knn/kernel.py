@@ -107,11 +107,21 @@ grid (the plain version with S = 1 gives the TPU's count); it is a
 statistic, not a result.
 
 On a CPU tensor every wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. ``LAUNCHES`` counts kernel launches only,
+launches its kernel or raises. Every launch, here and in ``kernels/topk``
+and ``kernels/l2dist``, runs under its operands' device
+(:func:`on_card`, a no-op where that card is current already): CUDA
+launches into the current device and sets a kernel's shared-memory limit
+for the current device alone, and a launch onto another card's stream
+returns no error yet does not run as asked (without the guard, half of a
+four-card ring's answers came out malformed). So operands on any card of
+the host launch on it, and operands on two devices raise before anything
+is launched. ``LAUNCHES`` counts kernel launches only,
 for these kernels and for ``topk`` and ``l2dist`` (``kernels/topk``,
 ``kernels/l2dist``).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -244,7 +254,8 @@ def _check_cuda(*tensors):
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"tensors must share one CUDA device, got {t.device} and {dev}")
+            raise ValueError(f"a kernel's operands must share one CUDA device, got {t.device} "
+                             f"and {dev}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("tensors must be contiguous and 16-byte aligned")
 
@@ -254,12 +265,24 @@ def _check_rows(q, x, xn):
     sample): x with unit stride along d and rows on 16-byte boundaries."""
     for t in (x, xn):
         if t.device != q.device:
-            raise ValueError(f"tensors must share one CUDA device, got {t.device} and {q.device}")
+            raise ValueError(f"a kernel's operands must share one CUDA device, got {t.device} "
+                             f"and {q.device}")
     if (x.stride(1) != 1 or x.stride(0) < x.shape[1] or x.stride(0) >= 2**31
             or (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16
             or not 1 <= xn.stride(0) < 2**31):
         raise ValueError(f"x must have unit stride along d and rows on 16-byte boundaries, "
                          f"got strides {x.stride()}; xn stride {xn.stride()}")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_card(dev: torch.device):
+    """The guard every launch runs under: a context that makes ``dev``
+    current (``torch.cuda.device``) and restores the card that was, or a
+    shared no-op context where ``dev`` is current already (one read of the
+    current device, where entering ``torch.cuda.device`` costs ~3 µs)."""
+    return _CURRENT if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -343,15 +366,16 @@ def knn_scan(q, x, qn, xn, k_eff: int, metric: str, bm: int, bn: int,
     stats = (torch.zeros((m_tiles, splits, 4), dtype=torch.int32, device=q.device)
              if return_stats else None)
     q32 = q.to(torch.float32).contiguous()  # bf16 widens exactly
-    err = load_library().knn_scan(
-        q32.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), scratch_v.data_ptr(), scratch_i.data_ptr(), skips.data_ptr(),
-        None if stats is None else stats.data_ptr(),
-        None if bound_v is None else bound_v.data_ptr(),
-        None if bound_i is None else bound_i.data_ptr(), m, n, d, x.stride(0), xn.stride(0),
-        k_eff, bm, bn,
-        _METRICS[metric], int(prune), splits, tps, cap, int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):
+        err = load_library().knn_scan(
+            q32.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), scratch_v.data_ptr(), scratch_i.data_ptr(), skips.data_ptr(),
+            None if stats is None else stats.data_ptr(),
+            None if bound_v is None else bound_v.data_ptr(),
+            None if bound_i is None else bound_i.data_ptr(), m, n, d, x.stride(0),
+            xn.stride(0), k_eff, bm, bn,
+            _METRICS[metric], int(prune), splits, tps, cap, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "knn_scan")
     LAUNCHES["knn_scan"] += 1
     return (out_v, out_i, skips, stats) if return_stats else (out_v, out_i, skips)
@@ -375,10 +399,11 @@ def knn_merge(v, i):
 
     out_v = torch.empty((m, k), dtype=torch.float32, device=v.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=v.device)
-    _raise_on(load_library().knn_merge(
-        v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), m, splits, k,
-        merge_stride(k), torch.cuda.current_stream(v.device).cuda_stream),
-        "knn_merge")
+    with on_card(v.device):
+        err = load_library().knn_merge(
+            v.data_ptr(), i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), m, splits, k,
+            merge_stride(k), torch.cuda.current_stream(v.device).cuda_stream)
+    _raise_on(err, "knn_merge")
     LAUNCHES["knn_merge"] += 1
     return out_v, out_i
 
@@ -443,12 +468,13 @@ def knn_int8_scan(q, x8, qn, scales, err, hn, q_len: int, bm: int, bn: int,
     skips = torch.empty((m_tiles, splits), dtype=torch.int32, device=q.device)
     stats = (torch.zeros((m_tiles, splits, 4), dtype=torch.int32, device=q.device)
              if return_stats else None)
-    rc = load_library().knn_int8_scan(
-        q.data_ptr(), x8.data_ptr(), qn.data_ptr(), scales.data_ptr(), err.data_ptr(),
-        hn.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), scratch_v.data_ptr(),
-        scratch_i.data_ptr(), skips.data_ptr(), None if stats is None else stats.data_ptr(),
-        m, n, d, q_len, bm, bn, int(prune), splits, tps, cap,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):
+        rc = load_library().knn_int8_scan(
+            q.data_ptr(), x8.data_ptr(), qn.data_ptr(), scales.data_ptr(), err.data_ptr(),
+            hn.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), scratch_v.data_ptr(),
+            scratch_i.data_ptr(), skips.data_ptr(),
+            None if stats is None else stats.data_ptr(), m, n, d, q_len, bm, bn, int(prune),
+            splits, tps, cap, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "knn_int8_scan")
     LAUNCHES["knn_int8_scan"] += 1
     return (out_v, out_i, skips, stats) if return_stats else (out_v, out_i, skips)

@@ -59,6 +59,7 @@ from repro_torch.kernels.knn.kernel import (
     LAUNCHES,
     _check_cuda,
     _raise_on,
+    on_card,
 )
 
 #: Largest batch the stream kernel takes; above it the tiled kernel runs.
@@ -174,10 +175,11 @@ def _launch(q, x, qn, xn, config: L2distConfig):
     from repro_torch.kernels.build import load_library
 
     out = torch.empty((m, n), dtype=torch.float32, device=q.device)
-    rc = load_library().l2dist(
-        q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out.data_ptr(), m, n, d,
-        int(config.path == "tiled"), config.bm, config.grid[0], config.span,
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):
+        rc = load_library().l2dist(
+            q.data_ptr(), x.data_ptr(), qn.data_ptr(), xn.data_ptr(), out.data_ptr(), m, n, d,
+            int(config.path == "tiled"), config.bm, config.grid[0], config.span,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "l2dist")
     LAUNCHES["l2dist"] += 1
     return out

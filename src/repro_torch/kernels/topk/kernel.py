@@ -50,6 +50,7 @@ from repro_torch.kernels.knn.kernel import (
     _raise_on,
     _resolve_splits,
     knn_merge,
+    on_card,
     plain_queues,
     tiles_per_split,
 )
@@ -107,10 +108,11 @@ def topk_scan(scores, k_eff: int, bn: int, splits: int | None = None,
     out_i = torch.empty((m, splits, k_eff), dtype=torch.int32, device=scores.device)
     stats = (torch.zeros((m, splits, 4), dtype=torch.int32, device=scores.device)
              if return_stats else None)
-    rc = load_library().topk_scan(
-        scores.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-        None if stats is None else stats.data_ptr(), m, n, k_eff, bn, splits, tps, _CAP,
-        torch.cuda.current_stream(scores.device).cuda_stream)
+    with on_card(scores.device):
+        rc = load_library().topk_scan(
+            scores.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            None if stats is None else stats.data_ptr(), m, n, k_eff, bn, splits, tps, _CAP,
+            torch.cuda.current_stream(scores.device).cuda_stream)
     _raise_on(rc, "topk_scan")
     LAUNCHES["topk"] += 1
     return (out_v, out_i, stats) if return_stats else (out_v, out_i)

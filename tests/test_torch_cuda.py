@@ -4,7 +4,9 @@ knn_merge, knn_int8_scan, l2dist and topk; the LM decode path
 two-tower retrieval on the kernel, and recommender and GNN train steps on
 the card against the CPU; the substrate on a mesh of logical positions on
 the card (the kNN and retrieval cells, the row-sharded table, the MoE and
-flash-decode islands, the elastic round trip).
+flash-decode islands, the elastic round trip); on two cards or more, each
+kernel launched for a card that is not current and the mesh over distinct
+cards (these skip on one card).
 
 These tests need an NVIDIA card with ``nvcc`` (the library is built on
 first launch); elsewhere they skip. They import neither JAX nor the JAX
@@ -1386,3 +1388,109 @@ def test_elastic_round_trip_on_the_card(dev, tmp_path):
         a = torch.stack(a.parts) if hasattr(a, "parts") else a
         b = torch.stack([t.full() for t in b.parts]) if hasattr(b, "parts") else b.full()
         assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------ distinct cards
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _each_guarded_kernel(q, x) -> dict:
+    """Every kernel the library launches, on (q, x)'s card: knn_scan,
+    knn_merge, the pilot's scan and merge, knn_int8_scan, l2dist, topk."""
+    from repro_torch.core.quantized import quantize_dataset
+    from repro_torch.kernels.l2dist import kernel as L
+    from repro_torch.kernels.topk import kernel as T
+
+    qn, xn = torch.sum(q * q, -1), torch.sum(x * x, -1)
+    sv, si, skips = K.knn_scan(q, x, qn, xn, 64, "l2", 16, 512, True, 32)
+    ds = quantize_dataset(x)
+    int8 = ops.int8_shard_operands(q, ds.q, ds.scales, ds.err, ds.qnorm_sq, 63)
+    scores = L.l2dist_tiles(q, x, qn, xn)
+    return {"knn_scan": (sv, si, skips), "knn_merge": K.knn_merge(sv, si),
+            "pilot": K.pilot_bound(q, x, qn, xn, 64, "l2", 16, 512, 2048),
+            "knn_int8_scan": K.knn_int8_scan(*int8, True, 8), "l2dist": (scores,),
+            "topk": T.topk_scan(scores, 64, 512, 16)}
+
+
+def test_each_guarded_kernel_launches_on_the_card_of_its_operands(cards):
+    """With card 0 current, every kernel launched for tensors on card 1
+    runs there (the launch guard makes their card current, then restores
+    card 0) and gives card 0's bits."""
+    g = torch.Generator(device=cards[0]).manual_seed(41)
+    q, x = _ints((16, 256), g, cards[0]), _ints((65536, 256), g, cards[0])
+    want = _each_guarded_kernel(q, x)
+    with torch.cuda.device(cards[0]):
+        K.reset_launch_counts()
+        got = _each_guarded_kernel(q.to(cards[1]), x.to(cards[1]))
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(cards[1])
+    assert K.LAUNCHES == {"knn_scan": 2, "knn_merge": 2, "knn_int8_scan": 1, "topk": 1,
+                          "l2dist": 1}
+    for name, outs in want.items():
+        for a, b in zip(outs, got[name]):
+            assert b.device == cards[1] and torch.equal(a.cpu(), b.cpu()), name
+
+
+def test_a_launch_with_operands_on_two_cards_raises(cards):
+    from repro_torch.core.quantized import quantize_dataset
+    from repro_torch.kernels.l2dist import kernel as L
+
+    a, b = cards[:2]
+    q, x = torch.ones(16, 256, device=a), torch.ones(1024, 256, device=b)
+    qn, xn = q.sum(-1), x.sum(-1)
+    v = torch.zeros(16, 2, 64, device=a)
+    ds = quantize_dataset(torch.ones(1024, 256, device=a))
+    int8 = list(ops.int8_shard_operands(q, ds.q, ds.scales, ds.err, ds.qnorm_sq, 63))
+    int8[1] = int8[1].to(b)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="share one CUDA device"):
+        K.knn_scan(q, x, qn, xn, 64, "l2", 16, 512)
+    with pytest.raises(ValueError, match="share one CUDA device"):
+        K.knn_merge(v, torch.zeros(16, 2, 64, dtype=torch.int32, device=b))
+    with pytest.raises(ValueError, match="share one CUDA device"):
+        K.knn_int8_scan(*int8)
+    with pytest.raises(ValueError, match="share one CUDA device"):
+        L.l2dist_tiles(q, x, qn, xn)
+    assert sum(K.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("mode", ["fqsd", "fdsq"])
+def test_the_mesh_over_distinct_cards_answers_as_one_card(cards, mode):
+    """``Router.create(devices=n)`` over n distinct cards (four where there
+    are, else two): the ring (fqsd) and FD-SQ's merge tree answer as one
+    card's scan of the same rows, bit for bit on integer rows."""
+    from repro_torch.api import Router
+
+    n = 4 if len(cards) >= 4 else 2
+    g = torch.Generator(device=cards[0]).manual_seed(43)
+    x, q = _ints((n * 65536, 256), g, cards[0]), _ints((64, 256), g, cards[0])
+    eng = Router().create("ring", x, devices=n, k=1024, backend="cuda")
+    assert list(eng.mesh.devices.flat) == cards[:n]
+    got = eng.search(SearchRequest(queries=q, mode_hint=mode))
+    want = ExactKNN(k=1024, backend="cuda", device=cards[0]).fit(x).search(
+        SearchRequest(queries=q, mode_hint=mode))
+    assert got.plan.executor == f"{mode}-sharded"
+    assert got.topk.scores.device == cards[0]
+    assert torch.equal(got.topk.scores, want.topk.scores)
+    assert torch.equal(got.topk.indices, want.topk.indices)
+
+
+def test_blocks_fitted_over_distinct_cards_hold_their_own_bytes(cards):
+    """Fitted from rows on card 0 and the rows dropped, every card's block
+    (vectors and norms) is memory of its own, not a view that keeps a
+    larger tensor alive on its card."""
+    from repro_torch.api import Router
+
+    g = torch.Generator(device=cards[0]).manual_seed(44)
+    x = _ints((len(cards) * 4096, 256), g, cards[0])
+    eng = Router().create("own", x, devices=len(cards), k=16, backend="cuda")
+    del x
+    for sharded in (eng._ds.vectors, eng._ds.norms):
+        for dev, block in zip(cards, sharded.local):
+            assert block.device == dev
+            assert block.untyped_storage().nbytes() == block.nbytes

@@ -220,3 +220,33 @@ def test_the_per_search_logs_keep_their_last_values(monkeypatch):
     st = sched.stats()["per_plan"]["fdsq"]
     assert st["count"] == 8 and np.isfinite(st["p50_ms"])
     assert torch.is_tensor(eng.search(SearchRequest(queries=q[0])).topk.scores)
+
+
+def test_a_ring_search_records_its_steps_shipments_and_gather():
+    """The FQ-SD ring on four logical CPU positions (``Router.create``'s
+    ``devices``): a ``ring.step`` span a step, each but the last holding a
+    ``ring.ship``; one ``mesh.gather``; the counters count the D - 1 = 3
+    steps' shipments of 4 blocks, each its vectors and norms. Without a
+    profiler nothing is recorded."""
+    from repro_torch.api import Router
+
+    x = np.random.default_rng(3).integers(-8, 9, (2048, D)).astype(np.float32)
+    eng = Router().create("c", x, devices=["cpu"] * 4, k=5, backend="torch", device="cpu")
+    req = SearchRequest(queries=_queries(8), mode_hint="fqsd")
+    eng.search(req)
+    assert tracing.spans() == [] and tracing.counters() == {}
+    with _cpu_profile():
+        res = eng.search(req)
+    assert res.plan.executor == "fqsd-sharded"
+    by = _by_name(tracing.spans())
+    steps = by["ring.step"]
+    assert [s.attrs for s in steps] == [{"step": s, "positions": 4} for s in range(4)]
+    (launch,) = by["executor.launch"]
+    assert all(s.parent == launch.id for s in steps)
+    ships = by["ring.ship"]
+    assert sorted(s.parent for s in ships) == [s.id for s in steps[:3]]
+    (gather,) = by["mesh.gather"]
+    assert gather.parent == launch.id and gather.start >= steps[-1].end
+    vec, nrm = eng._ds.vectors, eng._ds.norms
+    block = vec.local[0].nbytes + nrm.local[0].nbytes
+    assert tracing.counters() == {"ring.blocks_shipped": 12, "ring.bytes_shipped": 12 * block}
